@@ -8,8 +8,8 @@ toolkit (nvcc):
 
 Phases, each printed as it ends (any failure exits non-zero):
 
-1. the card's name and power limit; the decode kernels built with nvcc
-   from nes_img_captioning_tpu_torch/csrc/ (ptxas register report);
+1. the card's name and power limit; the kernels built with nvcc from
+   nes_img_captioning_tpu_torch/csrc/ (ptxas register report);
 2. K1 (decode_fused) at full width on a chunk of 48 members, f32 (TF32
    off) and bf16, logprobs on and off, against its plain PyTorch twin;
 3. K2 (decode_pair_perturb) on 24 pairs with a bf16 delta: tokens equal K1
@@ -20,8 +20,24 @@ Phases, each printed as it ends (any failure exits non-zero):
    kernel and through the per-member path, each after one untimed warm-up
    generation: packed vectors bitwise equal, fitnesses finite, theta
    changed, launch counts read around each path;
-5. each kernel's time at these shapes beside its plain twin's, a cuBLAS
-   yardstick for its products, and its bound.
+5. K1's and K2's times at these shapes beside their plain twins', a cuBLAS
+   yardstick for their products, and their bound; one profiled generation;
+6. K7 (pair_delta_dump) on 24 seeds: the card's Philox words equal the
+   plain stream's, and its deltas the plain version's within 8 ulps;
+7. K5 (decode_pair_rng), f32 and bf16: tokens and lp bitwise equal to K2
+   fed K7's dump, and held to the plain version;
+8. K6 (pair_grad_rng) over a generation's 144 lanes: bitwise the ordered
+   f32 sum of K7's dumps, and within 1e-6 of its plain version;
+9. three kernel-noise generations (tpu.kernel_noise) after a warm-up: K5
+   and K6 launched, K1, K2 and K7 not; bitwise equal to the delta-operand
+   generation fed K7's dumps; one profiled generation with no normal_
+   kernel;
+10. NESMaster on experiments/mscoco_nes.json cut to 144 pairs, batch 128,
+    pop_chunk 24, bf16, 256 validation images, kernel noise on: 4
+    iterations with validation and snapshots, then a resume from the
+    snapshot for one more generation — the path a user runs;
+11. K5's, K6's and K7's times beside their plain versions', the delta-operand
+    path doing the same work, and their bounds.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -30,6 +46,7 @@ Then one JSON line of kernel measurements, the nvidia-smi line, and last
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -107,6 +124,35 @@ def decode_flops(n_steps, B: int, F: int, Vpad: int) -> float:
     members = n_steps.numel()
     return 2.0 * B * (members * (F * W + 2 * W * 5 * W)
                       + n * (2 * W * 5 * W + W * Vpad))
+
+
+def profile_generation(eng, theta, sens, seeds, batches):
+    """One generation under torch.profiler: (wall ms, card-busy ms, kernel
+    rows (ms, count, name) by device time). Busy is the union of the
+    kernels' intervals, so streams that overlap count once."""
+    import torch
+
+    state = eng.optimizer.init(eng.dim, theta.device)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.generation(theta, state, sens, BENCH["sigma"], seeds, batches,
+                       BENCH["stepsize"], BENCH["l2coeff"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel rows only: an operator's row repeats its kernels' device time
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
+                   for evt in prof.key_averages() if evt.device_type == cuda),
+                  reverse=True)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events() if e.device_type == cuda):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return wall_ms, busy / 1e3, rows
 
 
 def main() -> int:
@@ -341,34 +387,299 @@ def main() -> int:
 
     # where one pair-kernel generation spends the card's time
     eng = runs["pair kernel"][4]
-    state = eng.optimizer.init(eng.dim, dev)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng.generation(theta, state, sens, BENCH["sigma"], seeds[0],
-                       batches[0], BENCH["stepsize"], BENCH["l2coeff"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: an operator's row repeats its kernels' device time
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
-                   for evt in prof.key_averages() if evt.device_type == cuda),
-                  reverse=True)
-    # busy = the union of the kernels' intervals (streams overlap)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in prof.events() if e.device_type == cuda):
-        busy += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    busy /= 1e3
+    wall_ms, busy, rows = profile_generation(eng, theta, sens, seeds[0],
+                                             batches[0])
     log(f"[5] one generation under torch.profiler: wall {wall_ms:.3f} ms, "
         f"card busy {busy:.3f} ms ({busy / wall_ms:.2%}; idle "
         f"{1 - busy / wall_ms:.2%}), kernel time summed over streams "
         f"{sum(r[0] for r in rows):.3f} ms ({card})")
     for ms, count, key in rows[:12]:
         log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    # ---- [6] K7: the card's noise stream against the plain one -------------
+    seeds24 = seeds[0][:P]
+    scale_params = lay.prep(scale, torch.float32)
+    words = dc.philox_words(int(seeds24[0]), lay.dim_dec // 2 + 1, dev)
+    if not torch.equal(words, dc.philox_words(int(seeds24[0]),
+                                              lay.dim_dec // 2 + 1, "cpu")
+                       .to(dev)):
+        raise AssertionError("K7: the card's Philox words differ")
+    if dc.philox_words(0, 1, dev)[0].tolist() != [
+            0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]:
+        raise AssertionError("K7: Philox known-answer vector differs")
+    dump = dc.pair_delta_dump(scale_params, seeds24)
+    dump_flat = torch.stack([lay.flat_dec({k: v[p] for k, v in dump.items()})
+                             for p in range(P)])
+    plain_flat = torch.stack([
+        lay.flat_dec(dc.pair_delta_dump_plain(scale_params, int(sd)))
+        for sd in seeds24])
+    torch.cuda.synchronize()
+    k7_err = float((dump_flat - plain_flat).abs().max())
+    # logf and cosf are within 1-2 ulp of the exact result, on the card and
+    # in torch's kernels alike; |n| < 6, where 8 ulps are 8 * 4.77e-7
+    k7_tol = 8 * 4.77e-7 * BENCH["sigma"]
+    if k7_err > k7_tol:
+        raise AssertionError(f"K7: |delta - plain| {k7_err:.3g} > {k7_tol:.3g}")
+    if (dump_flat[:, scale == 0] != 0).any():
+        raise AssertionError("K7: a pad lane drew noise")
+    same = float((dump_flat == plain_flat).float().mean())
+    log(f"[6] K7 pair_delta_dump, {P} seeds x {lay.dim_dec:,}: Philox words "
+        f"bitwise equal to the plain stream (known answer too); "
+        f"max |delta - plain| {k7_err:.3g} (<= {k7_tol:.3g}: 8 ulps), "
+        f"{same:.4%} bitwise equal; pad lanes 0")
+
+    # ---- [7] K5: bitwise K2 fed K7's dump, held to its plain version --------
+    k5 = {}
+    for dt in (torch.float32, torch.bfloat16):
+        seq5, lp5 = dc.decode_pair_rng(base, scale_params, seeds24, feats, T,
+                                       dt, True)
+        seq2, lp2 = dc.decode_pair_perturb(base, dump, feats, T, dt, True)
+        if not (torch.equal(seq5, seq2) and torch.equal(lp5, lp2)):
+            raise AssertionError(f"K5 {dt}: not bitwise equal to K2 fed "
+                                 "K7's dump")
+        pert = torch.stack([base_vec + plain_flat, base_vec - plain_flat],
+                           1).reshape(2 * P, -1)
+        seq_p, lp_p, gap_p = dc.decode_fused_plain(
+            lay.prep(pert, dt), feats2, T, True, top2_gap=True)
+        share, n_diff = check_near_ties(seq5.reshape(2 * P, B, T), seq_p,
+                                        gap_p, f"K5 {dt}")
+        if dt == torch.float32:
+            ok = (seq5.reshape(2 * P, B, T) == seq_p).all(-1)
+            k5["max_abs_err"] = float(
+                (lp5.reshape(2 * P, B, T) - lp_p).abs()[ok].max())
+        log(f"[7] K5 decode_pair_rng {dt}: tokens and lp bitwise equal to "
+            f"K2 fed K7's dump; {share:.4%} of rows identical to the plain "
+            f"version, {n_diff} differ at near-ties"
+            + (f"; max |lp - plain| {k5['max_abs_err']:.3g} on identical "
+               "rows" if dt == torch.float32 else ""))
+
+    # ---- [8] K6: bitwise the ordered sum of K7's dumps ---------------------
+    F = BENCH["pairs"]
+    n_chunks = -(-F // P)
+    seeds_all = np.concatenate([seeds[0], seeds[0][-1:].repeat(
+        n_chunks * P - F)])
+    w_all = torch.as_tensor(np.random.default_rng(1).uniform(
+        -1, 1, size=n_chunks * P).astype(np.float32), device=dev)
+    w_all[F:] = 0.0
+    grad6 = lay.flat_dec(dc.pair_grad_rng(scale_params, seeds_all, w_all))
+    dumps = dc.pair_delta_dump(scale_params, seeds_all)
+    ordered = torch.zeros_like(grad6)
+    for i in range(seeds_all.shape[0]):
+        ordered = ordered + w_all[i] * lay.flat_dec(
+            {k: v[i] for k, v in dumps.items()})
+    del dumps
+    if not torch.equal(grad6, ordered):
+        raise AssertionError("K6: not bitwise the ordered sum of K7's dumps")
+    grad6_plain = lay.flat_dec(dc.pair_grad_rng_plain(scale_params,
+                                                      seeds_all, w_all))
+    torch.cuda.synchronize()
+    k6_err = float((grad6 - grad6_plain).abs().max())
+    if k6_err > 1e-6:
+        raise AssertionError(f"K6: |grad - plain| {k6_err:.3g} > 1e-6")
+    log(f"[8] K6 pair_grad_rng over {seeds_all.shape[0]} lanes: bitwise the "
+        f"ordered f32 sum of K7's dumps; max |grad - plain| {k6_err:.3g}")
+
+    # ---- [9] the kernel-noise generation -----------------------------------
+    eng_n = NESEngine(task, Adam(BENCH["stepsize"]), MutationKind.DEFAULT,
+                      pop_chunk=P, kernel_perturb=True, kernel_noise=True,
+                      delta_dtype="bf16")
+    th, state = theta.clone(), eng_n.optimizer.init(eng_n.dim, dev)
+    eng_n.generation(th, state, sens, BENCH["sigma"], seeds[0], batches[0],
+                     BENCH["stepsize"], BENCH["l2coeff"])  # warm-up
+    torch.cuda.synchronize()
+    counters = (dc.decode_fused, dc.decode_pair_perturb, dc.decode_pair_rng,
+                dc.pair_grad_rng, dc.pair_delta_dump)
+    for c in counters:
+        c.launches = 0
+    times_n, packs_n = [], []
+    for g in range(BENCH["gens"]):
+        t0 = time.perf_counter()
+        th, state, packed = eng_n.generation(
+            th, state, sens, BENCH["sigma"], seeds[g], batches[g],
+            BENCH["stepsize"], BENCH["l2coeff"])
+        torch.cuda.synchronize()
+        times_n.append(time.perf_counter() - t0)
+        packs_n.append(packed)
+    counts_n = tuple(c.launches for c in counters)
+    want_n = (0, 0, n_chunks * BENCH["gens"], BENCH["gens"], 0)
+    if counts_n != want_n:
+        raise AssertionError(f"kernel-noise launches (K1, K2, K5, K6, K7) "
+                             f"{counts_n} != {want_n}")
+    if not torch.isfinite(torch.stack(packs_n)).all():
+        raise AssertionError("kernel-noise generation: non-finite output")
+    med_pair = np.median(runs["pair kernel"][2]) * 1e3
+    log(f"[9] kernel-noise path: {BENCH['gens']} generations, ms each "
+        f"{[round(t * 1e3, 3) for t in times_n]}, median "
+        f"{np.median(times_n) * 1e3:.3f} ms (delta-operand pair-kernel path "
+        f"in [4]: median {med_pair:.3f} ms); launches K5 {counts_n[2]}, "
+        f"K6 {counts_n[3]}, K7 0, K1 0, K2 0 ({card})")
+    # eval and gradient see the noise K7 dumps: the delta-operand path fed
+    # the dumps gives the same generation bit for bit
+    for c in counters:
+        c.launches = 0
+    eng_d = NESEngine(task, Adam(BENCH["stepsize"]), MutationKind.DEFAULT,
+                      pop_chunk=P, kernel_perturb=True, delta_dtype="f32")
+    eng_d.delta_of = lambda scale_dec, seed: lay.flat_dec(
+        dc.pair_delta_dump(lay.prep(scale_dec, torch.float32), seed))
+    outs = [e.generation(theta, e.optimizer.init(e.dim, dev), sens,
+                         BENCH["sigma"], seeds[0], batches[0],
+                         BENCH["stepsize"], BENCH["l2coeff"])
+            for e in (eng_n, eng_d)]
+    torch.cuda.synchronize()
+    check_counts = tuple(c.launches for c in counters)
+    if not (torch.equal(outs[0][2], outs[1][2])
+            and torch.equal(outs[0][0], outs[1][0])):
+        raise AssertionError("kernel-noise and delta-operand (K7 dumps) "
+                             "generations differ")
+    log(f"[9] kernel-noise generation bitwise equal to the delta-operand "
+        f"generation fed K7's dumps (launches K1, K2, K5, K6, K7: "
+        f"{check_counts})")
+    wall_n, busy_n, rows_n = profile_generation(eng_n, theta, sens,
+                                                seeds[0], batches[0])
+    names = [key for _, _, key in rows_n]
+    if any("normal" in key.lower() for key in names):
+        raise AssertionError("kernel-noise generation ran a normal_ kernel")
+    log(f"[9] one kernel-noise generation under torch.profiler: wall "
+        f"{wall_n:.3f} ms, card busy {busy_n:.3f} ms ({busy_n / wall_n:.2%};"
+        f" idle {1 - busy_n / wall_n:.2%}); no normal_ kernel ({card})")
+    for ms, count, key in rows_n[:12]:
+        log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    # ---- [10] NESMaster: train, validate, snapshot, resume -------------------
+    import glob
+    import shutil
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    data = task.data
+    runs_dir = os.path.join("logs", f"chip_smoke_{os.getpid()}")
+
+    def experiment(name: str) -> dict:
+        exp = load_experiment("experiments/mscoco_nes.json")
+        exp["config"].update(batch_size=B, val_batch_size=256,
+                             num_val_items=256, snapshot_freq=2)
+        exp["policy_options"]["model_options"]["fc_feat_size"] = Fd
+        exp["nb_offspring"] = F
+        exp["tpu"].update(pop_chunk=P, precision="bf16", delta_dtype="bf16",
+                          gens_per_dispatch=2, kernel_noise=True)
+        exp["log_dir"] = os.path.join(runs_dir, name)
+        return exp
+
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    master = NESMaster(experiment("train"), device=dev, data=data)
+    master.run_master(max_iterations=4)
+    torch.cuda.synchronize()
+    counts_m = tuple(c.launches for c in counters)
+    t_master = time.perf_counter() - t0
+    acc = master.stats.acc_stats()
+    if master.it.iteration() != 4 or len(acc) != 4 or \
+            not np.isfinite(master.stats.score_stats()[1]).all():
+        raise AssertionError("NESMaster: 4 finite iterations with "
+                             "validation expected")
+    if counts_m[2] != 4 * n_chunks or counts_m[3] != 4 or counts_m[0] < 4 \
+            or counts_m[1] or counts_m[4]:
+        raise AssertionError(f"NESMaster launches (K1, K2, K5, K6, K7) "
+                             f"{counts_m}")
+    zinfo = glob.glob(os.path.join(runs_dir, "train", "snapshot",
+                                   "z_info_*.json"))
+    if len(zinfo) != 1 or not zinfo[0].endswith(
+            f"_i4-{task.train_n // B}.json"):
+        raise AssertionError(f"NESMaster snapshot: {zinfo}")
+    log(f"[10] NESMaster (experiments/mscoco_nes.json at 144 pairs, batch "
+        f"128, pop_chunk 24, bf16, kernel_noise): 4 iterations in "
+        f"{t_master:.1f} s; validation CIDEr {[round(a, 4) for a in acc]}; "
+        f"mean fitness {[round(m, 4) for m in master.stats.score_stats()[1]]}"
+        f"; ms per iteration (generation + validation) "
+        f"{[round(t * 1e3, 3) for t in master.stats.time_stats()]}"
+        f"; launches K1 {counts_m[0]}, K5 {counts_m[2]}, K6 {counts_m[3]}, "
+        f"K2 0, K7 0; snapshot {os.path.basename(zinfo[0])}")
+    exp2 = experiment("resume")
+    exp2["from_infos"] = zinfo[0]
+    resumed = NESMaster(exp2, device=dev, data=data)
+    if not torch.equal(resumed.theta, master.theta) or \
+            int(resumed.opt_state.t) != 4 or \
+            resumed._pending_loader_state is None:
+        raise AssertionError("resume: theta, optimizer step or loader "
+                             "state not restored")
+    # as in the JAX package, a resumed run labels its first generation with
+    # the snapshot's iteration (z_info counters are stored post-increment)
+    resumed.run_master(max_iterations=4)
+    if len(resumed.stats.acc_stats()) != 5 \
+            or torch.equal(resumed.theta, master.theta):
+        raise AssertionError("resume: one more generation expected")
+    log(f"[10] resumed from {os.path.basename(zinfo[0])}: theta, Adam step "
+        f"4 and the seed and batch streams restored; one more generation "
+        f"trained and validated (CIDEr "
+        f"{resumed.stats.acc_stats()[-1]:.4f})")
+    shutil.rmtree(runs_dir)
+
+    # ---- [11] K5-K7 times at the main path's shapes --------------------------
+    k5_ms = time_ms(lambda: dc.decode_pair_rng(
+        base, scale_params, seeds24, feats, T, torch.bfloat16, False))
+    k5_plain = time_ms(lambda: dc.decode_pair_rng_plain(
+        base, scale_params, seeds24, feats, T, torch.bfloat16, False), reps=2)
+    k7_ms = time_ms(lambda: dc.pair_delta_dump(scale_params, seeds24))
+    k7_plain = time_ms(lambda: dc.pair_delta_dump_plain(scale_params,
+                                                        seeds24), reps=2)
+    k6_ms = time_ms(lambda: dc.pair_grad_rng(scale_params, seeds_all, w_all))
+    k6_plain = time_ms(lambda: dc.pair_grad_rng_plain(scale_params,
+                                                      seeds_all, w_all),
+                       reps=1)
+    # the delta-operand path doing the same work: seeded torch.randn per
+    # pair times the scale (K7), and that regeneration plus the ordered
+    # weighted sum of the engine's gradient (K6)
+    eng_f = NESEngine(task, Adam(BENCH["stepsize"]), MutationKind.DEFAULT,
+                      pop_chunk=P, kernel_perturb=True, delta_dtype="f32")
+    k7_delta = time_ms(lambda: eng_f._deltas(scale, seeds24), reps=3)
+    w_l = w_all.reshape(n_chunks, P)
+    seeds_l = seeds_all.reshape(n_chunks, P)
+
+    def delta_grad():
+        g = torch.zeros_like(scale)
+        for c in range(n_chunks):
+            g = eng_f._accumulate(g, w_l[c], eng_f._deltas(scale, seeds_l[c]))
+        return g
+
+    k6_delta = time_ms(delta_grad, reps=3)
+    seq5, _ = dc.decode_pair_rng(base, scale_params, seeds24, feats, T,
+                                 torch.bfloat16, False)
+    flops5 = decode_flops(executed_steps(seq5.reshape(2 * P, B, T), T), B,
+                          Fd, Vpad)
+    f32_bytes = lay.dim_dec * 4
+    k5_bytes = 2 * f32_bytes + feats.numel() * 2 + seq5.numel() * 8
+    k7_bytes = f32_bytes + P * f32_bytes + P * 4
+    k6_bytes = 2 * f32_bytes + seeds_all.shape[0] * 8
+    for name, replaces, ms, plain, nbytes, flops, err, launches, lib, dpath, \
+            normals in (
+        ("decode_pair_rng", "nes_img_captioning_tpu/ops/decode_pallas.py:488",
+         k5_ms, k5_plain, k5_bytes, flops5, k5["max_abs_err"], counts_m[2], lib_ms,
+         None, 2 * P * lay.dim_dec),
+        ("pair_grad_rng", "nes_img_captioning_tpu/ops/decode_pallas.py:587",
+         k6_ms, k6_plain, k6_bytes, 0.0, k6_err, counts_m[3], None, k6_delta,
+         seeds_all.shape[0] * lay.dim_dec),
+        ("pair_delta_dump", "nes_img_captioning_tpu/ops/decode_pallas.py:533",
+         k7_ms, k7_plain, k7_bytes, 0.0, k7_err, check_counts[4], None,
+         k7_delta, P * lay.dim_dec),
+    ):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "delta_path_ms": dpath,
+            "normals_per_s": normals / (ms * 1e-3)})
+        log(f"[11] {name}: {ms:.3f} ms per launch (plain {plain:.3f} ms, "
+            + (f"cuBLAS products {lib:.3f} ms, " if lib is not None else
+               f"delta-operand path {dpath:.3f} ms, ")
+            + f"bound {b_ms:.4f} ms by {b_by}; {normals:,} normals, "
+            f"{normals / (ms * 1e-3):.4g} per s; {nbytes / 1e6:.1f} MB) "
+            f"({card})")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-"""NIC-NES engine (port of ``NESEngine`` in ``nes_img_captioning_tpu/algorithms/nes.py``).
+"""NIC-NES (port of ``nes_img_captioning_tpu/algorithms/nes.py``): the
+``NESEngine`` of one generation and the ``NESMaster`` training loop.
 
 One generation, in the decode-ordered parameter layout (ops/decode_layout.py):
 
@@ -10,24 +11,47 @@ One generation, in the decode-ordered parameter layout (ops/decode_layout.py):
 3. CIDEr-D scores every decoded row on the device;
 4. centered ranks give the pair weights (pad lanes weight 0);
 5. the gradient sum_i w_i * delta_i is rebuilt from deltas drawn again from
-   the seeds and mapped back with ``from_dec``;
+   the seeds, summed over the pairs in order, and mapped back with
+   ``from_dec``;
 6. the optimizer steps, and ``[fitness | ratio | mean|theta|]`` is packed.
 
-The two eval paths feed the fitness scorer the same tensors laid out the
-same way, so with equal tokens their packed vectors are bitwise equal.
+With ``tpu.kernel_noise`` on (it rides on the pair kernel), steps 1, 2 and 5
+draw no noise outside the kernels: K5 (``decode_pair_rng``) makes each
+pair's f32 delta in the kernel from its seed, once per chunk, and K6
+(``pair_grad_rng``) draws the same deltas again and sums the weighted
+gradient, once per generation (JAX: ``nes.py:356-403``).
+
+The eval paths feed the fitness scorer the same tensors laid out the same
+way, and every gradient sums ``w_i * delta_i`` in pair order with each
+product rounded to f32 first (K6's order), so with equal tokens and equal
+deltas their packed vectors are bitwise equal.
 Reference math: src/algorithm/nic_nes/nic_nes_master.py:123-133,170-182.
 """
 
 from __future__ import annotations
 
+import json
+import logging
+import os
+import time
+
 import numpy as np
 import torch
 
 from .engine_base import PopulationEngine
+from .experiment import NESExperiment
+from .iteration import Iteration
+from .snapshot import load_loader_state, save_snapshot
+from .statistics import Statistics
+from ..data.core import build_sampler
 from ..ops.mutation import MutationKind, normal_from_seed, shape_noise
 from ..ops.ranks import compute_centered_ranks
+from ..utils.config import parse_config, parse_tpu_config
+from ..utils.files import mkdir_p, remove_all_files_from_dir
 
-__all__ = ["NESEngine"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["NESEngine", "NESMaster", "setup_log_dir"]
 
 
 class NESEngine(PopulationEngine):
@@ -35,7 +59,7 @@ class NESEngine(PopulationEngine):
 
     def __init__(self, task, optimizer, mutation: MutationKind,
                  pop_chunk: int = 0, kernel_perturb: object = "auto",
-                 delta_dtype: str = "f32"):
+                 kernel_noise: object = "auto", delta_dtype: str = "f32"):
         super().__init__(task, pop_chunk=pop_chunk)
         self.optimizer = optimizer
         if mutation in (MutationKind.SAFE_GRAD_SUM, MutationKind.SAFE_GRAD_ABS):
@@ -56,6 +80,15 @@ class NESEngine(PopulationEngine):
                 f"delta_dtype={delta_dtype!r}: expected 'f32' or 'bf16'")
         self._delta_dtype = (torch.bfloat16 if delta_dtype == "bf16"
                              else torch.float32)
+        # in-kernel noise: "auto" resolves off, as in the JAX package
+        # (nes.py:163-164); true needs the pair kernel active
+        noise_ok = self._kernel_perturb and task.supports_kernel_noise
+        self._kernel_noise = kernel_noise is True and noise_ok
+        if kernel_noise is True and not noise_ok:
+            logger.warning(
+                "tpu.kernel_noise=true but the pair kernel is not active "
+                "here (tpu.kernel_perturb=false, or the task lacks it); "
+                "using delta operands")
 
     # ---- math ----------------------------------------------------------------------
 
@@ -75,6 +108,15 @@ class NESEngine(PopulationEngine):
 
     def _deltas(self, scale_dec, seeds_c) -> torch.Tensor:
         return torch.stack([self.delta_of(scale_dec, int(s)) for s in seeds_c])
+
+    @staticmethod
+    def _accumulate(grad, w_c, deltas_c):
+        """grad + sum_i w_i * delta_i over one chunk, in pair order, each
+        product rounded to f32 before it is added: the order of K6
+        (pair_grad_rng), so both noise paths give the same gradient bits."""
+        for w, d in zip(w_c, deltas_c):
+            grad = grad + w * d.to(torch.float32)
+        return grad
 
     def _apply_grad(self, theta, opt_state, grad, fitness_count, stepsize,
                     l2coeff):
@@ -114,8 +156,15 @@ class NESEngine(PopulationEngine):
                                pad_scale=0.0)
         if self._kernel_perturb:
             base_params = task.pair_base_params(base_vec)
+        if self._kernel_noise:
+            scale_params = task.pair_base_params(scale_dec)
         fits = []
         for c in range(n_chunks):
+            if self._kernel_noise:
+                fits.append(task.rollout_pair_rng(base_params, scale_params,
+                                                  seeds_l[c], idx_l[c],
+                                                  consts=consts))
+                continue
             deltas = self._deltas(scale_dec, seeds_l[c])
             if self._kernel_perturb:
                 fits.append(task.rollout_pair_dec(base_params, deltas,
@@ -130,9 +179,16 @@ class NESEngine(PopulationEngine):
         fitnesses = torch.cat(fits).reshape(-1, 2)[:F]
 
         weights = self._pair_weights(fitnesses, seeds_l.shape)
-        grad = torch.stack([
-            weights[c] @ self._deltas(scale_dec, seeds_l[c]).to(torch.float32)
-            for c in range(n_chunks)]).sum(0)
+        if self._kernel_noise:
+            from ..ops.decode_cuda import pair_grad_rng
+
+            grad = lay.flat_dec(pair_grad_rng(
+                scale_params, seeds_l.reshape(-1), weights.reshape(-1)))
+        else:
+            grad = torch.zeros_like(scale_dec)
+            for c in range(n_chunks):
+                grad = self._accumulate(grad, weights[c],
+                                        self._deltas(scale_dec, seeds_l[c]))
         opt_state, theta, ratio = self._apply_grad(
             theta, opt_state, lay.from_dec(grad), fitnesses.numel(), stepsize,
             l2coeff)
@@ -161,3 +217,315 @@ class NESEngine(PopulationEngine):
             else np.asarray(packed)
         fits = arr[..., :-2].reshape(*arr.shape[:-1], F, 2)
         return fits, arr[..., -2], arr[..., -1]
+
+
+def setup_log_dir(exp: dict) -> str:
+    """logs/{algo}_{dataset}_{net}_{pid} unless the experiment names one
+    (reference: tools/setup.py:22-25)."""
+    log_dir = exp.get("log_dir") or "logs/{}_{}_{}_{}".format(
+        exp["algorithm"], exp["dataset"], exp["policy_options"]["net"],
+        os.getpid())
+    mkdir_p(log_dir)
+    exp["log_dir"] = log_dir
+    return log_dir
+
+
+class NESMaster:
+    """The training loop (port of ``NESMaster`` in
+    ``nes_img_captioning_tpu/algorithms/nes.py``): owns theta and the
+    optimizer state on the device and all host-side bookkeeping (iteration,
+    statistics, podium, snapshots). One process on one card.
+
+    The snapshot's loader sidecar also carries the position of the seed
+    stream (``seed_rng_state``), so a resumed run continues the seeds as
+    well as the batches: N generations, or N/2 then a resume and N/2 more,
+    give the same theta. The JAX package's sidecar holds only the batch
+    sampler, and its resumed run draws the seeds of generation 1 again.
+
+    Not ported yet, and refused when set: fused validation
+    (``tpu.fused_validation`` true; "auto" resolves off), a device mesh
+    (``tpu.mesh_shape``), safe mutations (their sensitivities) and
+    ``tpu.profile``."""
+
+    def __init__(self, exp: dict, device=None, data=None):
+        """``device``: the card unless ``"cpu"`` is passed; ``data``: an
+        in-memory CocoData instead of the files of ``caption_options``."""
+        from ..tasks import make_task
+
+        self.exp = exp
+        self.config = parse_config(exp)
+        self.tpu_cfg = tpu = parse_tpu_config(exp)
+        for knob, value in (("fused_validation", tpu.fused_validation is True),
+                            ("mesh_shape", tpu.mesh_shape is not None),
+                            ("profile", tpu.profile)):
+            if value:
+                raise NotImplementedError(
+                    f"tpu.{knob} is not ported yet; leave it at its default")
+        popts = exp.get("policy_options", {})
+        mopts = popts.get("model_options", {})
+        self.mutation = MutationKind(mopts.get("safe_mutations", "") or "")
+        if self.mutation.is_safe:
+            raise NotImplementedError(
+                f"{self.mutation.value} needs a sensitivity, not ported yet")
+        setup_log_dir(exp)
+
+        self.task = make_task(exp, self.config, tpu, device=device,
+                              data=data)
+        self.device = self.task.device
+        self.it = Iteration(self.config, exp)
+        self.stats = Statistics()
+        self.experiment = NESExperiment(exp, self.config, self.task)
+        self.optimizer = self.experiment.optimizer
+        self.engine = NESEngine(
+            self.task, self.optimizer, self.mutation,
+            pop_chunk=tpu.pop_chunk, kernel_perturb=tpu.kernel_perturb,
+            kernel_noise=tpu.kernel_noise, delta_dtype=tpu.delta_dtype)
+
+        self._current_dir = mkdir_p(
+            os.path.join(self.it.models_dir(), "current"))
+        self._current_path = os.path.join(self._current_dir,
+                                          "0_current_params.pth")
+        self._rng = np.random.default_rng(tpu.seed)
+        self._last_eval = None
+        self._pending_loader_state = None  # set by a from_infos resume
+        self._init_theta(exp)
+        self._sampler = None  # built lazily; rebuilt on annealing
+        self.opt_state = (self.experiment.opt_state
+                          or self.optimizer.init(self.engine.dim, self.device))
+        self.experiment.opt_state = self.opt_state
+        self._sens = torch.ones(self.engine.dim, dtype=torch.float32,
+                                device=self.device)
+
+    # ---- init modes (reference: tools/setup.py:33-44) -----------------------
+
+    def _init_theta(self, exp):
+        spec = self.task.spec
+        if exp.get("from_infos"):
+            with open(exp["from_infos"]) as f:
+                infos = json.load(f)
+            self.stats.init_from_infos(infos)
+            self.it.init_from_infos(infos)
+            self.experiment.init_from_infos(infos)
+            self._pending_loader_state = load_loader_state(exp["from_infos"])
+            if self._pending_loader_state and \
+                    "seed_rng_state" in self._pending_loader_state:
+                self._rng.bit_generator.state = \
+                    self._pending_loader_state["seed_rng_state"]
+            theta = spec.load_pth(infos["current_model"])
+        elif exp.get("from_single"):
+            theta = spec.load_pth(exp["from_single"])
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(
+                int(self._rng.integers(0, 2**31 - 1)))
+            theta = self.task.generate_theta(gen)
+        self.theta = theta.to(self.device, torch.float32)
+        self._write_current_model()
+
+    def _write_current_model(self):
+        remove_all_files_from_dir(self._current_dir)
+        self.task.spec.save_pth(self.theta, self._current_path)
+        # NES checkpoint state (reference: nic_nes/iteration.py:37-41)
+        self.it.extra_state = {"current_model": self._current_path}
+
+    def _podium_would_take(self, score: float) -> bool:
+        """Would record_elites copy the current model file? (strict >: ties
+        keep incumbents.)"""
+        return any((not path) or score > sc
+                   for path, sc in self.it.best_elites())
+
+    def current_model(self) -> str:
+        return self._current_path
+
+    # ---- per-generation pieces ----------------------------------------------
+
+    def _pair_count(self) -> int:
+        """``nb_offspring`` antithetic PAIRS = 2 * nb_offspring rollouts per
+        generation (reference: nic_nes_worker.py:142-161,
+        tools/iteration.py:110-112)."""
+        return max(self.exp["nb_offspring"], 1)
+
+    def loader_state(self) -> dict | None:
+        """EpochSampler stream position and the seed stream's position, for
+        the snapshot sidecar (None before the first batch draw). The JAX
+        package reads the sampler's keys and ignores the other."""
+        if self._sampler is None:
+            return None
+        return {**self._sampler.state_dict(),
+                "seed_rng_state": self._rng.bit_generator.state}
+
+    def _draw_batches(self, F: int, bs: int) -> np.ndarray:
+        if self._sampler is None:
+            self._sampler = build_sampler(self.task.train_n, self._rng,
+                                          self._pending_loader_state)
+            self._pending_loader_state = None  # anneal rebuilds start fresh
+        if self.config.single_batch:
+            return np.tile(self._sampler.batch(bs), (F, 1))
+        return self._sampler.member_batches(F, bs)
+
+    # ---- main loop ----------------------------------------------------------
+
+    @staticmethod
+    def _gap_to_next(cur_plus1: int, freq: int, start: int = 0) -> int:
+        """Iterations from cur_plus1 (exclusive of events AT cur_plus1) to
+        the next multiple-of-freq event after it."""
+        if not freq:
+            return 1 << 30
+        j = max(cur_plus1 + 1, start)
+        rem = (j - start) % freq
+        return (j + (freq - rem) % freq) - cur_plus1
+
+    def _block_budget(self, gens_left: int, limit: int | None) -> int:
+        """Generations chained into the next block (tpu.gens_per_dispatch).
+        A block never contains an interior validation, schedule firing or
+        snapshot, so the event cadence is the per-generation one; the size
+        is rounded down to a power of two, as in the JAX package, so both
+        packages run the same blocks."""
+        b = max(self.tpu_cfg.gens_per_dispatch, 1)
+        if b == 1:
+            return 1
+        if self.config.patience:
+            if not getattr(self, "_block_warned", False):
+                self._block_warned = True  # once, not every iteration
+                logger.warning(
+                    "gens_per_dispatch>1 requires patience=0 (patience may "
+                    "anneal sigma mid-block); driving per-generation")
+            return 1
+        nxt = self.it.iteration() + 1  # the block's first iteration
+        if self.config.schedule_limit and self._gap_to_next(
+                nxt - 1, self.config.schedule_limit,
+                self.config.schedule_start or 0) == 1:
+            return 1  # this iteration fires the schedule: run it alone
+        b = min(b, gens_left)
+        if limit:
+            b = min(b, limit - self.it.iteration())
+        vf = max(self.tpu_cfg.val_freq, 1)
+        if vf == 1:
+            return 1  # per-generation validation = per-generation blocks
+        b = min(b, self._gap_to_next(nxt, vf))
+        if self.config.schedule_limit:
+            b = min(b, self._gap_to_next(nxt, self.config.schedule_limit,
+                                         self.config.schedule_start or 0))
+        if self.config.snapshot_freq:
+            # a snapshot writes the post-update theta of its generation:
+            # end the block exactly on the snapshot iteration
+            b = min(b, self._gap_to_next(nxt - 1, self.config.snapshot_freq))
+        b = max(b, 1)
+        return 1 << (b.bit_length() - 1)
+
+    def _record_eval(self, eval_score, fresh: bool = True):
+        """Eval-result + podium bookkeeping, while self.theta is still the
+        pre-update model of the generation the score belongs to (the
+        reference pairs eval scores with the pre-update .pth,
+        nic_nes_worker.py:92-113). ``fresh=False``: a score carried from an
+        earlier validation is recorded but never submitted to the podium."""
+        if not fresh:
+            self.it.record_eval_result(0, self._current_path, eval_score)
+            return
+        if self._podium_would_take(eval_score):
+            self._write_current_model()
+        self.it.record_eval_result(0, self._current_path, eval_score)
+        self.it.process_evaluated_elites()
+
+    def _record_stats(self, fitnesses, ratio, norm_vec, eval_score, dt,
+                      plot):
+        """Stats + snapshot for one completed generation, after the update:
+        the snapshot's current_model is the post-update theta (the
+        reference's resume point)."""
+        config, it, stats = self.config, self.it, self.stats
+        stats.record_update_ratio(float(ratio))
+        stats.record_score_stats(np.asarray(fitnesses).ravel())
+        stats.record_bs_stats(it.batch_size())
+        stats.record_step_time_stats(dt=dt)
+        stats.record_norm_stats(norm_vec)
+        stats.record_acc_stats(eval_score)
+        stats.record_best_acc_stats(it.best_elites()[0][1])
+        stats.record_std_stats(it.noise_stdev())
+        stats.update_mem_stats()
+        stats.log_stats()
+        it.log_stats()
+        if config.snapshot_freq and it.iteration() % config.snapshot_freq == 0:
+            self._write_current_model()  # z_info references this file
+            save_snapshot(stats, it, self.experiment,
+                          loader_state=self.loader_state())
+            self._last_snapshot_iter = it.iteration()
+            if plot:
+                stats.plot_stats(self.experiment.snapshot_dir())
+
+    def run_master(self, plot: bool = False,
+                   max_iterations: int | None = None):
+        config, it, stats = self.config, self.it, self.stats
+        limit = max_iterations or config.max_nb_iterations
+        F = self._pair_count()
+        val_freq = max(self.tpu_cfg.val_freq, 1)
+
+        while not limit or it.iteration() < limit:
+            it.incr_epoch()
+            gens = max(self.task.train_n // it.batch_size(), 1)
+            done = 0
+            while done < gens and (not limit or it.iteration() < limit):
+                b = self._block_budget(gens - done, limit)
+                done += b
+                it.incr_iteration()
+                stats.set_step_tstart()
+                t_block = time.time()
+                logger.info("********** Iteration %d%s **********",
+                            it.iteration(),
+                            f" (+{b - 1} chained)" if b > 1 else "")
+
+                sigma, bs = it.get_noise_stdev(), it.batch_size()
+                # per-generation draws in stream order, so the trajectory is
+                # the same for every block size
+                seeds = np.empty((b, F), np.uint32)
+                idx = None
+                for k in range(b):
+                    seeds[k] = self._rng.integers(0, 2**32, size=F,
+                                                  dtype=np.uint32)
+                    row = self._draw_batches(F, bs)
+                    if idx is None:
+                        idx = np.empty((b, *row.shape), row.dtype)
+                    idx[k] = row
+
+                new_theta, new_opt_state, packs = \
+                    self.engine.generation_block(
+                        self.theta, self.opt_state, self._sens, sigma, seeds,
+                        idx, self.optimizer.stepsize, config.l2coeff or 0.0)
+
+                # one validation per generation on the pre-update model
+                # (reference: nic_nes/iteration.py:49-50); tpu.val_freq > 1
+                # thins it to every k generations, carrying the last score
+                fresh_val = (it.iteration() % val_freq == 0
+                             or self._last_eval is None)
+                if fresh_val:
+                    self._last_eval = self.task.validate(self.theta)
+                eval_score = self._last_eval
+                self._record_eval(eval_score, fresh=fresh_val)
+
+                fits_all, ratios, norms = self.engine.unpack(packs, F)
+                block_dt = time.time() - t_block
+                self.theta, self.opt_state = new_theta, new_opt_state
+                # a snapshot serializes experiment.opt_state next to theta
+                self.experiment.opt_state = self.opt_state
+                for k in range(b):
+                    if k:
+                        it.incr_iteration()
+                        logger.info("********** Iteration %d (chained) "
+                                    "**********", it.iteration())
+                        self._record_eval(eval_score, fresh=False)
+                    self._record_stats(fits_all[k], ratios[k], [norms[k]],
+                                       eval_score, block_dt / b, plot)
+
+                if it.patience_reached() or it.schedule_reached():
+                    if config.stepsize_divisor:
+                        self.optimizer.stepsize /= config.stepsize_divisor
+                    self._sampler = None  # rebuilt at the new batch size
+                    break  # rebuild the epoch at the new batch size
+
+        # skip the final snapshot when the loop's freq snapshot just wrote
+        # this exact iteration
+        if getattr(self, "_last_snapshot_iter", None) != it.iteration():
+            self._write_current_model()
+            save_snapshot(stats, it, self.experiment,
+                          loader_state=self.loader_state())
+            if plot:
+                stats.plot_stats(self.experiment.snapshot_dir())
+        return self.theta

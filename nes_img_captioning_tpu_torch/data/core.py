@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["EpochSampler"]
+__all__ = ["EpochSampler", "build_sampler"]
 
 
 class EpochSampler:
@@ -82,3 +82,29 @@ class EpochSampler:
         else:
             rows = [self._rng.integers(0, self.n, size=bs) for _ in range(members)]
         return np.stack(rows).astype(np.int32)
+
+
+def build_sampler(train_n: int, rng, pending_state: dict | None = None
+                  ) -> EpochSampler:
+    """Fresh epoch sampler, or one restored from a checkpoint's
+    z_loader_state sidecar (algorithms/snapshot.load_loader_state) so a
+    from_infos resume continues the exact batch stream. A stale sidecar
+    whose dataset size no longer matches is ignored with a warning (e.g.
+    resuming against different data)."""
+    import logging
+
+    log = logging.getLogger(__name__)
+    if pending_state is not None:
+        if int(pending_state.get("n", -1)) == int(train_n):
+            try:
+                return EpochSampler.from_state_dict(pending_state)
+            except Exception as e:  # corrupt/hand-edited/foreign-BitGenerator
+                log.warning(
+                    "loader-state sidecar could not be restored (%s: %s) — "
+                    "starting a fresh epoch stream", type(e).__name__, e)
+        else:
+            log.warning(
+                "loader-state sidecar is for %s training samples but the "
+                "task has %s — starting a fresh epoch stream",
+                pending_state.get("n"), train_n)
+    return EpochSampler(train_n, seed=int(rng.integers(0, 2**31 - 1)))

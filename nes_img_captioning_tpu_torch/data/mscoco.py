@@ -99,3 +99,40 @@ class CocoData:
 
     def split_len(self, split: str) -> int:
         return len(self.split_ix[split])
+
+    def split_image_ids(self, split: str) -> list:
+        return [self.images[ix]["id"] for ix in self.split_ix[split]]
+
+    def word_id_rows(self, seq: np.ndarray) -> np.ndarray:
+        """Token-id rows -> WORD-id rows: distinct vocabulary ids that map to
+        the same word string (e.g. an UNK token) collapse to one id, exactly
+        as pycocoevalcap's word-string scoring would merge them; 0 stays the
+        sentence terminator. Reference convention:
+        src/captioning/eval_utils.py:30-57."""
+        if not hasattr(self, "_tok_to_word_id"):
+            word_ids: dict[str, int] = {}
+            table = np.zeros(self.vocab_size + 1, np.int32)
+            for t in range(1, self.vocab_size + 1):
+                w = self.ix_to_word[str(t)]
+                table[t] = word_ids.setdefault(w, len(word_ids) + 1)
+            self._tok_to_word_id = table
+        seq = np.asarray(seq)
+        return self._tok_to_word_id[np.clip(seq, 0, self.vocab_size)]
+
+    def split_gts_words(self, split: str) -> list:
+        """Per-image reference captions as word-id rows (for word-level
+        validation scoring)."""
+        return [self.word_id_rows(g) for g in self.split_gts(split)]
+
+    def decode_sequence(self, seq: np.ndarray) -> list[str]:
+        """Token rows -> sentences; stops at the first 0
+        (reference: src/captioning/eval_utils.py:13-27)."""
+        out = []
+        for row in np.asarray(seq):
+            words = []
+            for t in row:
+                if t <= 0:
+                    break
+                words.append(self.ix_to_word[str(int(t))])
+            out.append(" ".join(words))
+        return out

@@ -9,7 +9,21 @@ Port of ``nes_img_captioning_tpu/ops/decode_pallas.py`` for this slice:
 * ``decode_pair_perturb`` (K2) replaces the Pallas ``decode_pair_perturb``
   (``decode_pallas.py:295-354``, body ``_pair_kernel`` ``:251-288``): both
   signs of one antithetic pair, the weights formed as
-  ``dt(f32(base) + sign * f32(delta))`` inside the kernel.
+  ``dt(f32(base) + sign * f32(delta))`` inside the kernel;
+* ``decode_pair_rng`` (K5) replaces the Pallas ``decode_pair_rng``
+  (``decode_pallas.py:466-518``): K2 with the f32 delta
+  ``scale * N(0, 1)`` made in the kernel from the pair's uint32 seed;
+* ``pair_grad_rng`` (K6) replaces the Pallas ``pair_grad_rng``
+  (``decode_pallas.py:575-607``): ``sum_i w_i * delta(seed_i)``, each delta
+  drawn again from its seed;
+* ``pair_delta_dump`` (K7) replaces the Pallas ``pair_delta_dump``
+  (``decode_pallas.py:526-551``): the delta K5 and K6 realize for a seed.
+
+K5-K7 share one noise stream, a Philox4x32-10 counter keyed on (seed,
+element index) (``ops/noise.py`` has its definition and plain version), so
+their deltas are bitwise equal; the stream is not the TPU's (a deliberate
+deviation, README). K6 and K7 are elementwise and bound by drawing the
+normals; the notes in ``csrc/decode.cu`` give each kernel's design.
 
 Kernel sources: ``csrc/decode.cu``, built with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (loaded with ``ctypes``) on first
@@ -52,11 +66,17 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
+
+from .noise import philox4x32_10, philox_normal_plain
 
 __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
            "decode_fused", "decode_fused_plain", "decode_pair_perturb",
-           "decode_pair_perturb_plain", "build_kernels", "PAIR_TENSORS"]
+           "decode_pair_perturb_plain", "decode_pair_rng",
+           "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_plain",
+           "pair_grad_rng", "pair_grad_rng_plain", "philox_words", "build_kernels",
+           "PAIR_TENSORS"]
 
 PAD_LANE = 128
 NEG = -1e9
@@ -205,6 +225,72 @@ def decode_pair_perturb_plain(base: dict, delta: dict, feats: torch.Tensor,
             torch.stack([o[1] for o in outs], axis))
 
 
+def _seeds_u32(seeds) -> tuple[np.ndarray, bool]:
+    """Host seeds (an int, or a 1-D sequence / array / CPU tensor) -> (P,)
+    uint32 and whether a single seed was given."""
+    arr = np.asarray(seeds.cpu() if torch.is_tensor(seeds) else seeds)
+    single = arr.ndim == 0
+    return (arr.reshape(-1).astype(np.int64) & 0xFFFFFFFF).astype(
+        np.uint32), single
+
+
+def _flat_scale(scale: dict) -> torch.Tensor:
+    """A decode-layout dict -> the flat f32 vector in decode order (the
+    element index ``j`` of the noise stream)."""
+    return torch.cat([scale[k].to(torch.float32).reshape(-1)
+                      for k in PAIR_TENSORS])
+
+
+def _as_dict(flat: torch.Tensor, like: dict) -> dict:
+    """(..., dim) in decode order -> a dict of (..., *shape) contiguous
+    tensors shaped like ``like``."""
+    out, off = {}, 0
+    for k in PAIR_TENSORS:
+        n = like[k].numel()
+        out[k] = flat[..., off:off + n].reshape(
+            *flat.shape[:-1], *like[k].shape).contiguous()
+        off += n
+    return out
+
+
+def pair_delta_dump_plain(scale: dict, seeds) -> dict:
+    """Plain twin of K7: the f32 delta ``scale * N(0, 1)`` of each seed, as
+    a dict shaped like ``scale`` (a leading seed axis P unless ``seeds`` is
+    a single int)."""
+    u32, single = _seeds_u32(seeds)
+    flat = _flat_scale(scale)
+    j = torch.arange(flat.shape[0], device=flat.device)
+    deltas = torch.stack([philox_normal_plain(int(s), j, flat) for s in u32])
+    return _as_dict(deltas[0] if single else deltas, scale)
+
+
+def pair_grad_rng_plain(scale: dict, seeds, weights) -> dict:
+    """Plain twin of K6: ``sum_i weights[i] * delta(seeds[i])`` in pair
+    order, each product rounded to f32 before it is added — the kernel's
+    order. Returns an f32 dict shaped like ``scale``."""
+    u32, _ = _seeds_u32(seeds)
+    flat = _flat_scale(scale)
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=flat.device).reshape(-1)
+    _check(w.shape[0] == u32.shape[0],
+           f"{w.shape[0]} weights for {u32.shape[0]} seeds")
+    j = torch.arange(flat.shape[0], device=flat.device)
+    g = torch.zeros_like(flat)
+    for i, s in enumerate(u32):
+        g = g + w[i] * philox_normal_plain(int(s), j, flat)
+    return _as_dict(g, scale)
+
+
+def decode_pair_rng_plain(base: dict, scale: dict, seeds, feats: torch.Tensor,
+                          seq_length: int = 16, dtype=torch.float32,
+                          need_logprobs: bool = False):
+    """Plain twin of K5: K2's plain twin fed K7's plain f32 delta of each
+    seed. Returns (seq, lp) of shape (2, B, T) for a single seed or
+    (P, 2, B, T); index 0 is +delta."""
+    return decode_pair_perturb_plain(base, pair_delta_dump_plain(scale, seeds),
+                                     feats, seq_length, dtype, need_logprobs)
+
+
 # ---------------------------------------------------------------------------
 # kernel build and binding
 # ---------------------------------------------------------------------------
@@ -251,6 +337,16 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_decode_pair_perturb.argtypes = \
         [ci] * 8 + [vp] * (1 + 9 + 9) + [vp] * 2 + [vp]
     lib.nes_decode_pair_perturb.restype = ci
+    lib.nes_decode_pair_rng.argtypes = \
+        [ci] * 7 + [vp] * (1 + 9) + [vp] * 3 + [vp] * 2 + [vp]
+    lib.nes_decode_pair_rng.restype = ci
+    i64 = ctypes.c_longlong
+    lib.nes_pair_delta_dump.argtypes = [ci, i64] + [vp] * 3 + [vp]
+    lib.nes_pair_delta_dump.restype = ci
+    lib.nes_pair_grad_rng.argtypes = [ci, i64] + [vp] * 4 + [vp]
+    lib.nes_pair_grad_rng.restype = ci
+    lib.nes_philox_words.argtypes = [ctypes.c_uint, i64, vp, vp]
+    lib.nes_philox_words.restype = ci
     return lib
 
 
@@ -373,3 +469,140 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
 
 
 decode_pair_perturb.launches = 0
+
+
+def _seeds_on(u32: np.ndarray, device) -> torch.Tensor:
+    """uint32 seeds as an int32 tensor of the same bits on ``device`` (the
+    kernels read them as uint32)."""
+    return torch.from_numpy(np.ascontiguousarray(u32).view(np.int32)).to(
+        device)
+
+
+def _check_scale(scale: dict, like: dict) -> torch.Tensor:
+    """A noise-scale dict of ``like``'s shapes, f32 on the card -> its flat
+    decode-ordered vector."""
+    for k in PAIR_TENSORS:
+        _check(tuple(scale[k].shape) == tuple(like[k].shape),
+               f"scale[{k}]: shape {tuple(scale[k].shape)} != "
+               f"{tuple(like[k].shape)}")
+        _check(scale[k].dtype == torch.float32,
+               f"scale[{k}]: dtype {scale[k].dtype} != torch.float32")
+        _check(scale[k].is_cuda, f"scale[{k}] is not a CUDA tensor")
+    return _flat_scale(scale).contiguous()
+
+
+def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
+                    seq_length: int = 16, dtype=torch.float32,
+                    need_logprobs: bool = False):
+    """K5: both signs of antithetic pairs, each pair's f32 delta ``scale *
+    N(0, 1)`` drawn in the kernel from its uint32 seed. base, scale: f32
+    dicts (unbatched, shared by the pairs; scale's pad lanes 0); seeds: one
+    host seed or P of them; feats (B, F) or (P, B, F). Returns (seq, lp) of
+    shape (2, B, T) or (P, 2, B, T); index 0 is +delta. Tokens and lp equal
+    K2's fed ``pair_delta_dump(scale, seeds)`` bit for bit. As in the JAX
+    package, the delta is f32 whatever ``tpu.delta_dtype`` says."""
+    if not feats.is_cuda:
+        return decode_pair_rng_plain(base, scale, seeds, feats, seq_length,
+                                     dtype, need_logprobs)
+    _check(dtype in _DTYPE_CODE, f"compute dtype {dtype} is not f32 or bf16")
+    u32, single = _seeds_u32(seeds)
+    P = u32.shape[0]
+    if feats.dim() == 2:
+        feats = feats[None].expand(P, *feats.shape)
+    _, B, F = feats.shape
+    _check(feats.shape[0] == P, f"feats lead {feats.shape[0]} != pairs {P}")
+    _check(1 <= B <= KERNEL_WIDTH, f"batch {B} outside 1..{KERNEL_WIDTH}")
+    Vpad = _check_params({k: v[None] for k, v in base.items()}, 1, F,
+                         torch.float32, what="base")
+    flat = _check_scale(scale, base)
+    feats = feats.to(dtype).contiguous()
+    dev = feats.device
+    _check(dev == base["img_w"].device == flat.device,
+           "feats, base and scale on different devices")
+    seq = torch.empty((P, 2, B, seq_length), dtype=torch.int32, device=dev)
+    lp = torch.empty((P, 2, B, seq_length), dtype=torch.float32, device=dev)
+    # each CTA's own copy of its pair's delta (csrc/decode.cu, K5's note)
+    scratch = torch.empty((P, 2, flat.shape[0]), dtype=torch.float32,
+                          device=dev)
+    seeds_d = _seeds_on(u32, dev)
+    err = _kernels().nes_decode_pair_rng(
+        _DTYPE_CODE[dtype], int(need_logprobs), P, B, F, Vpad, seq_length,
+        feats.data_ptr(), *(base[k].data_ptr() for k in PAIR_TENSORS),
+        flat.data_ptr(), seeds_d.data_ptr(), scratch.data_ptr(),
+        seq.data_ptr(), lp.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "decode_pair_rng")
+    decode_pair_rng.launches += 1
+    return (seq[0], lp[0]) if single else (seq, lp)
+
+
+decode_pair_rng.launches = 0
+
+
+def pair_delta_dump(scale: dict, seeds) -> dict:
+    """K7: the f32 delta K5 and K6 realize for each seed, all seeds in one
+    launch. scale: f32 dict (pad lanes 0); seeds: one host seed or P of
+    them. Returns a dict shaped like ``scale``, with a leading P axis unless
+    a single seed was given."""
+    if not scale["img_w"].is_cuda:
+        return pair_delta_dump_plain(scale, seeds)
+    flat = _check_scale(scale, scale)
+    u32, single = _seeds_u32(seeds)
+    P, dim = u32.shape[0], flat.shape[0]
+    out = torch.empty((P, dim), dtype=torch.float32, device=flat.device)
+    seeds_d = _seeds_on(u32, flat.device)
+    err = _kernels().nes_pair_delta_dump(
+        P, dim, flat.data_ptr(), seeds_d.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(flat.device).cuda_stream)
+    _raise_on(err, "pair_delta_dump")
+    pair_delta_dump.launches += 1
+    return _as_dict(out[0] if single else out, scale)
+
+
+pair_delta_dump.launches = 0
+
+
+def pair_grad_rng(scale: dict, seeds, weights) -> dict:
+    """K6: ``sum_i weights[i] * delta(seeds[i])`` with every delta drawn
+    again from its seed, summed over the pairs in order (deterministic, no
+    atomics). scale: f32 dict (pad lanes 0); seeds: F host seeds; weights:
+    F f32 (pad lanes 0). Returns an f32 dict shaped like ``scale``."""
+    if not scale["img_w"].is_cuda:
+        return pair_grad_rng_plain(scale, seeds, weights)
+    flat = _check_scale(scale, scale)
+    u32, _ = _seeds_u32(seeds)
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=flat.device).reshape(-1).contiguous()
+    _check(w.shape[0] == u32.shape[0],
+           f"{w.shape[0]} weights for {u32.shape[0]} seeds")
+    out = torch.empty_like(flat)
+    seeds_d = _seeds_on(u32, flat.device)
+    err = _kernels().nes_pair_grad_rng(
+        u32.shape[0], flat.shape[0], flat.data_ptr(), seeds_d.data_ptr(),
+        w.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(flat.device).cuda_stream)
+    _raise_on(err, "pair_grad_rng")
+    pair_grad_rng.launches += 1
+    return _as_dict(out, scale)
+
+
+pair_grad_rng.launches = 0
+
+
+def philox_words(seed: int, n: int, device) -> torch.Tensor:
+    """(n, 4) int64: the uint32 words of Philox4x32-10 counters 0..n-1
+    under key (seed, 0), from the kernels' generator on a CUDA device and
+    from the plain one (ops/noise.py) on the CPU — the check that the two
+    draw the same bits."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        q = torch.arange(n, device=device)
+        z = torch.zeros_like(q)
+        return torch.stack(philox4x32_10([q, z, z, z], (int(seed), 0)), -1)
+    out = torch.empty((n, 4), dtype=torch.int32, device=device)
+    err = _kernels().nes_philox_words(
+        int(seed) & 0xFFFFFFFF, n, out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "philox_words")
+    return out.to(torch.int64) & 0xFFFFFFFF
+

@@ -6,7 +6,10 @@ CPU), so only the seed is kept and the noise is drawn again wherever it is
 needed (evaluation and gradient). torch cannot reproduce JAX's threefry/rbg
 streams, so the realized noise differs from the JAX package's for the same
 seed — a documented deviation of the same class as the JAX package's own
-from the reference's torch RNG.
+from the reference's torch RNG. The in-kernel noise path
+(``tpu.kernel_noise``) draws from another stream again, a Philox counter
+keyed on (seed, element index) that replaces the TPU's hardware PRNG
+(``ops/noise.py``): a deviation of the same kind.
 """
 
 from __future__ import annotations

@@ -73,3 +73,50 @@ def test_k2_bitwise_equals_k1_on_perturbed_members(small_members, dt):
         seq1, lp1 = tdc.decode_fused(
             lay.prep(members[0] + sign * delta.float(), dt), feats[0])
         assert torch.equal(seq2[s], seq1) and torch.equal(lp2[s], lp1)
+
+
+@pytest.mark.cuda
+def test_philox_words_match_plain_stream(small_members):
+    """The kernels' Philox draws the plain version's words bit for bit,
+    known-answer vector included."""
+    words = tdc.philox_words(0x12345678, 4096, "cuda")
+    assert torch.equal(words.cpu(), tdc.philox_words(0x12345678, 4096, "cpu"))
+    assert tdc.philox_words(0, 1, "cuda")[0].tolist() == [
+        0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+
+
+@pytest.mark.cuda
+def test_k7_k5_k6_share_one_noise_stream(small_members):
+    """K7's deltas lie within 8 ulps of the plain version's (logf and cosf
+    may round differently from torch's), exactly 0 on pad lanes; K5 with
+    f32 and bf16 weights is bitwise K2 fed K7's dump; K6 is bitwise the
+    ordered f32 sum of the dumps."""
+    lay, members, feats, _ = small_members
+    theta_dec = members[0]
+    sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05, device="cuda"),
+                    pad_scale=0.0)
+    scale = lay.prep(sc, torch.float32)
+    seeds = [3, 0xFFFFFFFF, 12345]
+    before = tdc.pair_delta_dump.launches
+    dump = tdc.pair_delta_dump(scale, seeds)
+    assert tdc.pair_delta_dump.launches == before + 1
+    flat = torch.stack([lay.flat_dec({k: v[p] for k, v in dump.items()})
+                        for p in range(3)])
+    plain = torch.stack([lay.flat_dec(tdc.pair_delta_dump_plain(scale, s))
+                         for s in seeds])
+    torch.cuda.synchronize()
+    assert float((flat - plain).abs().max()) <= 8 * 4.77e-7 * 0.05
+    assert (flat[:, sc == 0] == 0).all()
+    base = lay.prep(theta_dec, torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        seq5, lp5 = tdc.decode_pair_rng(base, scale, seeds, feats[0], dtype=dt,
+                                        need_logprobs=True)
+        seq2, lp2 = tdc.decode_pair_perturb(base, dump, feats[0], dtype=dt,
+                                            need_logprobs=True)
+        assert torch.equal(seq5, seq2) and torch.equal(lp5, lp2)
+    w = torch.tensor([0.5, -0.25, 0.125], device="cuda")
+    grad = lay.flat_dec(tdc.pair_grad_rng(scale, seeds, w))
+    ordered = torch.zeros_like(grad)
+    for p in range(3):
+        ordered = ordered + w[p] * flat[p]
+    assert torch.equal(grad, ordered)
