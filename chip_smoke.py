@@ -37,7 +37,27 @@ Phases, each printed as it ends (any failure exits non-zero):
     iterations with validation and snapshots, then a resume from the
     snapshot for one more generation — the path a user runs;
 11. K5's, K6's and K7's times beside their plain versions', the delta-operand
-    path doing the same work, and their bounds.
+    path doing the same work, and their bounds;
+12. K3 (decode_sample) on the chunk's 48 members x 5 lanes, the Gumbel
+    values drawn in the kernel from the lane seeds the engine draws, f32
+    (TF32 off) and bf16, against its plain version: tokens equal but at
+    near-ties of logits + G, lp within 2e-5 at f32, no pad column sampled;
+    the host-table form fed the plain stream's table gives the same tokens;
+13. K4 (decode_tiled, vocab tile 1920 = Vpad / 5) against K1: tokens bit for
+    bit at f32 and bf16, lp within 2e-5 of its plain version;
+14. three generations each of the sample, self_critical and sc_loss kinds
+    (per-member path: K3, and K1 for the self-critical baselines) and of
+    greedy_logprob (pair kernel K2 with logprobs), launch counts read
+    around each; fitnesses finite, theta changed;
+15. a greedy per-member generation with tpu.decode_vocab_tile 1920 (K4):
+    packed vector and theta bitwise equal to the K1 generation;
+16. NESMaster on experiments/mscoco_nes.json with fitness self_critical and
+    decode_vocab_tile 1920 (144 pairs, batch 128, 256 validation images):
+    3 iterations with validation and a snapshot, K3 carrying the samples
+    and K4 the baselines and validation, then a resume for one more;
+17. K3's and K4's times beside their plain versions', a library yardstick
+    (cuBLAS products, plus torch's Gumbel-max for K3) and their bounds; one
+    self_critical generation under torch.profiler.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -56,6 +76,12 @@ import numpy as np
 PEAK_BF16 = 989e12      # H100 SXM dense tensor-core bf16, FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 outside the tensor cores, FLOP/s
 HBM_BYTES_PER_S = 3.35e12
+# a lower count of the operations one of K3's Gumbel values needs, each
+# taken at the f32 rate: two logarithms (at least a special-function op
+# and a multiply each), the uniform's multiply-add, the add to the logit and
+# the compare (7), and a quarter of a Philox4x32-10 call (10 rounds of 2
+# multiply-highs, 2 multiplies, 4 xors and 2 key adds: 25)
+GUMBEL_OPS = 32
 BENCH = dict(pairs=144, batch=128, pop_chunk=24, sigma=0.01, stepsize=0.001,
              l2coeff=1e-7, gens=3)
 
@@ -153,6 +179,331 @@ def profile_generation(eng, theta, sens, seeds, batches):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     return wall_ms, busy / 1e3, rows
+
+
+def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
+                    lib_ms: float, card: str) -> list:
+    """Phases 12-17: K3 and K4 against their plain versions, generations of
+    the sampling, self-critical and per-token kinds and of the tiled greedy
+    decode, the self-critical master, and K3's and K4's times. Returns their
+    rows of the kernels line."""
+    import glob
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESEngine, NESMaster
+    from nes_img_captioning_tpu_torch.algorithms.optimizers import Adam
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.ops.noise import gumbel_plain, lane_seeds
+    from nes_img_captioning_tpu_torch.tasks.captioning import CocoTask
+    from nes_img_captioning_tpu_torch.utils.config import (
+        Config,
+        TpuConfig,
+        load_experiment,
+    )
+
+    dev = theta.device
+    lay = task.decode_layout
+    P, B, F = BENCH["pop_chunk"], BENCH["batch"], BENCH["pairs"]
+    T, Vpad = task.model.options.seq_length, lay.Vpad
+    Fd, V = task.model.options.fc_feat_size, task.data.vocab_size
+    spi, M = task.seq_per_img, 2 * P
+    # K1, K2, K3, K4, K5, K6, K7
+    counters = (dc.decode_fused, dc.decode_pair_perturb, dc.decode_sample,
+                dc.decode_tiled, dc.decode_pair_rng, dc.pair_grad_rng,
+                dc.pair_delta_dump)
+
+    def zero():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return tuple(c.launches for c in counters)
+
+    # ---- [12] K3 against its plain version on one chunk -------------------
+    # the lane seeds the engine draws for the chunk's pair-major members
+    lanes = np.stack([lane_seeds(seeds[0][:P], np.full(P, s), spi)
+                      for s in (1, -1)], 1).reshape(M, spi)
+    k3 = {}
+    for dt in (torch.float32, torch.bfloat16):
+        params = lay.prep(members, dt)
+        seq_k, lp_k = dc.decode_fused(params, feats2, T, True, greedy=False,
+                                      seeds=lanes)
+        seq_p, lp_p, gap_p = dc.decode_sample_plain(
+            params, feats2, T, True, seeds=lanes, top2_gap=True)
+        torch.cuda.synchronize()
+        share, n_diff = check_near_ties(seq_k, seq_p, gap_p, f"K3 {dt}")
+        if int(seq_k.max()) > V:
+            raise AssertionError(f"K3 {dt}: a pad column was sampled")
+        msg = ""
+        if dt == torch.float32:
+            same = (seq_k == seq_p).all(-1)
+            k3["max_abs_err"] = float((lp_k - lp_p).abs()[same].max())
+            if k3["max_abs_err"] > 2e-5:
+                raise AssertionError(
+                    f"K3 f32: lp error {k3['max_abs_err']:.3g} > 2e-5")
+            msg = f"; max |lp - plain| {k3['max_abs_err']:.3g} on equal rows"
+        log(f"[12] K3 decode_sample {dt}, {M} members x {spi} lanes: "
+            f"{share:.4%} of rows equal to the plain version, {n_diff} "
+            f"differ, each first at a near-tie of logits + G (top-2 gap < "
+            f"1e-2){msg}; no pad column sampled")
+    del seq_p, lp_p, gap_p
+    # the host-table form fed the plain stream's table, on 4 members
+    sub = 4
+    params = lay.prep(members[:sub], torch.bfloat16)
+    s64 = torch.as_tensor(lanes[:sub].astype(np.int64), device=dev)
+    table = torch.stack([gumbel_plain(s64, t, B, Vpad) for t in range(T)],
+                        2).contiguous()
+    seq_tab, _ = dc.decode_fused(params, feats2[:sub], T, False, greedy=False,
+                                 gumbel=table)
+    seq_seed, _ = dc.decode_fused(params, feats2[:sub], T, False,
+                                  greedy=False, seeds=lanes[:sub])
+    del table
+    if not torch.equal(seq_tab, seq_seed):
+        raise AssertionError("K3: the host-table form fed the plain stream's "
+                             "table differs from the in-kernel draw")
+    g_card = dc.gumbel_table(int(lanes[0, 0]), 3, B, Vpad, dev)
+    g_plain = gumbel_plain(s64[0, 0], 3, B, Vpad)
+    g_err = float((g_card - g_plain).abs().max())
+    if g_err > 2 * 1.91e-6:
+        raise AssertionError(f"K3: Gumbel values {g_err:.3g} from the plain "
+                             "stream")
+    log(f"[12] K3 host-table form fed the plain stream's table: tokens equal "
+        f"the in-kernel draw on {sub} x {spi} lanes; the kernel's Gumbel "
+        f"values {float((g_card == g_plain).float().mean()):.4%} bitwise "
+        f"the plain stream's, max difference {g_err:.3g}")
+
+    # ---- [13] K4 against K1 ------------------------------------------------
+    tile = Vpad // 5  # 1920 at full width
+    k4 = {}
+    for dt in (torch.float32, torch.bfloat16):
+        params = lay.prep(members, dt)
+        seq4, lp4 = dc.decode_fused(params, feats2, T, True, vocab_tile=tile)
+        seq1, lp1 = dc.decode_fused(params, feats2, T, True)
+        if not torch.equal(seq4, seq1):
+            raise AssertionError(f"K4 {dt}: tokens differ from K1")
+        msg = ""
+        if dt == torch.float32:
+            _, lp_p = dc.decode_tiled_plain(params, feats2, tile, T, True)
+            k4["max_abs_err"] = float((lp4 - lp_p).abs().max())
+            if k4["max_abs_err"] > 2e-5:
+                raise AssertionError(
+                    f"K4 f32: lp error {k4['max_abs_err']:.3g} > 2e-5")
+            msg = f"; max |lp - plain| {k4['max_abs_err']:.3g}"
+        log(f"[13] K4 decode_tiled {dt}, vocab tile {tile} ({Vpad // tile} "
+            f"tiles): tokens bitwise K1's; max |lp - K1 lp| "
+            f"{float((lp4 - lp1).abs().max()):.3g}{msg}")
+
+    # ---- [14] one generation of each further fitness kind ------------------
+    def kind_task(kind, **tpu):
+        exp = {"dataset": "mscoco", "policy_options": {
+            "fitness": kind, "vbn": False, "model_options": {
+                "input_encoding_size": 128, "rnn_size": 128,
+                "fc_feat_size": Fd}}}
+        return CocoTask(exp, Config(batch_size=B),
+                        TpuConfig(seed=0, precision="bf16", delta_dtype="bf16",
+                                  **tpu), device=dev, data=task.data)
+
+    def engine(t):
+        return NESEngine(t, Adam(BENCH["stepsize"]), MutationKind.DEFAULT,
+                         pop_chunk=P, delta_dtype="bf16")
+
+    def generation(eng, g=0):
+        return eng.generation(theta, eng.optimizer.init(eng.dim, dev), sens,
+                              BENCH["sigma"], seeds[g], batches[g],
+                              BENCH["stepsize"], BENCH["l2coeff"])
+
+    n_chunks = -(-F // P)
+    gens = BENCH["gens"]
+    kind_ms, engines = {}, {}
+    for kind in ("sample", "self_critical", "sc_loss", "greedy_logprob"):
+        eng = engines[kind] = engine(kind_task(kind))
+        generation(eng)  # untimed warm-up
+        zero()
+        times, outs = [], []
+        for g in range(gens):
+            t0 = time.perf_counter()
+            outs.append(generation(eng, g))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        c = counts()
+        n = n_chunks * gens
+        want = {"sample": (0, 0, n, 0, 0, 0, 0),
+                "self_critical": (n, 0, n, 0, 0, 0, 0),
+                "sc_loss": (n, 0, n, 0, 0, 0, 0),
+                "greedy_logprob": (0, n, 0, 0, 0, 0, 0)}[kind]
+        if c != want:
+            raise AssertionError(f"{kind}: launches (K1..K7) {c} != {want}")
+        for th, _, packed in outs:
+            if not torch.isfinite(packed).all():
+                raise AssertionError(f"{kind}: non-finite fitness")
+            if torch.equal(th, theta):
+                raise AssertionError(f"{kind}: theta did not change")
+        kind_ms[kind] = np.median(times) * 1e3
+        fits = engines[kind].unpack(outs[-1][2], F)[0]
+        log(f"[14] {kind}: {gens} generations, ms each "
+            f"{[round(t * 1e3, 3) for t in times]}, median "
+            f"{kind_ms[kind]:.3f} ms; launches K1..K7 {c}; fitness mean "
+            f"{fits.mean():.6f}, spread {np.ptp(fits):.6f}; theta changed "
+            f"({card})")
+
+    # ---- [15] the tiled greedy generation equals the K1 one -----------------
+    eng_t = engine(kind_task("greedy", decode_vocab_tile=tile))
+    eng_1 = NESEngine(task, Adam(BENCH["stepsize"]), MutationKind.DEFAULT,
+                      pop_chunk=P, kernel_perturb=False, delta_dtype="bf16")
+    if eng_t._kernel_perturb:
+        raise AssertionError("decode_vocab_tile: the pair kernel is on")
+    zero()
+    th_t, _, packed_t = generation(eng_t)
+    c_t = counts()
+    zero()
+    th_1, _, packed_1 = generation(eng_1)
+    c_1 = counts()
+    if c_t != (0, 0, 0, n_chunks, 0, 0, 0) or c_1 != (n_chunks, 0, 0, 0, 0,
+                                                     0, 0):
+        raise AssertionError(f"tiled / K1 generation launches {c_t} / {c_1}")
+    if not (torch.equal(packed_t, packed_1) and torch.equal(th_t, th_1)):
+        raise AssertionError("the K4 generation differs from the K1 one")
+    log(f"[15] greedy per-member generation with decode_vocab_tile {tile}: "
+        f"packed vector and theta bitwise equal to the K1 generation; "
+        f"launches K4 {c_t[3]} / K1 {c_1[0]}")
+
+    # ---- [16] NESMaster: self_critical with the tiled decode ----------------
+    runs_dir = os.path.join("logs", f"chip_smoke_sc_{os.getpid()}")
+
+    def experiment(name: str) -> dict:
+        exp = load_experiment("experiments/mscoco_nes.json")
+        exp["config"].update(batch_size=B, val_batch_size=256,
+                             num_val_items=256, snapshot_freq=3)
+        exp["policy_options"]["fitness"] = "self_critical"
+        exp["policy_options"]["model_options"]["fc_feat_size"] = Fd
+        exp["nb_offspring"] = F
+        exp["tpu"].update(pop_chunk=P, precision="bf16", delta_dtype="bf16",
+                          decode_vocab_tile=tile)
+        exp["log_dir"] = os.path.join(runs_dir, name)
+        return exp
+
+    zero()
+    t0 = time.perf_counter()
+    master = NESMaster(experiment("train"), device=dev, data=task.data)
+    master.run_master(max_iterations=3)
+    c_m = counts()
+    t_master = time.perf_counter() - t0
+    acc = master.stats.acc_stats()
+    if master.it.iteration() != 3 or len(acc) != 3 or \
+            not np.isfinite(master.stats.score_stats()[1]).all():
+        raise AssertionError("self-critical NESMaster: 3 finite iterations "
+                             "with validation expected")
+    n_val = min(256, task.val_fc.shape[0])
+    val_launches = -(-n_val // min(n_val, 128))
+    want_m = (0, 0, 3 * n_chunks, 3 * (n_chunks + val_launches), 0, 0, 0)
+    if c_m != want_m:
+        raise AssertionError(f"self-critical master launches (K1..K7) {c_m} "
+                             f"!= {want_m}")
+    zinfo = glob.glob(os.path.join(runs_dir, "train", "snapshot",
+                                   "z_info_*.json"))
+    if len(zinfo) != 1 or not zinfo[0].endswith(
+            f"_i3-{task.train_n // B}.json"):
+        raise AssertionError(f"self-critical NESMaster snapshot: {zinfo}")
+    log(f"[16] NESMaster (experiments/mscoco_nes.json, self_critical, "
+        f"decode_vocab_tile {tile}, 144 pairs, batch 128, pop_chunk 24, "
+        f"bf16): 3 iterations in {t_master:.1f} s; validation CIDEr "
+        f"{[round(a, 4) for a in acc]}; mean fitness "
+        f"{[round(m, 4) for m in master.stats.score_stats()[1]]}; ms per "
+        f"iteration {[round(t * 1e3, 3) for t in master.stats.time_stats()]}"
+        f"; launches K3 {c_m[2]} (samples), K4 {c_m[3]} (baselines and "
+        f"validation), K1 K2 K5 K6 K7 0; snapshot {os.path.basename(zinfo[0])}")
+    exp2 = experiment("resume")
+    exp2["from_infos"] = zinfo[0]
+    resumed = NESMaster(exp2, device=dev, data=task.data)
+    if not torch.equal(resumed.theta, master.theta) or \
+            int(resumed.opt_state.t) != 3:
+        raise AssertionError("self-critical resume: theta or optimizer step "
+                             "not restored")
+    resumed.run_master(max_iterations=3)
+    if len(resumed.stats.acc_stats()) != 4 \
+            or torch.equal(resumed.theta, master.theta):
+        raise AssertionError("self-critical resume: one more generation "
+                             "expected")
+    log(f"[16] resumed from {os.path.basename(zinfo[0])}: one more "
+        f"self-critical generation trained and validated (CIDEr "
+        f"{resumed.stats.acc_stats()[-1]:.4f})")
+    shutil.rmtree(runs_dir)
+
+    # ---- [17] K3's and K4's times at the main path's shapes -----------------
+    params16 = lay.prep(members, torch.bfloat16)
+    k3_ms = time_ms(lambda: dc.decode_fused(params16, feats2, T, False,
+                                            greedy=False, seeds=lanes))
+    k3_plain = time_ms(lambda: dc.decode_sample_plain(
+        params16, feats2, T, False, seeds=lanes), reps=2)
+    k4_ms = time_ms(lambda: dc.decode_fused(params16, feats2, T, False,
+                                            vocab_tile=tile))
+    k4_plain = time_ms(lambda: dc.decode_tiled_plain(
+        params16, feats2, tile, T, False), reps=3)
+
+    def library_sample():
+        # cuBLAS for the products of the M x spi lanes (bf16 in, f32 out;
+        # the lanes share their member's weights) and torch ops for the
+        # Gumbel-max: uniform draw, -log(-log(u)), add, argmax
+        x0 = torch.bmm(feats2.to(torch.bfloat16), params16["img_w"])
+        h = x0.to(torch.bfloat16).repeat(1, spi, 1)
+        for step in range(T + 1):
+            torch.bmm(h, params16["i2h_w"])
+            torch.bmm(h, params16["h2h_w"])
+            if step:
+                logits = torch.bmm(h, params16["logit_w"]).float()
+                u = torch.rand(logits.shape, device=dev)
+                (logits - torch.log(-torch.log(u))).argmax(-1)
+
+    lib3_ms = time_ms(library_sample)
+    seq3, _ = dc.decode_fused(params16, feats2, T, False, greedy=False,
+                              seeds=lanes)
+    steps3 = executed_steps(seq3.reshape(M * spi, B, T), T)
+    flops3 = decode_flops(steps3, B, Fd, Vpad)
+    gumbels = float(steps3.sum()) * B * Vpad
+    seq4, _ = dc.decode_fused(params16, feats2, T, False, vocab_tile=tile)
+    flops4 = decode_flops(executed_steps(seq4, T), B, Fd, Vpad)
+    w_bytes = sum(v.numel() * v.element_size() for v in params16.values())
+    k3_bytes = w_bytes + feats2.numel() * 2 + lanes.size * 4 + seq3.numel() * 8
+    k4_bytes = w_bytes + feats2.numel() * 2 + seq4.numel() * 8
+    rows = []
+    for name, replaces, ms, plain, lib, nbytes, flops, ops, err, launches in (
+        ("decode_sample", "nes_img_captioning_tpu/ops/decode_pallas.py:658",
+         k3_ms, k3_plain, lib3_ms, k3_bytes, flops3, GUMBEL_OPS * gumbels,
+         k3["max_abs_err"], c_m[2]),
+        ("decode_tiled", "nes_img_captioning_tpu/ops/decode_pallas.py:658",
+         k4_ms, k4_plain, lib_ms, k4_bytes, flops4, 0.0, k4["max_abs_err"],
+         c_m[3]),
+    ):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = max(flops / PEAK_BF16, ops / PEAK_F32)
+        b_ms = max(t_bytes, t_ops) * 1e3
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib})
+        log(f"[17] {name}: {ms:.3f} ms per launch (plain {plain:.3f} ms, "
+            f"library yardstick {lib:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
+            f"{flops / 1e9:.1f} GFLOP on the tensor cores, {ops / 1e9:.1f} G "
+            f"Gumbel operations, {nbytes / 1e6:.1f} MB) ({card})")
+    log(f"[17] K3 draws {gumbels / 1e9:.3f} G Gumbel values per launch "
+        f"({gumbels / (k3_ms * 1e-3):.4g} per s)")
+
+    wall, busy, prof_rows = profile_generation(
+        engines["self_critical"], theta, sens, seeds[0], batches[0])
+    log(f"[17] one self_critical generation under torch.profiler: wall "
+        f"{wall:.3f} ms, card busy {busy:.3f} ms ({busy / wall:.2%}; idle "
+        f"{1 - busy / wall:.2%}) ({card})")
+    for ms, count, key in prof_rows[:12]:
+        log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+    return rows
 
 
 def main() -> int:
@@ -681,6 +1032,8 @@ def main() -> int:
             f"{normals / (ms * 1e-3):.4g} per s; {nbytes / 1e6:.1f} MB) "
             f"({card})")
 
+    kernels += sampling_phases(task, theta, members, feats2, seeds, batches,
+                               sens, lib_ms, card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,15 @@ One generation, in the decode-ordered parameter layout (ops/decode_layout.py):
 
 1. each antithetic pair gets ``delta = dt(scale_dec * N(0, 1))`` drawn from
    its seed and rounded once to the storage dtype (``tpu.delta_dtype``);
-2. the pair kernel (K2, ``tpu.kernel_perturb``) decodes both rollouts of
-   every pair of a chunk in one launch, or the per-member path decodes the
-   chunk's 2 x chunk members ``base ± delta`` with K1 in one launch;
-3. CIDEr-D scores every decoded row on the device;
+2. the pair kernel (K2, ``tpu.kernel_perturb``; greedy kinds, untiled)
+   decodes both rollouts of every pair of a chunk in one launch, or the
+   per-member path decodes the chunk's 2 x chunk members ``base ± delta``
+   in one launch: greedily with K1 (K4 with ``tpu.decode_vocab_tile``), or,
+   for the sampling kinds, ``seq_per_img`` lanes per member with K3, each
+   member (seed, sign) drawing its lanes' noise from ``gumbel_of``, plus a
+   greedy baseline decode for the self-critical kinds;
+3. CIDEr-D scores every decoded row on the device (the criteria kinds
+   reduce the scores and logprobs to a per-token criterion);
 4. centered ranks give the pair weights (pad lanes weight 0);
 5. the gradient sum_i w_i * delta_i is rebuilt from deltas drawn again from
    the seeds, summed over the pairs in order, and mapped back with
@@ -45,6 +50,7 @@ from .snapshot import load_loader_state, save_snapshot
 from .statistics import Statistics
 from ..data.core import build_sampler
 from ..ops.mutation import MutationKind, normal_from_seed, shape_noise
+from ..ops.noise import lane_seeds
 from ..ops.ranks import compute_centered_ranks
 from ..utils.config import parse_config, parse_tpu_config
 from ..utils.files import mkdir_p, remove_all_files_from_dir
@@ -108,6 +114,25 @@ class NESEngine(PopulationEngine):
 
     def _deltas(self, scale_dec, seeds_c) -> torch.Tensor:
         return torch.stack([self.delta_of(scale_dec, int(s)) for s in seeds_c])
+
+    def gumbel_of(self, seeds: np.ndarray, sign: int):
+        """The sampling noise of the members (seed, sign) for each pair seed
+        of ``seeds`` and sign +1 or -1: their (N, seq_per_img) uint32 lane
+        seeds, from which K3 draws the Gumbel values in the kernel (the JAX
+        package's per-member keys ``fold_in(key(seed), 1 or 2)``, nes.py:
+        377-383). Tests replace this with a function that returns (N,
+        seq_per_img, T, B, Vpad) f32 tables instead, which the rollouts read
+        through K3's host-table form."""
+        return lane_seeds(seeds, np.full(len(seeds), sign),
+                          self.task.seq_per_img)
+
+    def _lanes(self, seeds_c):
+        """The pair-major members' sampling noise: rows 2i and 2i+1 are
+        (seed_i, +1) and (seed_i, -1)."""
+        pos, neg = self.gumbel_of(seeds_c, 1), self.gumbel_of(seeds_c, -1)
+        if torch.is_tensor(pos):
+            return torch.stack([pos, neg], 1).flatten(0, 1)
+        return np.stack([pos, neg], 1).reshape(2 * len(seeds_c), -1)
 
     @staticmethod
     def _accumulate(grad, w_c, deltas_c):
@@ -173,9 +198,10 @@ class NESEngine(PopulationEngine):
                 # pair-major members: row 2i is +delta_i, row 2i+1 -delta_i
                 members = torch.stack([base_vec + deltas, base_vec - deltas],
                                       1).reshape(2 * chunk, -1)
+                lanes = self._lanes(seeds_l[c]) if task.samples else None
                 fits.append(task.rollout_dec(
                     members, idx_l[c].repeat_interleave(2, 0),
-                    consts=consts).reshape(chunk, 2))
+                    consts=consts, lanes=lanes).reshape(chunk, 2))
         fitnesses = torch.cat(fits).reshape(-1, 2)[:F]
 
         weights = self._pair_weights(fitnesses, seeds_l.shape)

@@ -1,11 +1,22 @@
-"""Fused greedy decode of the FC captioner: CUDA C++ kernels for Hopper.
+"""Fused greedy and sampled decode of the FC captioner: CUDA C++ kernels for
+Hopper.
 
-Port of ``nes_img_captioning_tpu/ops/decode_pallas.py`` for this slice:
+Port of ``nes_img_captioning_tpu/ops/decode_pallas.py``:
 
 * ``decode_fused`` (K1) replaces the Pallas ``decode_fused`` with
   ``greedy=True, vocab_tile=0`` (``decode_pallas.py:614-689``, body
   ``_decode_core`` ``:52-239``): one member's greedy caption for a batch of
   images;
+* ``decode_sample`` (K3), or ``decode_fused(greedy=False, seeds=...)``,
+  replaces the Pallas ``decode_fused`` with ``greedy=False``
+  (``decode_pallas.py:658``, branch ``:198-226``): L Gumbel-max samples per
+  member, ``argmax(logits + G)`` with G drawn in the kernel from each lane's
+  uint32 seed (``ops/noise.py``), or read from a host table
+  (``gumbel=...``, the form of ``host_rng=True``); lp = logit[token] - lse;
+* ``decode_tiled`` (K4), or ``decode_fused(vocab_tile=N)``, replaces the
+  Pallas ``decode_fused`` with ``vocab_tile > 0`` (``:112-157,170-182``):
+  K1 with the logit reduction merged over vocab tiles in order, so the
+  tokens are K1's bit for bit and lp sums in the tiled order;
 * ``decode_pair_perturb`` (K2) replaces the Pallas ``decode_pair_perturb``
   (``decode_pallas.py:295-354``, body ``_pair_kernel`` ``:251-288``): both
   signs of one antithetic pair, the weights formed as
@@ -47,7 +58,11 @@ keeps a running max / first-index argmax / online sum-of-exp over its
 columns, merged across threads with ties to the smaller index. A launch
 covers a whole chunk of members or pairs (the JAX package ``vmap``s over
 the chunk), one CTA each, so a chunk of 24 pairs fills 48 of the 132 SMs;
-``wgmma``, TMA and more CTAs per member are later work.
+``wgmma``, TMA and more CTAs per member are later work. K3 runs one CTA per
+(member, lane), 240 for a chunk of 48 members at 5 lanes, and its time is
+set by drawing T * B * Vpad Gumbel values per CTA (two ``logf`` each and a
+quarter of a Philox call), not by the products. K4 is K1 plus one fold per
+vocab tile and step.
 
 Each kernel has a plain PyTorch twin with the same signature, following the
 JAX kernel's rounding points (weights and feats in ``dt``, products with f32
@@ -69,10 +84,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .noise import philox4x32_10, philox_normal_plain
+from .noise import gumbel_plain, philox4x32_10, philox_normal_plain
 
 __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
-           "decode_fused", "decode_fused_plain", "decode_pair_perturb",
+           "decode_fused", "decode_fused_plain", "decode_sample",
+           "decode_sample_plain", "decode_tiled", "decode_tiled_plain",
+           "gumbel_table", "decode_pair_perturb",
            "decode_pair_perturb_plain", "decode_pair_rng",
            "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_plain",
            "pair_grad_rng", "pair_grad_rng_plain", "philox_words", "build_kernels",
@@ -141,20 +158,51 @@ def _batched(params: dict, feats: torch.Tensor):
     return params, feats, single
 
 
-def decode_fused_plain(params: dict, feats: torch.Tensor,
-                       seq_length: int = 16, need_logprobs: bool = True, *,
-                       top2_gap: bool = False):
-    """Plain twin of K1. params: one member's dict (prepare_decode_params)
-    or a batch of them with a leading member axis M; feats (B, F) or
-    (M, B, F). Returns (seq (…, B, T) int32, lp (…, B, T) f32), and with
-    ``top2_gap`` also each step's gap between the two largest logits (…,
-    B, T) — how near a tie each greedy choice was, for holding a kernel
-    that sums in another order to these tokens."""
-    params, feats, single = _batched(params, feats)
+def _tiled_argmax_lse(logits: torch.Tensor, vocab_tile: int,
+                      need_logprobs: bool):
+    """K4's logit reduction, the arithmetic of the Pallas logits_streamed
+    (decode_pallas.py:132-157): per vocab tile the max, the first argmax
+    and the sum of exp against the new running max, tiles merged in
+    increasing order (running max from NEG, strict > for the argmax).
+    Returns (argmax, max, lse or None), each (...,)."""
+    lead = logits.shape[:-1]
+    run_max = torch.full((*lead, 1), NEG, dtype=torch.float32,
+                         device=logits.device)
+    run_arg = torch.zeros((*lead, 1), dtype=torch.long, device=logits.device)
+    run_sum = torch.zeros_like(run_max)
+    for lo in range(0, logits.shape[-1], vocab_tile):
+        part = logits[..., lo:lo + vocab_tile]
+        mx_t = part.amax(-1, keepdim=True)
+        arg_t = part.argmax(-1, keepdim=True)  # first index on ties
+        new_max = torch.maximum(run_max, mx_t)
+        if need_logprobs:
+            run_sum = run_sum * torch.exp(run_max - new_max) + torch.exp(
+                part - new_max).sum(-1, keepdim=True)
+        run_arg = torch.where(mx_t > run_max, arg_t + lo, run_arg)
+        run_max = new_max
+    lse = run_max + torch.log(run_sum) if need_logprobs else None
+    return run_arg[..., 0], run_max[..., 0], \
+        None if lse is None else lse[..., 0]
+
+
+def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
+                  need_logprobs: bool, *, lanes: int = 1, gumbel_at=None,
+                  vocab_tile: int = 0, top2_gap: bool = False):
+    """The plain decode shared by the twins of K1, K3 and K4. params: a
+    batch of M members (leading axis), feats (M, B, F). Each member decodes
+    ``lanes`` copies of its B rows, lane-major ((M, lanes * B) rows), each
+    copy with its own batch-wide early exit, as one CTA of the kernels.
+    ``gumbel_at(t)``: the (M, lanes * B, Vpad) noise of step t; the token is
+    then argmax(logits + G) and lp = logit[token] - lse (K3). ``vocab_tile``:
+    K4's tiled reduction. Returns (seq, lp[, gap]), each (M, lanes * B, T);
+    gap is each step's gap between the two largest of logits (+ G) — how
+    near a tie each choice was, for holding a kernel that sums in another
+    order to these tokens."""
     f32 = torch.float32
     dt = params["img_w"].dtype
     R = params["h2h_w"].shape[-2]
     M, B = feats.shape[0], feats.shape[1]
+    N = lanes * B
     dev = feats.device
 
     def dott(x, w):  # products of dt values are exact in f32; f32 sums
@@ -172,36 +220,126 @@ def decode_fused_plain(params: dict, feats: torch.Tensor,
     x0 = dott(feats.to(dt), params["img_w"]) + params["img_b"]
     zeros = torch.zeros((M, B, R), dtype=f32, device=dev)
     h, c = lstm(x0.to(dt), zeros, zeros)
+    # every lane starts from the same image step
+    h, c = h.repeat(1, lanes, 1), c.repeat(1, lanes, 1)
 
     rows = torch.arange(M, device=dev)[:, None]
-    tok = torch.zeros((M, B), dtype=torch.long, device=dev)
-    unfin = torch.ones((M, B), dtype=torch.bool, device=dev)
-    alive = torch.ones((M, 1), dtype=torch.bool, device=dev)
+    tok = torch.zeros((M, N), dtype=torch.long, device=dev)
+    unfin = torch.ones((M, N), dtype=torch.bool, device=dev)
+    alive = torch.ones((M, lanes, 1), dtype=torch.bool, device=dev)
     seq, lps, gaps = [], [], []
-    for _ in range(seq_length):
+    for t in range(seq_length):
         h, c = lstm(params["embed"][rows, tok], h, c)
         logits = dott(h.to(dt), params["logit_w"]) + params["logit_b"]
+        key = logits if gumbel_at is None else logits + gumbel_at(t)
+        row_alive = alive.expand(M, lanes, B).reshape(M, N)
         if top2_gap:
-            top = logits.topk(2, dim=-1).values
-            gaps.append(torch.where(alive, top[..., 0] - top[..., 1], 0.0))
-        if need_logprobs:
-            mx = logits.max(dim=-1, keepdim=True).values
-            lse = mx + torch.log(torch.exp(logits - mx).sum(-1, keepdim=True))
-            lp_tok = (mx - lse)[..., 0]
+            top = key.topk(2, dim=-1).values
+            gaps.append(torch.where(row_alive, top[..., 0] - top[..., 1], 0.0))
+        if vocab_tile:
+            new, mx, lse = _tiled_argmax_lse(logits, vocab_tile, need_logprobs)
         else:
-            lp_tok = torch.zeros((M, B), dtype=f32, device=dev)
-        new = logits.argmax(dim=-1)  # first index on ties, like jnp.argmax
+            new = key.argmax(dim=-1)  # first index on ties, like jnp.argmax
+            if need_logprobs:
+                mx = logits.max(dim=-1, keepdim=True).values
+                lse = (mx + torch.log(torch.exp(logits - mx).sum(
+                    -1, keepdim=True)))[..., 0]
+                mx = mx[..., 0]
+        if not need_logprobs:
+            lp_tok = torch.zeros((M, N), dtype=f32, device=dev)
+        elif gumbel_at is None:
+            lp_tok = mx - lse
+        else:  # the sampled token's logit
+            lp_tok = logits.gather(-1, new[..., None])[..., 0] - lse
         unfin = unfin & (new > 0)
         tok = new * unfin
-        # a member whose rows have all finished skips its remaining steps:
-        # its outputs stay 0, as in the kernel
-        seq.append(torch.where(alive, tok, 0).to(torch.int32))
-        lps.append(torch.where(alive, lp_tok, 0.0))
-        alive = alive & unfin.any(-1, keepdim=True)
+        # a CTA whose rows have all finished skips its remaining steps: its
+        # outputs stay 0, as in the kernel
+        seq.append(torch.where(row_alive, tok, 0).to(torch.int32))
+        lps.append(torch.where(row_alive, lp_tok, 0.0))
+        alive = alive & unfin.view(M, lanes, B).any(-1, keepdim=True)
     out = [torch.stack(seq, -1), torch.stack(lps, -1)]
     if top2_gap:
         out.append(torch.stack(gaps, -1))
-    return tuple(o[0] for o in out) if single else tuple(out)
+    return tuple(out)
+
+
+def decode_fused_plain(params: dict, feats: torch.Tensor,
+                       seq_length: int = 16, need_logprobs: bool = True, *,
+                       greedy: bool = True, seeds=None, gumbel=None,
+                       vocab_tile: int = 0, top2_gap: bool = False):
+    """Plain twin of ``decode_fused``, the same signature: K1's for a greedy
+    untiled call, else K3's (``decode_sample_plain``) or K4's
+    (``decode_tiled_plain``). params: one member's dict
+    (prepare_decode_params) or a batch of them with a leading member axis
+    M; feats (B, F) or (M, B, F). Returns (seq (…, B, T) int32, lp (…, B,
+    T) f32), and with ``top2_gap`` also each step's gap between the two
+    largest logits (…, B, T)."""
+    _check_variant(params, greedy, seeds, gumbel, vocab_tile)
+    if not greedy:
+        return decode_sample_plain(params, feats, seq_length, need_logprobs,
+                                   seeds=seeds, gumbel=gumbel,
+                                   top2_gap=top2_gap)
+    params, feats, single = _batched(params, feats)
+    out = _decode_plain(params, feats, seq_length, need_logprobs,
+                        vocab_tile=vocab_tile, top2_gap=top2_gap)
+    return tuple(o[0] for o in out) if single else out
+
+
+def decode_tiled_plain(params: dict, feats: torch.Tensor, vocab_tile: int,
+                       seq_length: int = 16, need_logprobs: bool = True, *,
+                       top2_gap: bool = False):
+    """Plain twin of K4: K1's decode with the logits reduced over vocab
+    tiles of ``vocab_tile`` columns (a multiple of 128 dividing Vpad)."""
+    return decode_fused_plain(params, feats, seq_length, need_logprobs,
+                              vocab_tile=vocab_tile, top2_gap=top2_gap)
+
+
+def _lanes(params: dict, seeds, gumbel):
+    """(single member?, M, L, seeds (M, L) uint32 or None, gumbel (M, L, T,
+    B, Vpad) or None) of a sampling call; one member takes seeds (L,) or a
+    gumbel (L, T, B, Vpad)."""
+    single = params["img_w"].dim() == 2
+    if seeds is not None:
+        u32 = np.asarray(seeds.cpu() if torch.is_tensor(seeds) else seeds)
+        u32 = (u32.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+        u32 = u32[None] if single else u32
+        _check(u32.ndim == 2, f"seeds: shape {u32.shape} is not (members, "
+               "lanes), or (lanes,) for one member")
+        return single, u32.shape[0], u32.shape[1], u32, None
+    g = gumbel[None] if single else gumbel
+    _check(g.dim() == 5, f"gumbel: shape {tuple(gumbel.shape)} is not "
+           "(members, lanes, T, B, Vpad), or (lanes, T, B, Vpad) for one "
+           "member")
+    return single, g.shape[0], g.shape[1], None, g
+
+
+def decode_sample_plain(params: dict, feats: torch.Tensor,
+                        seq_length: int = 16, need_logprobs: bool = True, *,
+                        seeds=None, gumbel=None, top2_gap: bool = False):
+    """Plain twin of K3: L sampled captions per member, each lane's Gumbel
+    values drawn from its uint32 lane seed (``seeds`` (M, L), the stream of
+    ops/noise.py) or read from ``gumbel`` (M, L, T, B, Vpad) f32. One
+    member: seeds (L,), gumbel (L, T, B, Vpad). Returns (seq, lp[, gap]) of
+    shape (M, L, B, T), or (L, B, T) for one member; gap is that of logits
+    + G."""
+    _check((seeds is None) != (gumbel is None),
+           "sampling takes exactly one of seeds and gumbel")
+    single, M, L, u32, g = _lanes(params, seeds, gumbel)
+    params, feats, _ = _batched(params, feats)
+    B, Vpad = feats.shape[1], params["logit_w"].shape[-1]
+    if u32 is not None:
+        s64 = torch.from_numpy(u32.astype(np.int64)).to(feats.device)
+
+        def gumbel_at(t):
+            return gumbel_plain(s64, t, B, Vpad).reshape(M, L * B, Vpad)
+    else:
+        def gumbel_at(t):
+            return g[:, :, t].to(torch.float32).reshape(M, L * B, Vpad)
+    out = _decode_plain(params, feats, seq_length, need_logprobs, lanes=L,
+                        gumbel_at=gumbel_at, top2_gap=top2_gap)
+    out = tuple(o.reshape(M, L, B, seq_length) for o in out)
+    return tuple(o[0] for o in out) if single else out
 
 
 def _perturbed(base: dict, delta: dict, sign: float, dtype) -> dict:
@@ -334,6 +472,11 @@ def _kernels() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nes_decode_fused.argtypes = [ci] * 7 + [vp] * 10 + [vp] * 2 + [vp]
     lib.nes_decode_fused.restype = ci
+    lib.nes_decode_tiled.argtypes = [ci] * 8 + [vp] * 10 + [vp] * 2 + [vp]
+    lib.nes_decode_tiled.restype = ci
+    for fn in (lib.nes_decode_sample, lib.nes_decode_sample_table):
+        fn.argtypes = [ci] * 8 + [vp] * 10 + [vp] + [vp] * 2 + [vp]
+        fn.restype = ci
     lib.nes_decode_pair_perturb.argtypes = \
         [ci] * 8 + [vp] * (1 + 9 + 9) + [vp] * 2 + [vp]
     lib.nes_decode_pair_perturb.restype = ci
@@ -347,6 +490,8 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_pair_grad_rng.restype = ci
     lib.nes_philox_words.argtypes = [ctypes.c_uint, i64, vp, vp]
     lib.nes_philox_words.restype = ci
+    lib.nes_gumbel_table.argtypes = [ctypes.c_uint, ci, ci, ci, vp, vp]
+    lib.nes_gumbel_table.restype = ci
     return lib
 
 
@@ -389,36 +534,164 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
-                 need_logprobs: bool = True):
-    """K1: greedy decode of one member, or of a batch of members in one
-    launch (params with a leading member axis M, feats (M, B, F)). CPU
-    tensors run the plain twin; CUDA tensors launch the kernel."""
-    if not feats.is_cuda:
-        return decode_fused_plain(params, feats, seq_length, need_logprobs)
+def _check_variant(params: dict, greedy: bool, seeds, gumbel,
+                   vocab_tile: int):
+    """The JAX wrapper's checks of a decode_fused call (decode_pallas.py:
+    637-647), as ValueError: vocab_tile is greedy-only, a multiple of 128
+    dividing Vpad; sampling takes a seed stream or a table."""
+    if vocab_tile:
+        Vpad = params["logit_w"].shape[-1]
+        _check(greedy, "vocab_tile is a greedy-decode variant")
+        _check(vocab_tile > 0 and vocab_tile % PAD_LANE == 0
+               and Vpad % vocab_tile == 0,
+               f"vocab_tile={vocab_tile} must be a multiple of {PAD_LANE} "
+               f"dividing the padded vocab {Vpad}")
+    _check(greedy or (seeds is None) != (gumbel is None),
+           "sampling (greedy=False) takes exactly one of seeds and gumbel")
+    _check(not greedy or (seeds is None and gumbel is None),
+           "seeds and gumbel are for sampling (greedy=False)")
+
+
+def _launch_args(params: dict, feats: torch.Tensor, what: str):
+    """Checks of K1, K3 and K4's operands: (params, feats in dt, (M, B,
+    F), Vpad, dtype code, stream, single member?)."""
     dt = params["img_w"].dtype
     _check(dt in _DTYPE_CODE, f"weight dtype {dt} is not f32 or bf16")
     params, feats, single = _batched(params, feats)
     M, B, F = feats.shape
     _check(1 <= B <= KERNEL_WIDTH, f"batch {B} outside 1..{KERNEL_WIDTH}")
-    Vpad = _check_params(params, M, F, dt)
+    Vpad = _check_params(params, M, F, dt, what=what)
     feats = feats.to(dt).contiguous()
     _check(feats.device == params["img_w"].device, "feats on another device")
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    return params, feats, (M, B, F), Vpad, _DTYPE_CODE[dt], stream, single
+
+
+def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
+                 need_logprobs: bool = True, *, greedy: bool = True,
+                 seeds=None, gumbel=None, vocab_tile: int = 0):
+    """Decode of one member, or of a batch of members in one launch (params
+    with a leading member axis M, feats (M, B, F)): K1, the greedy decode;
+    with ``vocab_tile`` K4 (``decode_tiled``); with ``greedy=False`` K3
+    (``decode_sample``), which takes ``seeds`` or ``gumbel``. Returns (seq
+    (…, B, T) int32, lp (…, B, T) f32), with a lane axis before B when
+    sampling. CPU tensors run the plain twin; CUDA tensors launch the
+    kernel."""
+    _check_variant(params, greedy, seeds, gumbel, vocab_tile)
+    if not greedy:
+        return decode_sample(params, feats, seq_length, need_logprobs,
+                             seeds=seeds, gumbel=gumbel)
+    if vocab_tile:
+        return decode_tiled(params, feats, vocab_tile, seq_length,
+                            need_logprobs)
+    if not feats.is_cuda:
+        return decode_fused_plain(params, feats, seq_length, need_logprobs)
+    params, feats, (M, B, F), Vpad, code, stream, single = _launch_args(
+        params, feats, "params")
     seq = torch.empty((M, B, seq_length), dtype=torch.int32,
                       device=feats.device)
     lp = torch.empty((M, B, seq_length), dtype=torch.float32,
                      device=feats.device)
     err = _kernels().nes_decode_fused(
-        _DTYPE_CODE[dt], int(need_logprobs), M, B, F, Vpad, seq_length,
+        code, int(need_logprobs), M, B, F, Vpad, seq_length,
         feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
-        seq.data_ptr(), lp.data_ptr(),
-        torch.cuda.current_stream(feats.device).cuda_stream)
+        seq.data_ptr(), lp.data_ptr(), stream)
     _raise_on(err, "decode_fused")
     decode_fused.launches += 1
     return (seq[0], lp[0]) if single else (seq, lp)
 
 
 decode_fused.launches = 0
+
+
+def decode_tiled(params: dict, feats: torch.Tensor, vocab_tile: int,
+                 seq_length: int = 16, need_logprobs: bool = True):
+    """K4: K1 with the logits reduced over vocab tiles of ``vocab_tile``
+    columns (a multiple of 128 dividing Vpad; ``tpu.decode_vocab_tile``):
+    the same tokens as K1, bit for bit, and lp summed in the tiled order.
+    Shapes as K1's."""
+    _check_variant(params, True, None, None, vocab_tile)
+    if not feats.is_cuda:
+        return decode_tiled_plain(params, feats, vocab_tile, seq_length,
+                                  need_logprobs)
+    params, feats, (M, B, F), Vpad, code, stream, single = _launch_args(
+        params, feats, "params")
+    seq = torch.empty((M, B, seq_length), dtype=torch.int32,
+                      device=feats.device)
+    lp = torch.empty((M, B, seq_length), dtype=torch.float32,
+                     device=feats.device)
+    err = _kernels().nes_decode_tiled(
+        code, int(need_logprobs), M, B, F, Vpad, seq_length, vocab_tile,
+        feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
+        seq.data_ptr(), lp.data_ptr(), stream)
+    _raise_on(err, "decode_tiled")
+    decode_tiled.launches += 1
+    return (seq[0], lp[0]) if single else (seq, lp)
+
+
+decode_tiled.launches = 0
+
+
+def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
+                  need_logprobs: bool = True, *, seeds=None, gumbel=None):
+    """K3: L Gumbel-max sampled captions per member in one launch, one CTA
+    per (member, lane). ``seeds``: (M, L) uint32 lane seeds (host ints or
+    array), the Gumbel values drawn in the kernel; or ``gumbel``: an (M, L,
+    T, B, Vpad) f32 table on the card (the host-table form). One member:
+    seeds (L,), gumbel (L, T, B, Vpad). Returns (seq, lp) of shape (M, L,
+    B, T), or (L, B, T); lp = logit[token] - lse."""
+    _check((seeds is None) != (gumbel is None),
+           "sampling takes exactly one of seeds and gumbel")
+    if not feats.is_cuda:
+        return decode_sample_plain(params, feats, seq_length, need_logprobs,
+                                   seeds=seeds, gumbel=gumbel)
+    single, M, L, u32, g = _lanes(params, seeds, gumbel)
+    params, feats, (M_, B, F), Vpad, code, stream, _ = _launch_args(
+        params, feats, "params")
+    _check(M_ == M, f"{M_} members, {M} of seeds or gumbel")
+    dev = feats.device
+    seq = torch.empty((M, L, B, seq_length), dtype=torch.int32, device=dev)
+    lp = torch.empty((M, L, B, seq_length), dtype=torch.float32, device=dev)
+    prm = (params[k].data_ptr() for k in PAIR_TENSORS)
+    if u32 is not None:
+        seeds_d = _seeds_on(u32.reshape(-1), dev)
+        err = _kernels().nes_decode_sample(
+            code, int(need_logprobs), M, L, B, F, Vpad, seq_length,
+            feats.data_ptr(), *prm, seeds_d.data_ptr(), seq.data_ptr(),
+            lp.data_ptr(), stream)
+    else:
+        _check(tuple(g.shape) == (M, L, seq_length, B, Vpad),
+               f"gumbel: shape {tuple(g.shape)} != "
+               f"{(M, L, seq_length, B, Vpad)}")
+        _check(g.dtype == torch.float32 and g.device == dev
+               and g.is_contiguous(),
+               "gumbel: not a contiguous f32 tensor on the weights' card")
+        err = _kernels().nes_decode_sample_table(
+            code, int(need_logprobs), M, L, B, F, Vpad, seq_length,
+            feats.data_ptr(), *prm, g.data_ptr(), seq.data_ptr(),
+            lp.data_ptr(), stream)
+    _raise_on(err, "decode_sample")
+    decode_sample.launches += 1
+    return (seq[0], lp[0]) if single else (seq, lp)
+
+
+decode_sample.launches = 0
+
+
+def gumbel_table(seed: int, t: int, B: int, Vpad: int, device) -> torch.Tensor:
+    """(B, Vpad) f32: K3's Gumbel values of lane seed ``seed`` at step t,
+    from the kernels' generator on a CUDA device and from the plain one
+    (ops/noise.py) on the CPU — the check that the two draw the same
+    values."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return gumbel_plain(torch.tensor(int(seed) & 0xFFFFFFFF), t, B, Vpad)
+    out = torch.empty((B, Vpad), dtype=torch.float32, device=device)
+    err = _kernels().nes_gumbel_table(
+        int(seed) & 0xFFFFFFFF, t, B, Vpad, out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "gumbel_table")
+    return out
 
 
 def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,

@@ -1,15 +1,25 @@
 """MSCOCO captioning task (port of ``CocoTask`` in ``nes_img_captioning_tpu/tasks/captioning.py``).
 
-The port runs the greedy fitness kind on the decode-layout path: the
-rollouts decode with the kernels of ops/decode_cuda.py (K1 per member, K2
-per antithetic pair, K5 per pair with the noise drawn in the kernel) and
-score every row with the on-device CIDEr-D; fitness = mean CIDEr-D * 100 per
-member (reference: src/captioning/policies.py). Batches are image-level:
-greedy decoding of the reference's 5 identical rows per image gives 5
-identical captions, so each image is decoded once. Host validation decodes
-the val split with K1 and scores it with word-level plain CIDEr. Sampling
-kinds, self-critical baselines, the per-token criteria and validation fused
-into the generation wait for later slices.
+The port runs every fitness kind of the reference (src/captioning/
+policies.py, Fitness) on the decode-layout path, scored by the on-device
+CIDEr-D:
+
+* greedy | sample        -> mean CIDEr-D * 100 per member;
+* self_critical          -> mean(CIDEr-D(sample) - CIDEr-D(greedy)) * 100;
+* sc_loss, greedy_*prob  -> the per-token criterion of fitness/criteria.py
+                            (sc_loss on samples with the self-critical
+                            reward).
+
+The rollouts decode with the kernels of ops/decode_cuda.py: K1 per member
+(K4 with ``tpu.decode_vocab_tile``), K2 per antithetic pair, K5 per pair
+with the noise drawn in the kernel, and K3 for the sampling kinds. Greedy
+batches are image-level: greedy decoding of the reference's 5 identical
+rows per image gives 5 identical captions, so each image is decoded once.
+The sampling kinds draw ``seq_per_img`` (default 5) independent samples per
+image, rows image-major (row ``b * spi + i``), as the reference's
+``repeat(feats, 5)``. Host validation decodes the val split with K1 (K4
+when tiled) and scores it with word-level plain CIDEr. Validation fused
+into the generation waits for a later slice.
 """
 
 from __future__ import annotations
@@ -23,13 +33,21 @@ import torch
 
 from .base import Task
 from ..data.mscoco import CocoData
+from ..fitness.criteria import FITNESS_CRITERIA, criterion_device
 from ..fitness.scorer import IndexedCiderScorer
 from ..models.fc_caption import FCCaptionModel, FCModelOptions
+from ..ops.decode_cuda import PAD_LANE, pad_vocab
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["CocoTask"]
+__all__ = ["CocoTask", "GREEDY_KINDS", "SELF_CRITICAL_KINDS"]
+
+# reference classification of fitness kinds (captioning/policies.py:40-47)
+GREEDY_KINDS = {"greedy", "greedy_logprob", "greedy_expprob", "greedy_linprob",
+                "greedy_avgprob"}
+SELF_CRITICAL_KINDS = {"self_critical", "sc_loss"}
+_KINDS = GREEDY_KINDS | SELF_CRITICAL_KINDS | {"sample"}
 
 
 class CocoTask(Task):
@@ -45,10 +63,10 @@ class CocoTask(Task):
         copts = dict(exp.get("caption_options", {}))
         self.config = config
         self.fitness_kind = popts.get("fitness") or "greedy"
-        if self.fitness_kind != "greedy":
-            raise NotImplementedError(
-                f"fitness {self.fitness_kind!r} is not ported yet (greedy "
-                "CIDEr-D only)")
+        if self.fitness_kind not in _KINDS:
+            raise ValueError(f"unknown fitness {self.fitness_kind!r}: "
+                             f"expected one of {sorted(_KINDS)}")
+        self.seq_per_img = copts.get("seq_per_img") or 5
         self.data = data if data is not None else CocoData(
             copts, train_only=copts.get("train_only") or 0)
         self.model = FCCaptionModel(FCModelOptions(
@@ -78,6 +96,15 @@ class CocoTask(Task):
         self._fused = tpu_cfg.fused_decode is not False
         self._decode_dtype = (torch.bfloat16 if tpu_cfg.precision == "bf16"
                               else torch.float32)
+        # the vocab-tiled greedy decode (K4) for every greedy decode
+        self._vocab_tile = int(tpu_cfg.decode_vocab_tile or 0)
+        Vpad = pad_vocab(self.data.vocab_size + 1)
+        if self._vocab_tile and (self._vocab_tile < 0
+                                 or self._vocab_tile % PAD_LANE
+                                 or Vpad % self._vocab_tile):
+            raise ValueError(
+                f"tpu.decode_vocab_tile={self._vocab_tile}: expected a "
+                f"multiple of {PAD_LANE} dividing the padded vocab {Vpad}")
 
         self._device_cider = None
         if tpu_cfg.device_cider is not False:
@@ -119,9 +146,24 @@ class CocoTask(Task):
     @property
     def supports_pair_perturb(self) -> bool:
         """Gate for the pair kernel (tpu.kernel_perturb): fused decode and
-        device scoring, i.e. the decode layout (the only fitness kind
-        ported, greedy, is one the pair kernel serves)."""
-        return self.decode_layout is not None
+        device scoring (the decode layout), a greedy fitness kind (the
+        sampling kinds draw per-lane seeds the pair kernel does not take),
+        and the untiled logit pass — the JAX gate
+        (captioning.py:321-334)."""
+        return (self.decode_layout is not None
+                and self.fitness_kind in GREEDY_KINDS
+                and not self._vocab_tile)
+
+    @property
+    def need_logprobs(self) -> bool:
+        """Only the per-token criteria kinds consume logprobs; the others
+        skip the decode's log-softmax reductions."""
+        return self.fitness_kind in FITNESS_CRITERIA
+
+    @property
+    def samples(self) -> bool:
+        """The kind decodes seq_per_img sampled lanes per image (K3)."""
+        return self.fitness_kind not in GREEDY_KINDS
 
     @property
     def supports_kernel_noise(self) -> bool:
@@ -157,13 +199,13 @@ class CocoTask(Task):
 
         consts = self.device_consts() if consts is None else consts
         feats = consts["train_fc"][idx]
-        seq2, _ = decode_pair_perturb(
+        seq2, lp2 = decode_pair_perturb(
             # the delta keeps its own dtype into the kernel; the kernel's
             # f32 + f32(delta) sum is the per-member path's base + delta
             base_params, self.decode_layout.prep(delta_dec, delta_dec.dtype),
             feats, seq_length=self.model.options.seq_length,
-            dtype=self._decode_dtype, need_logprobs=False)
-        return self._pair_fitness(seq2, idx, consts)
+            dtype=self._decode_dtype, need_logprobs=self.need_logprobs)
+        return self._pair_fitness(seq2, lp2, idx, consts)
 
     def rollout_pair_rng(self, base_params: dict, scale_params: dict, seeds,
                          idx, consts=None):
@@ -175,62 +217,107 @@ class CocoTask(Task):
         from ..ops.decode_cuda import decode_pair_rng
 
         consts = self.device_consts() if consts is None else consts
-        seq2, _ = decode_pair_rng(
+        seq2, lp2 = decode_pair_rng(
             base_params, scale_params, seeds, consts["train_fc"][idx],
             seq_length=self.model.options.seq_length,
-            dtype=self._decode_dtype, need_logprobs=False)
-        return self._pair_fitness(seq2, idx, consts)
+            dtype=self._decode_dtype, need_logprobs=self.need_logprobs)
+        return self._pair_fitness(seq2, lp2, idx, consts)
 
-    def _pair_fitness(self, seq2, idx, consts):
-        """(P, 2, B, T) tokens of P pairs -> (P, 2) [pos, neg] fitnesses,
-        the rows laid out as the per-member path lays them out."""
+    def _pair_fitness(self, seq2, lp2, idx, consts):
+        """(P, 2, B, T) tokens and logprobs of P pairs -> (P, 2) [pos, neg]
+        fitnesses, the rows laid out as the per-member path lays them
+        out."""
         P = seq2.shape[0]
         return self._device_fitness(
             seq2.reshape(2 * P, *seq2.shape[2:]), idx.repeat_interleave(2, 0),
-            consts.get("cider")).reshape(P, 2)
+            consts.get("cider"),
+            lp=lp2.reshape(2 * P, *lp2.shape[2:])).reshape(P, 2)
 
-    def rollout_dec(self, vec_dec, idx, consts=None):
-        """Greedy rollouts of decode-ordered members (K1, one launch):
-        vec_dec (M, dim_dec), idx (M, B). Returns (M,) fitnesses."""
+    def _greedy(self, params: dict, feats, need_logprobs: bool = False):
+        """Greedy decode of a batch of members: K1, or K4 with
+        tpu.decode_vocab_tile."""
+        from ..ops.decode_cuda import decode_fused
+
+        return decode_fused(params, feats, self.model.options.seq_length,
+                            need_logprobs, vocab_tile=self._vocab_tile)
+
+    def rollout_dec(self, vec_dec, idx, consts=None, lanes=None):
+        """Rollouts of decode-ordered members, one launch per decode:
+        vec_dec (M, dim_dec), idx (M, B). Greedy kinds decode each member's
+        B rows once (K1, or K4 when tiled). The sampling kinds decode
+        seq_per_img lanes per member in one K3 launch, ``lanes`` giving
+        their noise: (M, spi) uint32 lane seeds (host), or an (M, spi, T, B,
+        Vpad) f32 Gumbel table (K3's host-table form); the self-critical
+        kinds also decode each member greedily for the baseline. Returns
+        (M,) fitnesses."""
         from ..ops.decode_cuda import decode_fused
 
         consts = self.device_consts() if consts is None else consts
-        seq, _ = decode_fused(
-            self.decode_layout.prep(vec_dec, self._decode_dtype),
-            consts["train_fc"][idx], seq_length=self.model.options.seq_length,
-            need_logprobs=False)
-        return self._device_fitness(seq, idx, consts.get("cider"))
+        params = self.decode_layout.prep(vec_dec, self._decode_dtype)
+        feats = consts["train_fc"][idx]
+        T = self.model.options.seq_length
+        base = None
+        if not self.samples:
+            seq, lp = self._greedy(params, feats, self.need_logprobs)
+        else:
+            if lanes is None:
+                raise ValueError(f"fitness {self.fitness_kind!r} samples: "
+                                 "rollout_dec needs its lanes' noise")
+            noise = {"gumbel": lanes} if torch.is_tensor(lanes) \
+                else {"seeds": lanes}
+            seq, lp = decode_fused(params, feats, T, self.need_logprobs,
+                                   greedy=False, **noise)  # (M, spi, B, T)
+            M, spi, B = seq.shape[:3]
+            # image-major rows b * spi + i
+            seq = seq.transpose(1, 2).reshape(M, B * spi, T)
+            lp = lp.transpose(1, 2).reshape(M, B * spi, T)
+            if self.fitness_kind in SELF_CRITICAL_KINDS:
+                base = self._greedy(params, feats)[0]
+        return self._device_fitness(seq, idx, consts.get("cider"), lp=lp,
+                                    base_seq=base)
 
-    def _device_fitness(self, seq, idx, dev=None):
-        """seq (N, B, T) tokens of N members, idx (N, B) their images ->
-        (N,) mean CIDEr-D * 100. Both eval paths call this with the same
-        layout, so equal tokens give bitwise equal fitnesses."""
-        N, B, T = seq.shape
-        scores = self._device_cider.score_rows(
-            seq.reshape(N * B, T).to(torch.int32), idx.reshape(-1), dev=dev)
-        return scores.reshape(N, B).mean(-1) * 100.0
+    def _device_fitness(self, seq, idx, dev=None, lp=None, base_seq=None):
+        """seq (N, R, T) tokens of N members (R = B rows, or B * spi
+        image-major sampled rows), idx (N, B) their images -> (N,)
+        fitnesses: mean CIDEr-D * 100, or the per-token criterion of the
+        criteria kinds (over lp (N, R, T), the row's score as every token's
+        reward, not scaled by 100). ``base_seq`` (N, B, T): the greedy
+        baseline whose CIDEr-D the self-critical kinds subtract from each
+        sample of its image (reference: captioning/policies.py:119-126,
+        164-191). Both eval paths call this with the same layout, so equal
+        tokens give bitwise equal fitnesses."""
+        N, R, T = seq.shape
+        B = idx.shape[-1]
+        spi = R // B
+        cider = self._device_cider
+        scores = cider.score_rows(
+            seq.reshape(N * R, T).to(torch.int32),
+            idx.repeat_interleave(spi, -1).reshape(-1), dev=dev).reshape(N, R)
+        if base_seq is not None:
+            base = cider.score_rows(
+                base_seq.reshape(N * B, T).to(torch.int32), idx.reshape(-1),
+                dev=dev).reshape(N, B)
+            scores = scores - base.repeat_interleave(spi, -1)
+        if self.need_logprobs:
+            return criterion_device(self.fitness_kind, lp, seq,
+                                    scores[..., None])
+        return scores.mean(-1) * 100.0
 
     # ---- validation ------------------------------------------------------------------
 
     def _decode_split(self, theta, feats, num: int, bs: int) -> np.ndarray:
         """Greedy-decode the first ``num`` rows of a split (all for -1, 0 or
-        None) with K1, in launches of at most ``bs`` rows and at most the
-        kernel's 128. Greedy rows are independent, so the chunking changes
-        no token."""
-        from ..ops.decode_cuda import (
-            KERNEL_WIDTH,
-            decode_fused,
-            prepare_decode_params,
-        )
+        None) with K1 (K4 when tiled), in launches of at most ``bs`` rows
+        and at most the kernel's 128. Greedy rows are independent, so the
+        chunking changes no token."""
+        from ..ops.decode_cuda import KERNEL_WIDTH, prepare_decode_params
 
         n = feats.shape[0] if num in (-1, None, 0) else min(num,
                                                             feats.shape[0])
         rows = max(min(bs, n, KERNEL_WIDTH), 1)
         params = prepare_decode_params(self.spec, theta, self.model.options,
                                        dtype=self._decode_dtype)
-        seqs = [decode_fused(params, feats[s:s + rows],
-                             seq_length=self.model.options.seq_length,
-                             need_logprobs=False)[0]
+        seqs = [self._greedy(params, feats[s:s + rows])[0]
                 for s in range(0, n, rows)]
         return torch.cat(seqs).cpu().numpy()
 

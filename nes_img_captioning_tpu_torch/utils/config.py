@@ -5,10 +5,13 @@ either: one experiment JSON per run (reference: experiments/*.json), parsed
 into a ``Config`` with the reference's field set
 (src/algorithm/tools/utils.py:14-20); keys starting with ``_`` are disabled.
 The execution section keeps its JSON name ``"tpu"`` and every knob of the
-JAX package, so a file written for it parses here. This slice of the port
-reads ``precision``, ``delta_dtype``, ``kernel_perturb``, ``fused_decode``,
-``device_cider``, ``pop_chunk`` and ``seed``; the others are accepted and
-not yet read. Unlike the JAX parser, ``kernel_noise``, ``fused_decode`` and
+JAX package, so a file written for it parses here. The port reads
+``precision``, ``delta_dtype``, ``kernel_perturb``, ``kernel_noise``,
+``fused_decode``, ``device_cider``, ``decode_vocab_tile`` (validated when
+the task is built: a multiple of 128 dividing the padded vocab),
+``pop_chunk``, ``gens_per_dispatch``, ``val_freq`` and ``seed``; it refuses
+``fused_validation: true``, ``mesh_shape`` and ``profile``, and accepts the
+others without reading them yet. Unlike the JAX parser, ``kernel_noise``, ``fused_decode`` and
 ``device_cider`` are validated like the other tri-state knobs, so a
 near-miss such as ``"false"`` is rejected instead of read as true.
 """
@@ -66,7 +69,7 @@ class TpuConfig:
     sensitivity_batch: int = 0
     sensitivity_split: int = 100
     sensitivity_probes: int = 0
-    decode_vocab_tile: int = 0
+    decode_vocab_tile: int = 0  # vocab-tiled greedy decode K4; 0 = K1
     gens_per_dispatch: int = 1
     fused_es: object = "auto"
     fused_validation: object = "auto"

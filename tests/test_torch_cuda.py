@@ -10,6 +10,7 @@ to their twins at full width; these tests cover a small vocab, a short
 feature width and a partial batch.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,6 +84,75 @@ def test_philox_words_match_plain_stream(small_members):
     assert torch.equal(words.cpu(), tdc.philox_words(0x12345678, 4096, "cpu"))
     assert tdc.philox_words(0, 1, "cuda")[0].tolist() == [
         0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+
+
+def _first_diffs_at_near_ties(seq_k, seq_p, gap_p, limit=1e-3):
+    """Rows whose tokens differ first differ where the plain version's top
+    two (of logits + G) lie within ``limit``; returns the differing rows."""
+    rows = (~(seq_k == seq_p).all(-1)).nonzero().tolist()
+    for idx in rows:
+        t0 = int((seq_k[tuple(idx)] != seq_p[tuple(idx)]).nonzero()[0])
+        assert float(gap_p[tuple(idx)][t0]) < limit, (idx, t0)
+    return len(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k3_matches_plain_twin(small_members, dt):
+    """K3, 3 lanes per member, Gumbel values drawn in the kernel: tokens
+    equal the plain version's but at near-ties of logits + G, lp within
+    2e-5 at f32 on equal rows; the host-table form fed the plain stream's
+    table gives the kernel's tokens; the kernel's draw is the plain one's
+    within 2 ulps; pad columns are never sampled."""
+    lay, members, feats, _ = small_members
+    params = lay.prep(members, dt)
+    seeds = np.array([[1, 2, 0xFFFFFFFF], [7, 8, 9]], np.uint32)
+    before = tdc.decode_sample.launches
+    seq_k, lp_k = tdc.decode_fused(params, feats, greedy=False, seeds=seeds)
+    assert tdc.decode_sample.launches == before + 1
+    assert seq_k.shape == (2, 3, 32, 16)
+    seq_p, lp_p, gap_p = tdc.decode_sample_plain(params, feats, seeds=seeds,
+                                                 top2_gap=True)
+    torch.cuda.synchronize()
+    n_diff = _first_diffs_at_near_ties(seq_k, seq_p, gap_p)
+    assert n_diff <= 2
+    same = (seq_k == seq_p).all(-1)
+    if dt == torch.float32:
+        assert float((lp_k - lp_p).abs()[same].max()) < 2e-5
+    assert int(seq_k.max()) <= 300 and (seq_k[0, 0] != seq_k[0, 1]).any()
+    B, Vpad = 32, lay.Vpad
+    table = torch.stack([torch.stack([
+        torch.stack([tdc.gumbel_table(int(s), t, B, Vpad, "cpu")
+                     for t in range(16)]) for s in row]) for row in seeds])
+    seq_t, _ = tdc.decode_fused(params, feats, greedy=False,
+                                gumbel=table.cuda())
+    assert (seq_t == seq_k).all(-1).float().mean() > 0.99
+    g_card = tdc.gumbel_table(12345, 3, B, Vpad, "cuda").cpu()
+    g_cpu = tdc.gumbel_table(12345, 3, B, Vpad, "cpu")
+    assert float((g_card - g_cpu).abs().max()) <= 2 * 1.91e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k4_tokens_equal_k1(small_members, dt):
+    """K4 over 3 vocab tiles of 128: tokens equal K1's bit for bit; at f32
+    lp within 2e-5 of K4's plain version."""
+    lay, members, feats, _ = small_members
+    params = lay.prep(members, dt)
+    before = tdc.decode_tiled.launches, tdc.decode_fused.launches
+    seq4, lp4 = tdc.decode_fused(params, feats, vocab_tile=128)
+    seq1, _ = tdc.decode_fused(params, feats)
+    torch.cuda.synchronize()
+    assert (tdc.decode_tiled.launches, tdc.decode_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(seq4, seq1)
+    if dt == torch.float32:
+        _, lp_p = tdc.decode_tiled_plain(params, feats, 128)
+        assert float((lp4 - lp_p).abs().max()) < 2e-5
+    with pytest.raises(ValueError, match="vocab_tile"):
+        tdc.decode_fused(params, feats, vocab_tile=256)
 
 
 @pytest.mark.cuda
