@@ -9,11 +9,14 @@ toolkit (nvcc):
 Phases, each printed as it ends (any failure exits non-zero):
 
 1. the card's name and power limit; the kernels built with nvcc from
-   nes_img_captioning_tpu_torch/csrc/ (ptxas register report);
+   nes_img_captioning_tpu_torch/csrc/ (ptxas registers and spills per
+   kernel); the pair kernel's cluster shape, shared memory, ring slots and
+   cudaOccupancyMaxActiveClusters at each weight and delta dtype;
 2. K1 (decode_fused) at full width on a chunk of 48 members, f32 (TF32
    off) and bf16, logprobs on and off, against its plain PyTorch twin;
 3. K2 (decode_pair_perturb) on 24 pairs with a bf16 delta: tokens equal K1
-   on prep(base ± delta) bit for bit, and held to its plain twin;
+   on prep(base ± delta) bit for bit, lp within 2e-5 of K1's (the cluster's
+   halves sum exp in another order), and held to its plain twin;
 4. three whole NIC-NES generations at the bench settings (fc_caption,
    vocab 9487, 144 pairs, batch 128, bf16 weights and deltas, pop_chunk 24,
    Adam, sigma 0.01) on the in-memory synthetic fixture, through the pair
@@ -21,7 +24,9 @@ Phases, each printed as it ends (any failure exits non-zero):
    generation: packed vectors bitwise equal, fitnesses finite, theta
    changed, launch counts read around each path;
 5. K1's and K2's times at these shapes beside their plain twins', a cuBLAS
-   yardstick for their products, and their bound; one profiled generation;
+   yardstick for their products, and their bound; K2 on the first 15 vocab
+   tiles (Vpad 1920) beside the full 75, which parts the cost per vocab
+   tile from the fixed cost per step; one profiled generation;
 6. K7 (pair_delta_dump) on 24 seeds: the card's Philox words equal the
    plain stream's, and its deltas the plain version's within 8 ulps;
 7. K5 (decode_pair_rng), f32 and bf16: tokens and lp bitwise equal to K2
@@ -37,7 +42,8 @@ Phases, each printed as it ends (any failure exits non-zero):
     iterations with validation and snapshots, then a resume from the
     snapshot for one more generation — the path a user runs;
 11. K5's, K6's and K7's times beside their plain versions', the delta-operand
-    path doing the same work, and their bounds;
+    path doing the same work, and their bounds; K5 beside its parts (K7's
+    draw, K2 on the f32 dump) and K1 again as the run's anchor;
 12. K3 (decode_sample) on the chunk's 48 members x 5 lanes, the Gumbel
     values drawn in the kernel from the lane seeds the engine draws, f32
     (TF32 off) and bf16, against its plain version: tokens equal but at
@@ -97,6 +103,28 @@ def nvidia_smi() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(report: str) -> list:
+    """(kernel, line) for each register and spill line of nvcc's ptxas
+    report, the kernel named from its mangled entry: template arguments t =
+    bf16, f = f32, 0 / 1 = false / true."""
+    import re
+
+    name, out = "?", []
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d+([a-z_]+_kernel)(?:I(\w*?)E)?E", entry.group(1))
+            name = m.group(1) if m else entry.group(1)
+            args = m.group(2) if m else None
+            if args and re.fullmatch(r"[tf]*(Lb[01]E)*(Lb[01])?", args):
+                args = re.sub(r"Lb([01])E?", r"\1", args)
+                name += "<" + ",".join({"t": "bf16", "f": "f32"}.get(c, c)
+                                       for c in args) + ">"
+        elif "registers" in line or "spill" in line:
+            out.append((name, line.strip()))
+    return out
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -534,9 +562,23 @@ def main() -> int:
     t0 = time.time()
     lib, report = dc.build_kernels()
     log(f"[1] kernels built in {time.time() - t0:.1f} s: {lib.name}")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+    for name, line in ptxas_lines(report):
+        log(f"    ptxas {name}: {line}")
+    for wdt, ddt in ((torch.bfloat16, torch.bfloat16),
+                     (torch.bfloat16, torch.float32),
+                     (torch.float32, torch.bfloat16),
+                     (torch.float32, torch.float32)):
+        info = dc.pair_cluster_info(wdt, ddt)
+        if info["max_active_clusters"] < BENCH["pop_chunk"]:
+            raise AssertionError(f"pair kernel {info}: a chunk of "
+                                 f"{BENCH['pop_chunk']} pairs is not resident")
+        log(f"[1] pair kernel (K2, K5), weights {wdt}, delta {ddt}: clusters "
+            f"of {info['cluster']} CTAs x {info['threads']} threads, "
+            f"{info['smem_bytes']} B dynamic shared memory, "
+            f"{info['ring_slots']} ring slots of {info['tile_rows']} k-rows; "
+            f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']}; "
+            f"{info['cluster'] * BENCH['pop_chunk']} CTAs per launch at "
+            f"{BENCH['pop_chunk']} pairs, all resident")
 
     # ---- the fixture, the task and one generation's inputs -----------------
     t0 = time.time()
@@ -605,10 +647,15 @@ def main() -> int:
     for dt in (torch.float32, torch.bfloat16):
         seq2, lp2 = dc.decode_pair_perturb(base, dparams, feats, T, dt, True)
         seq1, lp1 = dc.decode_fused(lay.prep(members, dt), feats2, T, True)
-        if not (torch.equal(seq2.reshape(2 * P, B, T), seq1)
-                and torch.equal(lp2.reshape(2 * P, B, T), lp1)):
-            raise AssertionError(f"K2 {dt}: not bitwise equal to K1 on "
-                                 "prep(base ± delta)")
+        # tokens bit for bit: every logit is K1's product in K1's order; lp
+        # within 2e-5: the two column halves of a sign's cluster each sum
+        # exp over their own columns and then merge, so the log-sum-exp
+        # adds in another order than K1's
+        lp_k1 = float((lp2.reshape(2 * P, B, T) - lp1).abs().max())
+        if not torch.equal(seq2.reshape(2 * P, B, T), seq1) or lp_k1 > 2e-5:
+            raise AssertionError(f"K2 {dt}: tokens not bitwise K1's on "
+                                 f"prep(base ± delta), or lp {lp_k1:.3g} "
+                                 "from K1's > 2e-5")
         seq_p, lp_p, gap_p = dc.decode_fused_plain(
             lay.prep(members, dt), feats2, T, True, top2_gap=True)
         if dt == torch.float32:
@@ -618,14 +665,15 @@ def main() -> int:
             if err > 2e-5:
                 raise AssertionError(f"K2 f32: lp error {err:.3g} > 2e-5")
             k2["max_abs_err"] = err
-            log(f"[3] K2 f32, bf16 delta: bitwise equal to K1; tokens equal "
-                f"the plain twin, max |lp - plain| {err:.3g}")
+            log(f"[3] K2 f32, bf16 delta: tokens bitwise K1's, max |lp - K1 "
+                f"lp| {lp_k1:.3g}; tokens equal the plain twin, max |lp - "
+                f"plain| {err:.3g}")
         else:
             share, n_diff = check_near_ties(seq2.reshape(2 * P, B, T), seq_p,
                                             gap_p, "K2 bf16")
-            log(f"[3] K2 bf16, bf16 delta: bitwise equal to K1; {share:.4%} "
-                f"of rows identical to the plain twin, {n_diff} differ at "
-                f"near-ties")
+            log(f"[3] K2 bf16, bf16 delta: tokens bitwise K1's, max |lp - "
+                f"K1 lp| {lp_k1:.3g}; {share:.4%} of rows identical to the "
+                f"plain twin, {n_diff} differ at near-ties")
 
     # ---- [4] whole generations through both eval paths ----------------------
     F = BENCH["pairs"]
@@ -689,6 +737,40 @@ def main() -> int:
         base, dparams, feats, T, torch.bfloat16, False))
     k2_plain = time_ms(lambda: dc.decode_pair_perturb_plain(
         base, dparams, feats, T, torch.bfloat16, False), reps=3)
+    # K2 on the first 15 vocab tiles (Vpad 1920) of the same weights, beside
+    # the full 75: a cluster runs until both of its signs finish, so a
+    # launch lasts the image step plus its longest pair's steps; the
+    # difference per step and vocab tile separates the cost of a tile from
+    # the fixed cost of a step (embedding, gates, merges, barriers)
+    cut = 1920
+
+    def narrow(d, lead):
+        out = dict(d)
+        out["logit_w"] = d["logit_w"][..., :cut].contiguous()
+        out["logit_b"] = d["logit_b"][..., :cut].contiguous()
+        out["embed"] = d["embed"][(slice(None),) * lead + (slice(0, cut),)
+                                  ].contiguous()
+        return out
+
+    base_n, dparams_n = narrow(base, 0), narrow(dparams, 1)
+    k2n_ms = time_ms(lambda: dc.decode_pair_perturb(
+        base_n, dparams_n, feats, T, torch.bfloat16, False))
+    pair_steps = {}
+    for tag, (bb, dd) in (("full", (base, dparams)),
+                          ("1920", (base_n, dparams_n))):
+        sq, _ = dc.decode_pair_perturb(bb, dd, feats, T, torch.bfloat16, False)
+        pair_steps[tag] = int(executed_steps(sq.reshape(P, 2 * B, T), T).max())
+    del base_n, dparams_n
+    step_full = k2_ms / pair_steps["full"]
+    step_cut = k2n_ms / pair_steps["1920"]
+    per_tile = (step_full - step_cut) / ((Vpad - cut) // 128)
+    fixed = step_cut - per_tile * (cut // 128)
+    log(f"[5] K2 at Vpad {cut} ({cut // 128} vocab tiles): {k2n_ms:.3f} ms "
+        f"per launch, longest pair {pair_steps['1920']} steps; at Vpad {Vpad} "
+        f"({Vpad // 128} tiles) {k2_ms:.3f} ms, {pair_steps['full']} steps: "
+        f"per step and 128-column vocab tile {per_tile * 1e3:.3f} us, fixed "
+        f"per step {fixed * 1e3:.3f} us (the image step folded into both) "
+        f"({card})")
 
     def library():
         # cuBLAS for the decode's products (bf16 in, f32 out) and argmax:
@@ -716,12 +798,14 @@ def main() -> int:
                                             else "operations")
 
     kernels = []
-    for name, replaces, ms, plain, nbytes, err, launches in (
+    pair_ctas = dc.pair_cluster_info()["cluster"] * P
+    for name, replaces, ms, plain, nbytes, err, launches, ctas in (
         ("decode_fused", "nes_img_captioning_tpu/ops/decode_pallas.py:658",
-         k1_ms, k1_plain, k1_bytes, k1["max_abs_err"], counts_b[0]),
+         k1_ms, k1_plain, k1_bytes, k1["max_abs_err"], counts_b[0], 2 * P),
         ("decode_pair_perturb",
          "nes_img_captioning_tpu/ops/decode_pallas.py:325",
-         k2_ms, k2_plain, k2_bytes, k2["max_abs_err"], counts_a[1]),
+         k2_ms, k2_plain, k2_bytes, k2["max_abs_err"], counts_a[1],
+         pair_ctas),
     ):
         b_ms, b_by = bound(nbytes)
         kernels.append({
@@ -730,8 +814,10 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "ctas_per_launch": ctas,
         })
-        log(f"[5] {name}: {ms:.3f} ms per launch of {2 * P} rollouts "
+        log(f"[5] {name}: {ms:.3f} ms per launch of {2 * P} rollouts, "
+            f"{ctas} CTAs "
             f"(plain twin {plain:.3f} ms, cuBLAS products {lib_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms by {b_by}; {flops / 1e9:.1f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB) ({card})")
@@ -972,6 +1058,11 @@ def main() -> int:
         base, scale_params, seeds24, feats, T, torch.bfloat16, False))
     k5_plain = time_ms(lambda: dc.decode_pair_rng_plain(
         base, scale_params, seeds24, feats, T, torch.bfloat16, False), reps=2)
+    # K5's two launches apart: K2 on K7's f32 dump (the decode K5 runs
+    # after its draw), and K1 again as this run's anchor
+    k2_dump_ms = time_ms(lambda: dc.decode_pair_perturb(
+        base, dump, feats, T, torch.bfloat16, False))
+    k1_again = time_ms(lambda: dc.decode_fused(params16, feats2, T, False))
     k7_ms = time_ms(lambda: dc.pair_delta_dump(scale_params, seeds24))
     k7_plain = time_ms(lambda: dc.pair_delta_dump_plain(scale_params,
                                                         seeds24), reps=2)
@@ -1007,7 +1098,7 @@ def main() -> int:
             normals in (
         ("decode_pair_rng", "nes_img_captioning_tpu/ops/decode_pallas.py:488",
          k5_ms, k5_plain, k5_bytes, flops5, k5["max_abs_err"], counts_m[2], lib_ms,
-         None, 2 * P * lay.dim_dec),
+         None, P * lay.dim_dec),
         ("pair_grad_rng", "nes_img_captioning_tpu/ops/decode_pallas.py:587",
          k6_ms, k6_plain, k6_bytes, 0.0, k6_err, counts_m[3], None, k6_delta,
          seeds_all.shape[0] * lay.dim_dec),
@@ -1025,6 +1116,8 @@ def main() -> int:
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "delta_path_ms": dpath,
             "normals_per_s": normals / (ms * 1e-3)})
+        if name == "decode_pair_rng":
+            kernels[-1]["ctas_per_launch"] = pair_ctas
         log(f"[11] {name}: {ms:.3f} ms per launch (plain {plain:.3f} ms, "
             + (f"cuBLAS products {lib:.3f} ms, " if lib is not None else
                f"delta-operand path {dpath:.3f} ms, ")
@@ -1032,6 +1125,11 @@ def main() -> int:
             f"{normals / (ms * 1e-3):.4g} per s; {nbytes / 1e6:.1f} MB) "
             f"({card})")
 
+    log(f"[11] K5 {k5_ms:.3f} ms = its draw (K7 alone {k7_ms:.3f} ms) + the "
+        f"pair decode on an f32 delta (K2 fed K7's dump {k2_dump_ms:.3f} ms; "
+        f"on the bf16 delta in [5] {k2_ms:.3f} ms); {pair_ctas} CTAs per "
+        f"decode launch; K1 anchor {k1_again:.3f} ms here, {k1_ms:.3f} ms in "
+        f"[5] ({card})")
     kernels += sampling_phases(task, theta, members, feats2, seeds, batches,
                                sens, lib_ms, card)
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ Port of ``nes_img_captioning_tpu/ops/decode_pallas.py``:
   ``dt(f32(base) + sign * f32(delta))`` inside the kernel;
 * ``decode_pair_rng`` (K5) replaces the Pallas ``decode_pair_rng``
   (``decode_pallas.py:466-518``): K2 with the f32 delta
-  ``scale * N(0, 1)`` made in the kernel from the pair's uint32 seed;
+  ``scale * N(0, 1)`` drawn on the card from the pair's uint32 seed;
 * ``pair_grad_rng`` (K6) replaces the Pallas ``pair_grad_rng``
   (``decode_pallas.py:575-607``): ``sum_i w_i * delta(seed_i)``, each delta
   drawn again from its seed;
@@ -41,14 +41,21 @@ a shared library with a plain C interface (loaded with ``ctypes``) on first
 use, into ``_build/`` inside this package.
 
 What bounds them on an H100, and the design. One CTA decodes one member
-(K1) or one sign of one pair (K2) for all B <= 128 rows, so the batch-wide
-early exit stays inside the CTA. The 17-step recurrence is serial; the work
-per step is three products (i2h, h2h: 128x128x640 each; logits:
-128x128xVpad) whose weights (~5.8 MB per member in bf16, far above an SM's
-227 KB of shared memory) stream from L2 as 128-row tiles into shared
-memory. K2 forms ``dt(base + sign*delta)`` as it loads a tile, so no
-perturbed weight vector is written out. The bound is arithmetic: the logits
-alone are 2*128*128*Vpad FLOP per step and member (about 1.45 TFLOP per
+(K1, K4) for all B <= 128 rows, so the batch-wide early exit stays inside
+the CTA. The 17-step recurrence is serial; the work per step is three
+products (i2h, h2h: 128x128x640 each; logits: 128x128xVpad) whose weights
+(~5.8 MB per member in bf16, far above an SM's 227 KB of shared memory)
+stream from L2 as 128-row tiles into shared memory. K2 and K5 give each
+pair a cluster of 4 CTAs (2 signs x 2 column halves, 96 CTAs for 24
+pairs): the halves of a sign split every product's columns and swap h and
+the logit partials through distributed shared memory; the two signs of a
+half share each raw base and delta tile, copied once from L2 by
+multicast bulk copies into a ring of slots while the previous tile is
+used, and each forms ``dt(base + sign*delta)`` from it, so no perturbed
+weight vector is written out. K5 first draws each pair's delta once over
+the whole card (K7's loop) into a (P, dim) scratch. The bound is
+arithmetic: the logits alone are 2*128*128*Vpad FLOP per step and member
+(about 1.45 TFLOP per
 generation at the bench settings) against 989 TFLOP/s of bf16 tensor-core
 peak. With bf16 weights the logit product runs on the tensor cores
 (``mma.sync`` m16n8k16, f32 accumulate); the gate products multiply the
@@ -57,8 +64,8 @@ product of the f32 path. The logits never leave registers: each thread
 keeps a running max / first-index argmax / online sum-of-exp over its
 columns, merged across threads with ties to the smaller index. A launch
 covers a whole chunk of members or pairs (the JAX package ``vmap``s over
-the chunk), one CTA each, so a chunk of 24 pairs fills 48 of the 132 SMs;
-``wgmma``, TMA and more CTAs per member are later work. K3 runs one CTA per
+the chunk): K1 and K4 one CTA per member, 48 of the 132 SMs at a chunk of
+48 members; ``wgmma`` and a cluster per member are later work. K3 runs one CTA per
 (member, lane), 240 for a chunk of 48 members at 5 lanes, and its time is
 set by drawing T * B * Vpad Gumbel values per CTA (two ``logf`` each and a
 quarter of a Philox call), not by the products. K4 is K1 plus one fold per
@@ -93,7 +100,7 @@ __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
            "decode_pair_perturb_plain", "decode_pair_rng",
            "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_plain",
            "pair_grad_rng", "pair_grad_rng_plain", "philox_words", "build_kernels",
-           "PAIR_TENSORS"]
+           "pair_cluster_info", "PAIR_TENSORS"]
 
 PAD_LANE = 128
 NEG = -1e9
@@ -483,6 +490,8 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_decode_pair_rng.argtypes = \
         [ci] * 7 + [vp] * (1 + 9) + [vp] * 3 + [vp] * 2 + [vp]
     lib.nes_decode_pair_rng.restype = ci
+    lib.nes_pair_cluster_info.argtypes = [ci, ci, vp]
+    lib.nes_pair_cluster_info.restype = ci
     i64 = ctypes.c_longlong
     lib.nes_pair_delta_dump.argtypes = [ci, i64] + [vp] * 3 + [vp]
     lib.nes_pair_delta_dump.restype = ci
@@ -701,9 +710,13 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
     the kernel. base: f32 dict (unbatched, shared by the pairs); delta: f32
     or bf16, one pair or a leading pair axis P; feats (B, F) or (P, B, F).
     ``dtype`` is the compute dtype of the perturbed weights. Returns (seq,
-    lp) of shape (2, B, T) or (P, 2, B, T); index 0 is +delta. Tokens equal
-    ``decode_fused(prep(base ± delta))`` bit for bit: the same sum, rounded
-    once to the same dtype, feeds the same kernel code."""
+    lp) of shape (2, B, T) or (P, 2, B, T); index 0 is +delta. One launch,
+    one cluster of 4 CTAs per pair (2 signs x 2 column halves): the signs
+    share each base and delta tile, copied once from L2 into both. Tokens
+    equal ``decode_fused(prep(base ± delta))`` bit for bit: the same sum,
+    rounded once to the same dtype, feeds products in K1's order; lp sums
+    exp over the columns in another order (two halves merged), within 2e-5
+    of K1's."""
     if not feats.is_cuda:
         return decode_pair_perturb_plain(base, delta, feats, seq_length,
                                          dtype, need_logprobs)
@@ -723,6 +736,8 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
                          torch.float32, what="base")
     _check(_check_params(delta, P, F, ddt, what="delta") == Vpad,
            "base and delta vocab differ")
+    _check_aligned(base, "base")
+    _check_aligned(delta, "delta")
     feats = feats.to(dtype).contiguous()
     _check(feats.device == base["img_w"].device, "feats on another device")
     seq = torch.empty((P, 2, B, seq_length), dtype=torch.int32,
@@ -742,6 +757,29 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
 
 
 decode_pair_perturb.launches = 0
+
+
+def _check_aligned(params: dict, what: str):
+    """The pair kernel copies weight tiles through TMA tensor maps and
+    biases with bulk copies, which take 16-byte aligned addresses."""
+    for k in PAIR_TENSORS:
+        _check(params[k].data_ptr() % 16 == 0,
+               f"{what}[{k}] is not 16-byte aligned")
+
+
+def pair_cluster_info(dtype=torch.bfloat16, delta_dtype=torch.bfloat16
+                      ) -> dict:
+    """The pair kernel's launch shape on the current card for compute dtype
+    ``dtype`` and delta dtype ``delta_dtype`` (K5: f32): CTAs per cluster
+    (one cluster per pair), threads per CTA, dynamic shared memory bytes,
+    ring slots, k-rows per tile, and the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    out = (ctypes.c_int * 6)()
+    err = _kernels().nes_pair_cluster_info(
+        _DTYPE_CODE[dtype], _DTYPE_CODE[delta_dtype], out)
+    _raise_on(err, "pair_cluster_info")
+    return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
+                     "tile_rows", "max_active_clusters"), out))
 
 
 def _seeds_on(u32: np.ndarray, device) -> torch.Tensor:
@@ -768,12 +806,15 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
                     seq_length: int = 16, dtype=torch.float32,
                     need_logprobs: bool = False):
     """K5: both signs of antithetic pairs, each pair's f32 delta ``scale *
-    N(0, 1)`` drawn in the kernel from its uint32 seed. base, scale: f32
+    N(0, 1)`` drawn on the card from its uint32 seed. base, scale: f32
     dicts (unbatched, shared by the pairs; scale's pad lanes 0); seeds: one
     host seed or P of them; feats (B, F) or (P, B, F). Returns (seq, lp) of
-    shape (2, B, T) or (P, 2, B, T); index 0 is +delta. Tokens and lp equal
-    K2's fed ``pair_delta_dump(scale, seeds)`` bit for bit. As in the JAX
-    package, the delta is f32 whatever ``tpu.delta_dtype`` says."""
+    shape (2, B, T) or (P, 2, B, T); index 0 is +delta. Two launches on the
+    current stream, counted as one: K7's draw of every pair's delta, over
+    the whole card, into a (P, dim) f32 scratch, then K2's pair kernel on
+    it. So tokens and lp equal K2's fed ``pair_delta_dump(scale, seeds)``
+    bit for bit. As in the JAX package, the delta is f32 whatever
+    ``tpu.delta_dtype`` says."""
     if not feats.is_cuda:
         return decode_pair_rng_plain(base, scale, seeds, feats, seq_length,
                                      dtype, need_logprobs)
@@ -788,14 +829,16 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
     Vpad = _check_params({k: v[None] for k, v in base.items()}, 1, F,
                          torch.float32, what="base")
     flat = _check_scale(scale, base)
+    _check_aligned(base, "base")
     feats = feats.to(dtype).contiguous()
     dev = feats.device
     _check(dev == base["img_w"].device == flat.device,
            "feats, base and scale on different devices")
     seq = torch.empty((P, 2, B, seq_length), dtype=torch.int32, device=dev)
     lp = torch.empty((P, 2, B, seq_length), dtype=torch.float32, device=dev)
-    # each CTA's own copy of its pair's delta (csrc/decode.cu, K5's note)
-    scratch = torch.empty((P, 2, flat.shape[0]), dtype=torch.float32,
+    # each pair's delta, drawn once over the whole card and then read by
+    # the pair kernel (csrc/decode.cu, K5's note)
+    scratch = torch.empty((P, flat.shape[0]), dtype=torch.float32,
                           device=dev)
     seeds_d = _seeds_on(u32, dev)
     err = _kernels().nes_decode_pair_rng(

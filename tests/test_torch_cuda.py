@@ -63,8 +63,11 @@ def test_k1_f32_matches_plain_twin(small_members, need_lp):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_k2_bitwise_equals_k1_on_perturbed_members(small_members, dt):
-    """K2 with a bf16 delta: tokens and lp equal K1's on prep(base ± delta)
-    bit for bit."""
+    """K2 with a bf16 delta: tokens equal K1's on prep(base ± delta) bit for
+    bit, lp within 2e-5. Each output comes from K1's products in K1's order,
+    so the logits and the token are K1's; but the two halves of a sign's
+    cluster each sum exp over their own columns and then merge, so lp's
+    log-sum-exp adds in another order than K1's."""
     lay, members, feats, delta = small_members
     base = lay.prep(members[0], torch.float32)
     seq2, lp2 = tdc.decode_pair_perturb(
@@ -73,7 +76,106 @@ def test_k2_bitwise_equals_k1_on_perturbed_members(small_members, dt):
     for s, sign in ((0, 1.0), (1, -1.0)):
         seq1, lp1 = tdc.decode_fused(
             lay.prep(members[0] + sign * delta.float(), dt), feats[0])
-        assert torch.equal(seq2[s], seq1) and torch.equal(lp2[s], lp1)
+        assert torch.equal(seq2[s], seq1)
+        assert float((lp2[s] - lp1).abs().max()) < 2e-5
+
+
+def _pair_inputs(lay, members, delta, P):
+    """base (f32 dict) and a bf16 delta dict with a leading pair axis P:
+    pair p's delta is delta * (p + 1)."""
+    base = lay.prep(members[0], torch.float32)
+    d = lay.prep(torch.stack([delta.float() * (p + 1) for p in range(P)]),
+                 torch.float32)
+    return base, d
+
+
+def _held_to_k1(base, d, feats, dt, seq2, lp2):
+    """Every (pair, sign) of K2's output: tokens bitwise K1's on prep(base ±
+    delta), lp within 2e-5 (the merge order of the halves' sums)."""
+    for p in range(seq2.shape[0]):
+        for s, sign in ((0, 1.0), (1, -1.0)):
+            params = tdc._perturbed(base, {k: v[p] for k, v in d.items()},
+                                    sign, dt)
+            seq1, lp1 = tdc.decode_fused(params, feats[p])
+            assert torch.equal(seq2[p, s], seq1), (p, s)
+            assert float((lp2[p, s] - lp1).abs().max()) < 2e-5, (p, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["tie_across_halves", "signs_finish_apart",
+                                  "k5_odd_pairs"])
+def test_pair_cluster_edges(small_members, case, dt):
+    """The pair kernel's cluster (2 signs x 2 column halves per pair) at the
+    fixture's Vpad 384 (3 vocab tiles, an odd count) and 32 of 128 rows:
+    tie_across_halves: two columns with the same weights and the row's
+    largest bias, one in each half (70 in half 1 of tile 0, 130 in half 0
+    of tile 1): every token is the smaller index, as in K1; signs_finish_apart:
+    an EOS bias of +-50 in the delta ends pair 0's + sign (pair 1's - sign)
+    at step 0 while the other sign decodes all 16 steps, so the finished
+    CTAs serve their peers' loads to the end; k5_odd_pairs: K5 on 3 seeds,
+    bitwise K2 fed K7's dump, with one launch counted."""
+    lay, members, feats, delta = small_members
+    P = 3 if case == "k5_odd_pairs" else 2
+    fe = torch.cat([feats, feats[:1]])[:P]
+    base, d = _pair_inputs(lay, members, delta, P)
+    if case == "tie_across_halves":
+        lo, hi = 70, 130
+        base["logit_w"][:, hi] = base["logit_w"][:, lo]
+        d["logit_w"][:, :, hi] = d["logit_w"][:, :, lo]
+        base["logit_b"][0, [lo, hi]] = 100.0
+        d["logit_b"][:, 0, [lo, hi]] = 0.0
+    elif case == "signs_finish_apart":
+        d["logit_b"][:, 0, 0] = torch.tensor([50.0, -50.0], device="cuda")
+        base["logit_b"][0, 0] = 0.0
+    if case == "k5_odd_pairs":
+        sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05,
+                                   device="cuda"), pad_scale=0.0)
+        scale = lay.prep(sc, torch.float32)
+        seeds = [7, 0xFFFFFFFF, 123456789]
+        before = (tdc.decode_pair_rng.launches, tdc.pair_delta_dump.launches)
+        seq5, lp5 = tdc.decode_pair_rng(base, scale, seeds, fe, dtype=dt,
+                                        need_logprobs=True)
+        assert (tdc.decode_pair_rng.launches,
+                tdc.pair_delta_dump.launches) == (before[0] + 1, before[1])
+        dump = tdc.pair_delta_dump(scale, seeds)
+        seq2, lp2 = tdc.decode_pair_perturb(base, dump, fe, dtype=dt,
+                                            need_logprobs=True)
+        assert torch.equal(seq5, seq2) and torch.equal(lp5, lp2)
+        assert seq5.shape == (3, 2, 32, 16)
+        _held_to_k1(base, dump, fe, dt, seq2, lp2)
+        return
+    d = {k: v.to(torch.float32 if k.endswith("_b") else torch.bfloat16)
+         for k, v in d.items()}
+    seq2, lp2 = tdc.decode_pair_perturb(base, d, fe, dtype=dt,
+                                        need_logprobs=True)
+    _held_to_k1(base, d, fe, dt, seq2, lp2)
+    if case == "tie_across_halves":
+        assert (seq2 == lo).all()
+    else:
+        for p, early in ((0, 0), (1, 1)):
+            assert (seq2[p, early] == 0).all()
+            assert (lp2[p, early, :, 1:] == 0).all()
+            assert (seq2[p, 1 - early] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.float32, torch.float32)],
+                         ids=["bf16-bf16", "bf16-f32", "f32-bf16", "f32-f32"])
+def test_pair_cluster_holds_a_chunk(small_members, dtypes):
+    """A chunk of 24 pairs (96 CTAs) is resident at once: the card holds at
+    least 24 clusters of the pair kernel, at every compute and delta dtype;
+    the bf16 main path keeps 2 ring slots in flight."""
+    info = tdc.pair_cluster_info(*dtypes)
+    assert info["cluster"] == 4 and info["threads"] == 512
+    assert info["max_active_clusters"] >= 24, info
+    assert info["smem_bytes"] <= 232448
+    if dtypes[0] == torch.bfloat16:
+        assert info["ring_slots"] >= 2, info
 
 
 @pytest.mark.cuda
