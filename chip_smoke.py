@@ -11,9 +11,12 @@ Phases, each printed as it ends (any failure exits non-zero):
 1. the card's name and power limit; the kernels built with nvcc from
    nes_img_captioning_tpu_torch/csrc/ (ptxas registers and spills per
    kernel); the pair kernel's cluster shape, shared memory, ring slots and
-   cudaOccupancyMaxActiveClusters at each weight and delta dtype;
-2. K1 (decode_fused) at full width on a chunk of 48 members, f32 (TF32
-   off) and bf16, logprobs on and off, against its plain PyTorch twin;
+   cudaOccupancyMaxActiveClusters at each weight and delta dtype, and the
+   member kernel's (K1, K4) at each weight dtype: a chunk of 48 members
+   (96 CTAs) must be resident;
+2. K1 (decode_fused, one 2-CTA cluster per member) at full width on a
+   chunk of 48 members, f32 (TF32 off) and bf16, logprobs on and off,
+   against its plain PyTorch twin;
 3. K2 (decode_pair_perturb) on 24 pairs with a bf16 delta: tokens equal K1
    on prep(base ± delta) bit for bit, lp within 2e-5 of K1's (the cluster's
    halves sum exp in another order), and held to its plain twin;
@@ -24,9 +27,9 @@ Phases, each printed as it ends (any failure exits non-zero):
    generation: packed vectors bitwise equal, fitnesses finite, theta
    changed, launch counts read around each path;
 5. K1's and K2's times at these shapes beside their plain twins', a cuBLAS
-   yardstick for their products, and their bound; K2 on the first 15 vocab
-   tiles (Vpad 1920) beside the full 75, which parts the cost per vocab
-   tile from the fixed cost per step; one profiled generation;
+   yardstick for their products, and their bound; K1 and K2 on the first
+   15 vocab tiles (Vpad 1920) beside the full 75, which parts the cost per
+   vocab tile from the fixed cost per step; one profiled generation;
 6. K7 (pair_delta_dump) on 24 seeds: the card's Philox words equal the
    plain stream's, and its deltas the plain version's within 8 ulps;
 7. K5 (decode_pair_rng), f32 and bf16: tokens and lp bitwise equal to K2
@@ -499,6 +502,7 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
     k3_bytes = w_bytes + feats2.numel() * 2 + lanes.size * 4 + seq3.numel() * 8
     k4_bytes = w_bytes + feats2.numel() * 2 + seq4.numel() * 8
     rows = []
+    member_ctas = dc.member_cluster_info()["cluster"] * M
     for name, replaces, ms, plain, lib, nbytes, flops, ops, err, launches in (
         ("decode_sample", "nes_img_captioning_tpu/ops/decode_pallas.py:658",
          k3_ms, k3_plain, lib3_ms, k3_bytes, flops3, GUMBEL_OPS * gumbels,
@@ -517,6 +521,8 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib})
+        if name == "decode_tiled":
+            rows[-1]["ctas_per_launch"] = member_ctas
         log(f"[17] {name}: {ms:.3f} ms per launch (plain {plain:.3f} ms, "
             f"library yardstick {lib:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
             f"{flops / 1e9:.1f} GFLOP on the tensor cores, {ops / 1e9:.1f} G "
@@ -579,6 +585,20 @@ def main() -> int:
             f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']}; "
             f"{info['cluster'] * BENCH['pop_chunk']} CTAs per launch at "
             f"{BENCH['pop_chunk']} pairs, all resident")
+    for wdt in (torch.bfloat16, torch.float32):
+        info = dc.member_cluster_info(wdt)
+        if info["max_active_clusters"] < 2 * BENCH["pop_chunk"]:
+            raise AssertionError(f"member kernel {info}: a chunk of "
+                                 f"{2 * BENCH['pop_chunk']} members is not "
+                                 "resident")
+        log(f"[1] member kernel (K1, K4), weights {wdt}: clusters of "
+            f"{info['cluster']} CTAs x {info['threads']} threads, "
+            f"{info['smem_bytes']} B dynamic shared memory, "
+            f"{info['ring_slots']} ring slots of {info['tile_rows']} k-rows, "
+            f"{info['tiles_in_flight']} in flight; "
+            f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']}; "
+            f"{info['cluster'] * 2 * BENCH['pop_chunk']} CTAs per launch at "
+            f"{2 * BENCH['pop_chunk']} members, all resident")
 
     # ---- the fixture, the task and one generation's inputs -----------------
     t0 = time.time()
@@ -737,11 +757,12 @@ def main() -> int:
         base, dparams, feats, T, torch.bfloat16, False))
     k2_plain = time_ms(lambda: dc.decode_pair_perturb_plain(
         base, dparams, feats, T, torch.bfloat16, False), reps=3)
-    # K2 on the first 15 vocab tiles (Vpad 1920) of the same weights, beside
-    # the full 75: a cluster runs until both of its signs finish, so a
-    # launch lasts the image step plus its longest pair's steps; the
-    # difference per step and vocab tile separates the cost of a tile from
-    # the fixed cost of a step (embedding, gates, merges, barriers)
+    # K1 and K2 on the first 15 vocab tiles (Vpad 1920) of the same
+    # weights, beside the full 75: a cluster runs until its member's rows
+    # (K2: both signs' rows) finish, so a launch lasts the image step plus
+    # its longest member's or pair's steps; the difference per step and
+    # vocab tile separates the cost of a tile from the fixed cost of a step
+    # (embedding, gates, merges, barriers)
     cut = 1920
 
     def narrow(d, lead):
@@ -753,24 +774,31 @@ def main() -> int:
         return out
 
     base_n, dparams_n = narrow(base, 0), narrow(dparams, 1)
-    k2n_ms = time_ms(lambda: dc.decode_pair_perturb(
-        base_n, dparams_n, feats, T, torch.bfloat16, False))
-    pair_steps = {}
-    for tag, (bb, dd) in (("full", (base, dparams)),
-                          ("1920", (base_n, dparams_n))):
-        sq, _ = dc.decode_pair_perturb(bb, dd, feats, T, torch.bfloat16, False)
-        pair_steps[tag] = int(executed_steps(sq.reshape(P, 2 * B, T), T).max())
-    del base_n, dparams_n
-    step_full = k2_ms / pair_steps["full"]
-    step_cut = k2n_ms / pair_steps["1920"]
-    per_tile = (step_full - step_cut) / ((Vpad - cut) // 128)
-    fixed = step_cut - per_tile * (cut // 128)
-    log(f"[5] K2 at Vpad {cut} ({cut // 128} vocab tiles): {k2n_ms:.3f} ms "
-        f"per launch, longest pair {pair_steps['1920']} steps; at Vpad {Vpad} "
-        f"({Vpad // 128} tiles) {k2_ms:.3f} ms, {pair_steps['full']} steps: "
-        f"per step and 128-column vocab tile {per_tile * 1e3:.3f} us, fixed "
-        f"per step {fixed * 1e3:.3f} us (the image step folded into both) "
-        f"({card})")
+    params16_n = narrow(params16, 1)
+    per_step = {}
+    for name, ms, run_full, run_cut, rows in (
+            ("K1", k1_ms,
+             lambda: dc.decode_fused(params16, feats2, T, False),
+             lambda: dc.decode_fused(params16_n, feats2, T, False), B),
+            ("K2", k2_ms,
+             lambda: dc.decode_pair_perturb(base, dparams, feats, T,
+                                            torch.bfloat16, False),
+             lambda: dc.decode_pair_perturb(base_n, dparams_n, feats, T,
+                                            torch.bfloat16, False), 2 * B)):
+        cut_ms = time_ms(run_cut)
+        steps = [int(executed_steps(fn()[0].reshape(-1, rows, T), T).max())
+                 for fn in (run_full, run_cut)]
+        step_full, step_cut = ms / steps[0], cut_ms / steps[1]
+        per_tile = (step_full - step_cut) / ((Vpad - cut) // 128)
+        fixed = step_cut - per_tile * (cut // 128)
+        per_step[name] = (fixed * 1e3, per_tile * 1e3)
+        log(f"[5] {name} at Vpad {cut} ({cut // 128} vocab tiles): "
+            f"{cut_ms:.3f} ms per launch, longest {steps[1]} steps; at Vpad "
+            f"{Vpad} ({Vpad // 128} tiles) {ms:.3f} ms, {steps[0]} steps: per "
+            f"step and 128-column vocab tile {per_tile * 1e3:.3f} us, fixed "
+            f"per step {fixed * 1e3:.3f} us (the image step folded into both) "
+            f"({card})")
+    del base_n, dparams_n, params16_n
 
     def library():
         # cuBLAS for the decode's products (bf16 in, f32 out) and argmax:
@@ -791,6 +819,14 @@ def main() -> int:
     k2_bytes = sum(v.numel() * v.element_size() for v in base.values()) \
         + sum(v.numel() * v.element_size() for v in dparams.values()) \
         + feats.numel() * 2 + seq16.numel() * 8
+    # the member kernel's own floor: a chunk's weights do not fit L2, so
+    # each member's gate weights cross from HBM on every LSTM step and its
+    # logit_w on every token step (img_w once)
+    nb = {k: v[0].numel() * v.element_size() for k, v in params16.items()}
+    member_steps = executed_steps(seq16, T).double()
+    k1_floor = float((nb["img_w"] + (member_steps + 1) * (nb["i2h_w"]
+                      + nb["h2h_w"]) + member_steps * nb["logit_w"]).sum()
+                     ) / HBM_BYTES_PER_S * 1e3
 
     def bound(nbytes):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16
@@ -799,9 +835,11 @@ def main() -> int:
 
     kernels = []
     pair_ctas = dc.pair_cluster_info()["cluster"] * P
+    member_ctas = dc.member_cluster_info()["cluster"] * 2 * P
     for name, replaces, ms, plain, nbytes, err, launches, ctas in (
         ("decode_fused", "nes_img_captioning_tpu/ops/decode_pallas.py:658",
-         k1_ms, k1_plain, k1_bytes, k1["max_abs_err"], counts_b[0], 2 * P),
+         k1_ms, k1_plain, k1_bytes, k1["max_abs_err"], counts_b[0],
+         member_ctas),
         ("decode_pair_perturb",
          "nes_img_captioning_tpu/ops/decode_pallas.py:325",
          k2_ms, k2_plain, k2_bytes, k2["max_abs_err"], counts_a[1],
@@ -816,6 +854,11 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "ctas_per_launch": ctas,
         })
+        if name == "decode_fused":
+            kernels[-1]["us_fixed_per_step"], \
+                kernels[-1]["us_per_step_and_vocab_tile"] = per_step["K1"]
+            log(f"[5] decode_fused's design floor: the chunk's weights re-read "
+                f"from HBM on every step, {k1_floor:.4f} ms ({card})")
         log(f"[5] {name}: {ms:.3f} ms per launch of {2 * P} rollouts, "
             f"{ctas} CTAs "
             f"(plain twin {plain:.3f} ms, cuBLAS products {lib_ms:.3f} ms, "

@@ -40,36 +40,35 @@ Kernel sources: ``csrc/decode.cu``, built with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (loaded with ``ctypes``) on first
 use, into ``_build/`` inside this package.
 
-What bounds them on an H100, and the design. One CTA decodes one member
-(K1, K4) for all B <= 128 rows, so the batch-wide early exit stays inside
-the CTA. The 17-step recurrence is serial; the work per step is three
-products (i2h, h2h: 128x128x640 each; logits: 128x128xVpad) whose weights
-(~5.8 MB per member in bf16, far above an SM's 227 KB of shared memory)
-stream from L2 as 128-row tiles into shared memory. K2 and K5 give each
-pair a cluster of 4 CTAs (2 signs x 2 column halves, 96 CTAs for 24
-pairs): the halves of a sign split every product's columns and swap h and
-the logit partials through distributed shared memory; the two signs of a
-half share each raw base and delta tile, copied once from L2 by
-multicast bulk copies into a ring of slots while the previous tile is
-used, and each forms ``dt(base + sign*delta)`` from it, so no perturbed
-weight vector is written out. K5 first draws each pair's delta once over
-the whole card (K7's loop) into a (P, dim) scratch. The bound is
-arithmetic: the logits alone are 2*128*128*Vpad FLOP per step and member
-(about 1.45 TFLOP per
-generation at the bench settings) against 989 TFLOP/s of bf16 tensor-core
-peak. With bf16 weights the logit product runs on the tensor cores
-(``mma.sync`` m16n8k16, f32 accumulate); the gate products multiply the
-unrounded f32 ``h`` and stay f32 FMAs on the CUDA cores, as does every
-product of the f32 path. The logits never leave registers: each thread
-keeps a running max / first-index argmax / online sum-of-exp over its
-columns, merged across threads with ties to the smaller index. A launch
-covers a whole chunk of members or pairs (the JAX package ``vmap``s over
-the chunk): K1 and K4 one CTA per member, 48 of the 132 SMs at a chunk of
-48 members; ``wgmma`` and a cluster per member are later work. K3 runs one CTA per
+What bounds them on an H100, and the design. A CTA or a cluster holds all
+B <= 128 rows of its member, lane or pair, so the batch-wide early exit
+stays inside it. The 17-step recurrence is serial; the work per step is
+three products (i2h, h2h: 128x128x640 each; logits: 128x128xVpad) whose
+weights (~5.8 MB per member in bf16, far above an SM's 227 KB of shared
+memory) stream as tiles into shared memory. K1 and K4 give each member a
+cluster of 2 CTAs (one per column half, 96 CTAs for 48 members), fed by a
+ring of the member's own weight tiles copied by TMA and read in place by
+the products (no conversion pass), each warp releasing a slot on its own;
+K4 folds the halves' row partials at the end of every vocab tile behind a
+split cluster barrier. K2 and K5 give each pair a cluster of 4 CTAs (2
+signs x 2 column halves, 96 CTAs for 24 pairs): the two signs of a half
+share each raw base and delta tile, copied once by multicast into a ring,
+and each forms ``dt(base + sign*delta)`` from it, so no perturbed weight
+vector is written out. K5 first draws each pair's delta once over the
+whole card (K7's loop) into a (P, dim) scratch. In both cluster kernels
+the halves split every product's columns and swap h and the logit
+partials through distributed shared memory. With bf16 weights the logit
+product runs on the tensor cores (``mma.sync`` m16n8k16, f32 accumulate);
+the gate products multiply the unrounded f32 ``h`` and stay f32 FMAs on
+the CUDA cores, as does every product of the f32 path; those FMAs and the
+HBM stream of the chunk's weights bound K1, K2, K4 and K5. The logits
+never leave registers: each thread keeps a running max / first-index
+argmax / online sum-of-exp over its columns, merged across threads with
+ties to the smaller index. A launch covers a whole chunk of members or
+pairs (the JAX package ``vmap``s over the chunk). K3 runs one CTA per
 (member, lane), 240 for a chunk of 48 members at 5 lanes, and its time is
 set by drawing T * B * Vpad Gumbel values per CTA (two ``logf`` each and a
-quarter of a Philox call), not by the products. K4 is K1 plus one fold per
-vocab tile and step.
+quarter of a Philox call), not by the products.
 
 Each kernel has a plain PyTorch twin with the same signature, following the
 JAX kernel's rounding points (weights and feats in ``dt``, products with f32
@@ -100,7 +99,7 @@ __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
            "decode_pair_perturb_plain", "decode_pair_rng",
            "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_plain",
            "pair_grad_rng", "pair_grad_rng_plain", "philox_words", "build_kernels",
-           "pair_cluster_info", "PAIR_TENSORS"]
+           "pair_cluster_info", "member_cluster_info", "PAIR_TENSORS"]
 
 PAD_LANE = 128
 NEG = -1e9
@@ -492,6 +491,8 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_decode_pair_rng.restype = ci
     lib.nes_pair_cluster_info.argtypes = [ci, ci, vp]
     lib.nes_pair_cluster_info.restype = ci
+    lib.nes_member_cluster_info.argtypes = [ci, vp]
+    lib.nes_member_cluster_info.restype = ci
     i64 = ctypes.c_longlong
     lib.nes_pair_delta_dump.argtypes = [ci, i64] + [vp] * 3 + [vp]
     lib.nes_pair_delta_dump.restype = ci
@@ -580,12 +581,14 @@ def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
                  need_logprobs: bool = True, *, greedy: bool = True,
                  seeds=None, gumbel=None, vocab_tile: int = 0):
     """Decode of one member, or of a batch of members in one launch (params
-    with a leading member axis M, feats (M, B, F)): K1, the greedy decode;
-    with ``vocab_tile`` K4 (``decode_tiled``); with ``greedy=False`` K3
-    (``decode_sample``), which takes ``seeds`` or ``gumbel``. Returns (seq
-    (…, B, T) int32, lp (…, B, T) f32), with a lane axis before B when
-    sampling. CPU tensors run the plain twin; CUDA tensors launch the
-    kernel."""
+    with a leading member axis M, feats (M, B, F)): K1, the greedy decode,
+    one cluster of 2 CTAs per member; with ``vocab_tile`` K4
+    (``decode_tiled``); with ``greedy=False`` K3 (``decode_sample``), which
+    takes ``seeds`` or ``gumbel``. Returns (seq (…, B, T) int32, lp (…, B,
+    T) f32), with a lane axis before B when sampling. CPU tensors run the
+    plain twin; CUDA tensors launch the kernel. Tokens equal K2's on
+    ``prep(base ± delta)`` bit for bit; lp sums exp over the columns in the
+    halves' order, within 2e-5 of the plain twin at f32."""
     _check_variant(params, greedy, seeds, gumbel, vocab_tile)
     if not greedy:
         return decode_sample(params, feats, seq_length, need_logprobs,
@@ -597,6 +600,7 @@ def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
         return decode_fused_plain(params, feats, seq_length, need_logprobs)
     params, feats, (M, B, F), Vpad, code, stream, single = _launch_args(
         params, feats, "params")
+    _check_aligned(params, "params")
     seq = torch.empty((M, B, seq_length), dtype=torch.int32,
                       device=feats.device)
     lp = torch.empty((M, B, seq_length), dtype=torch.float32,
@@ -618,13 +622,15 @@ def decode_tiled(params: dict, feats: torch.Tensor, vocab_tile: int,
     """K4: K1 with the logits reduced over vocab tiles of ``vocab_tile``
     columns (a multiple of 128 dividing Vpad; ``tpu.decode_vocab_tile``):
     the same tokens as K1, bit for bit, and lp summed in the tiled order.
-    Shapes as K1's."""
+    The member kernel of K1, folding the halves' row partials at the end of
+    every vocab tile. Shapes as K1's."""
     _check_variant(params, True, None, None, vocab_tile)
     if not feats.is_cuda:
         return decode_tiled_plain(params, feats, vocab_tile, seq_length,
                                   need_logprobs)
     params, feats, (M, B, F), Vpad, code, stream, single = _launch_args(
         params, feats, "params")
+    _check_aligned(params, "params")
     seq = torch.empty((M, B, seq_length), dtype=torch.int32,
                       device=feats.device)
     lp = torch.empty((M, B, seq_length), dtype=torch.float32,
@@ -760,7 +766,7 @@ decode_pair_perturb.launches = 0
 
 
 def _check_aligned(params: dict, what: str):
-    """The pair kernel copies weight tiles through TMA tensor maps and
+    """The cluster kernels copy weight tiles through TMA tensor maps and
     biases with bulk copies, which take 16-byte aligned addresses."""
     for k in PAIR_TENSORS:
         _check(params[k].data_ptr() % 16 == 0,
@@ -780,6 +786,20 @@ def pair_cluster_info(dtype=torch.bfloat16, delta_dtype=torch.bfloat16
     _raise_on(err, "pair_cluster_info")
     return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
                      "tile_rows", "max_active_clusters"), out))
+
+
+def member_cluster_info(dtype=torch.bfloat16) -> dict:
+    """The member kernel's (K1, K4) launch shape on the current card for
+    weight dtype ``dtype``: CTAs per cluster (one cluster per member),
+    threads per CTA, dynamic shared memory bytes, ring slots, k-rows per
+    tile, the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) and tiles in flight."""
+    out = (ctypes.c_int * 7)()
+    err = _kernels().nes_member_cluster_info(_DTYPE_CODE[dtype], out)
+    _raise_on(err, "member_cluster_info")
+    return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
+                     "tile_rows", "max_active_clusters", "tiles_in_flight"),
+                    out))
 
 
 def _seeds_on(u32: np.ndarray, device) -> torch.Tensor:

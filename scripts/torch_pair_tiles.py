@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""Time the port's pair kernel at other ring shapes, on one CUDA card.
+"""Time the port's cluster decode kernels at other ring shapes, on one CUDA
+card.
 
     python3 scripts/torch_pair_tiles.py [NAME=VALUE[,NAME=VALUE...] ...]
 
-The pair kernel (K2 ``decode_pair_perturb``, and K5's decode) streams its
-weights through a ring of KT-row tiles, as many slots as fit in shared
-memory up to MAXNS, with up to AHEAD_MAX tiles in flight (``pair::KT``,
-``pair::MAXNS``, ``pair::AHEAD_MAX`` in
-``nes_img_captioning_tpu_torch/csrc/decode.cu``). Each variant named on the
-command line (for example ``KT=32,MAXNS=6``) is the package copied into
+The pair kernel (K2 ``decode_pair_perturb``, and K5's decode) and the member
+kernel (K1 ``decode_fused``, K4 ``decode_tiled``) stream their weights
+through rings of KT-row tiles in shared memory, as many slots as fit up to
+MAXNS, with up to AHEAD_MAX tiles in flight (``pair::`` and ``member::``
+constants in ``nes_img_captioning_tpu_torch/csrc/decode.cu``). A bare NAME
+is a ``pair::`` constant, ``member.NAME`` a ``member::`` one. Each variant
+named on the command line (for example ``KT=32,MAXNS=6`` or
+``member.KT=64,member.AHEAD_MAX=2``) is the package copied into
 ``nes_img_captioning_tpu_torch/_build/variants/``, with those constants
 rewritten, built there (all builds at once) and timed in a process of its
-own beside the package as committed. Shapes are the bench's: 24 pairs,
-batch 128, vocab 9487 (Vpad 9600), 2048-d features, bf16 weights, T = 16,
-the inputs made from seed 0. One JSON line per build: K1 (the anchor), K2
-with a bf16 delta and K2 with an f32 delta (K5's decode), ms per launch
-between CUDA events; K2 on the first 15 vocab tiles, and the cost per step
-and vocab tile and the fixed cost per step that the two K2 times give; the
-ring's slot count and the card.
+own beside the package as committed. No constant moves a sum, so every
+build's K1, K4 and K2 tokens must equal the committed build's bit for bit
+(which ``chip_smoke.py`` holds to the plain twin and to each other): a
+variant that differs is printed with ``"invalid"`` naming the outputs that
+differ, and is not timed. Shapes are the bench's: 24 pairs (48
+members), batch 128, vocab 9487 (Vpad 9600), 2048-d features, bf16
+weights, T = 16, the inputs made from seed 0. One JSON line per build, ms
+per launch between CUDA events: K1, K4 at vocab tile 1920, K2 with a bf16
+delta and K2 with an f32 delta (K5's decode); K1 and K2 on the first 15
+vocab tiles (Vpad 1920), and the cost per step and vocab tile and the fixed
+cost per step that each pair of times gives; both kernels' ring shapes and
+the card.
 """
 
 from __future__ import annotations
@@ -33,23 +41,34 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = "nes_img_captioning_tpu_torch"
 
 
+def rewrite(text: str, values: dict) -> str:
+    """decode.cu's text with each named constant set: ``NAME`` in
+    ``namespace pair``, ``member.NAME`` in ``namespace member``; each must
+    be defined there exactly once."""
+    for key, value in values.items():
+        ns, name = key.split(".") if "." in key else ("pair", key)
+        start = text.index(f"namespace {ns} {{")
+        end = text.index(f"}}  // namespace {ns}", start)
+        body, n = re.subn(rf"constexpr int {name} = \d+;",
+                          f"constexpr int {name} = {int(value)};",
+                          text[start:end])
+        if n != 1:
+            raise ValueError(f"{ns}::{name} is not defined once in decode.cu")
+        text = text[:start] + body + text[end:]
+    return text
+
+
 def variant_dir(spec: str) -> Path:
-    """The package with the pair:: constants of ``spec`` rewritten."""
+    """The package with the constants of ``spec`` rewritten."""
     values = dict(kv.split("=") for kv in spec.split(","))
     out = ROOT / PKG / "_build" / "variants" / "_".join(
-        f"{k}{v}" for k, v in values.items())
+        f"{k.replace('.', '-')}{v}" for k, v in values.items())
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(ROOT / PKG, out / PKG,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     src = out / PKG / "csrc" / "decode.cu"
-    text = src.read_text()
-    for name, value in values.items():
-        text, n = re.subn(rf"constexpr int {name} = \d+;",
-                          f"constexpr int {name} = {value};", text)
-        if n != 1:
-            raise RuntimeError(f"pair::{name} not found in {src}")
-    src.write_text(text)
+    src.write_text(rewrite(src.read_text(), values))
     return out
 
 
@@ -98,18 +117,44 @@ def worker(root: str):
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    row = {"root": root, **dc.pair_cluster_info(torch.bfloat16,
-                                                 torch.bfloat16)}
-    row["ring_slots_f32_delta"] = dc.pair_cluster_info(
+    def k1(p):
+        return dc.decode_fused(p, feats2, T, False)
+
+    def k2(b, d):
+        return dc.decode_pair_perturb(b, d, feats, T, torch.bfloat16, False)
+
+    row = {"root": root,
+           "member": dc.member_cluster_info(torch.bfloat16),
+           "pair": dc.pair_cluster_info(torch.bfloat16, torch.bfloat16)}
+    row["pair"]["ring_slots_f32_delta"] = dc.pair_cluster_info(
         torch.bfloat16, torch.float32)["ring_slots"]
-    row["k1_ms"] = time_ms(lambda: dc.decode_fused(params, feats2, T, False))
-    row["k2_bf16_delta_ms"] = time_ms(lambda: dc.decode_pair_perturb(
-        base, dp16, feats, T, torch.bfloat16, False))
-    row["k2_f32_delta_ms"] = time_ms(lambda: dc.decode_pair_perturb(
-        base, dp32, feats, T, torch.bfloat16, False))
+    # the tokens of every kernel timed, held to the committed build's
+    tokens = {
+        "k1": k1(params)[0],
+        "k4": dc.decode_fused(params, feats2, T, False, vocab_tile=1920)[0],
+        "k2_bf16_delta": k2(base, dp16)[0],
+        "k2_f32_delta": k2(base, dp32)[0],
+    }
+    ref_path = ROOT / PKG / "_build" / "variants" / "reference_tokens.pt"
+    if Path(root) == ROOT:
+        ref_path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in tokens.items()}, ref_path)
+    ref = torch.load(ref_path)
+    bad = [k for k, v in tokens.items() if not torch.equal(v.cpu(), ref[k])]
+    if not torch.equal(tokens["k4"], tokens["k1"]):
+        bad.append("k4 against k1")
+    if bad:
+        row["invalid"] = bad
+        print(json.dumps(row), flush=True)
+        return
+    row["k1_ms"] = time_ms(lambda: k1(params))
+    row["k4_tile1920_ms"] = time_ms(lambda: dc.decode_fused(
+        params, feats2, T, False, vocab_tile=1920))
+    row["k2_bf16_delta_ms"] = time_ms(lambda: k2(base, dp16))
+    row["k2_f32_delta_ms"] = time_ms(lambda: k2(base, dp32))
     # the same weights cut to the first 15 vocab tiles (Vpad 1920): the
     # difference per step parts the cost of a vocab tile from the fixed
-    # cost of a step (a launch lasts its longest pair's steps)
+    # cost of a step (a launch lasts its longest member's or pair's steps)
     cut = 1920
 
     def narrow(d, lead):
@@ -120,21 +165,26 @@ def worker(root: str):
                                   + (slice(0, cut),)].contiguous()
         return out
 
-    base_n, dp16_n = narrow(base, 0), narrow(dp16, 1)
-    row["k2_bf16_delta_vpad1920_ms"] = time_ms(lambda: dc.decode_pair_perturb(
-        base_n, dp16_n, feats, T, torch.bfloat16, False))
-    steps = []
-    for b, d in ((base, dp16), (base_n, dp16_n)):
-        seq, _ = dc.decode_pair_perturb(b, d, feats, T, torch.bfloat16, False)
-        zero = (seq == 0).reshape(P, 2 * B, T)
+    def longest(seq, rows):
+        zero = (seq == 0).reshape(-1, rows, T)
         first = torch.where(zero.any(-1), zero.int().argmax(-1), T - 1)
-        steps.append(int((first.max(-1).values + 1).clamp(max=T).max()))
-    row["longest_pair_steps"] = steps
-    step_full = row["k2_bf16_delta_ms"] / steps[0]
-    step_cut = row["k2_bf16_delta_vpad1920_ms"] / steps[1]
-    per_tile = (step_full - step_cut) / (lay.Vpad // 128 - cut // 128)
-    row["us_per_step_and_vocab_tile"] = per_tile * 1e3
-    row["us_fixed_per_step"] = (step_cut - per_tile * (cut // 128)) * 1e3
+        return int((first.max(-1).values + 1).clamp(max=T).max())
+
+    base_n, dp16_n, params_n = narrow(base, 0), narrow(dp16, 1), \
+        narrow(params, 1)
+    for name, full, cut_fn, full_fn, rows in (
+            ("k1", "k1_ms", lambda: k1(params_n), lambda: k1(params), B),
+            ("k2", "k2_bf16_delta_ms", lambda: k2(base_n, dp16_n),
+             lambda: k2(base, dp16), 2 * B)):
+        row[f"{name}_vpad{cut}_ms"] = time_ms(cut_fn)
+        steps = [longest(fn()[0], rows) for fn in (full_fn, cut_fn)]
+        row[f"{name}_longest_steps"] = steps
+        step_full = row[full] / steps[0]
+        step_cut = row[f"{name}_vpad{cut}_ms"] / steps[1]
+        per_tile = (step_full - step_cut) / (lay.Vpad // 128 - cut // 128)
+        row[f"{name}_us_per_step_and_vocab_tile"] = per_tile * 1e3
+        row[f"{name}_us_fixed_per_step"] = (
+            step_cut - per_tile * (cut // 128)) * 1e3
     row["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True

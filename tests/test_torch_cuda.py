@@ -7,7 +7,7 @@ machine with a card and no JAX, without the JAX-side conftest:
 
 Here, without a card, every test skips. ``chip_smoke.py`` holds the kernels
 to their twins at full width; these tests cover a small vocab, a short
-feature width and a partial batch.
+feature width, partial batches and the cluster kernels' edges.
 """
 
 import numpy as np
@@ -176,6 +176,143 @@ def test_pair_cluster_holds_a_chunk(small_members, dtypes):
     assert info["smem_bytes"] <= 232448
     if dtypes[0] == torch.bfloat16:
         assert info["ring_slots"] >= 2, info
+
+
+def _member_held_to_plain(params, feats, kernel, dt, tile=128):
+    """K1 (or K4 at ``tile``) on ``params``: f32 tokens equal the plain
+    twin's, lp within 2e-5; bf16 rows differ only where the plain top two
+    logits lie within 1e-3; K4's tokens are K1's bit for bit. Returns the
+    kernel's (seq, lp)."""
+    vocab_tile = tile if kernel == "K4" else 0
+    before = (tdc.decode_fused.launches, tdc.decode_tiled.launches)
+    seq, lp = tdc.decode_fused(params, feats, vocab_tile=vocab_tile)
+    assert (tdc.decode_fused.launches - before[0],
+            tdc.decode_tiled.launches - before[1]) == (
+        (1, 0) if kernel == "K1" else (0, 1))
+    seq_p, lp_p, gap_p = tdc.decode_fused_plain(
+        params, feats, vocab_tile=vocab_tile, top2_gap=True)
+    torch.cuda.synchronize()
+    if dt == torch.float32:
+        assert torch.equal(seq, seq_p)
+        assert float((lp - lp_p).abs().max()) < 2e-5
+    else:
+        _first_diffs_at_near_ties(seq, seq_p, gap_p)
+    if kernel == "K4":
+        assert torch.equal(seq, tdc.decode_fused(params, feats)[0])
+    return seq, lp
+
+
+def _finish_steps(seq):
+    """The step on which each row first emits 0 (T when it never does)."""
+    zero = seq == 0
+    return torch.where(zero.any(-1), zero.int().argmax(-1), seq.shape[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+@pytest.mark.parametrize("case", ["tie_across_halves", "padding_rows",
+                                  "single_member", "rows_finish_apart",
+                                  "exit_at_step_0"])
+def test_member_cluster_edges(small_members, case, kernel, dt):
+    """The member kernel's cluster (2 column halves per member) at the
+    fixture's Vpad 384 (3 vocab tiles: K4 at tile 128 folds each):
+    tie_across_halves: two columns with the same weights and the row's
+    largest bias, one in each half and each vocab tile (70 in half 1 of tile
+    0, 130 in half 0 of tile 1): every token is the smaller index;
+    padding_rows: 5 of 128 rows, the rest padding; single_member: one
+    unbatched member (validation's shape) gives the batched call's rows bit
+    for bit; rows_finish_apart: an EOS bias under which the rows end at
+    different steps, some never; exit_at_step_0: every row emits EOS at step
+    0, so the cluster leaves after one step with the outputs 0 after it."""
+    lay, members, feats, _ = small_members
+    params = lay.prep(members, dt)
+    if case == "tie_across_halves":
+        lo, hi = 70, 130
+        params["logit_w"][:, :, hi] = params["logit_w"][:, :, lo]
+        params["logit_b"][:, 0, [lo, hi]] = 100.0
+        seq, _ = _member_held_to_plain(params, feats, kernel, dt)
+        assert (seq == lo).all()
+    elif case == "padding_rows":
+        seq, _ = _member_held_to_plain(params, feats[:, :5].contiguous(),
+                                       kernel, dt)
+        assert seq.shape == (2, 5, 16)
+    elif case == "single_member":
+        one = {k: v[1] for k, v in params.items()}
+        seq1, lp1 = _member_held_to_plain(one, feats[1], kernel, dt)
+        seq, lp = tdc.decode_fused(params, feats,
+                                   vocab_tile=128 if kernel == "K4" else 0)
+        assert seq1.shape == (32, 16)
+        assert torch.equal(seq1, seq[1]) and torch.equal(lp1, lp[1])
+    elif case == "rows_finish_apart":
+        # the EOS bias, from the plain twin's step-0 logits, at which the
+        # rows finish at the most distinct steps
+        best = None
+        for b0 in np.linspace(-4.0, 12.0, 33):
+            params["logit_b"][:, 0, 0] = float(b0)
+            steps = _finish_steps(tdc.decode_fused_plain(params, feats)[0])
+            n = len(torch.unique(steps))
+            if best is None or n > best[0]:
+                best = (n, float(b0))
+        params["logit_b"][:, 0, 0] = best[1]
+        seq, lp = _member_held_to_plain(params, feats, kernel, dt)
+        steps = _finish_steps(seq)
+        assert len(torch.unique(steps)) >= 3, steps
+        # a finished row emits 0 and its lp stays 0 once the member's last
+        # row has finished
+        for m in range(2):
+            last = int(steps[m].max())
+            if last < 15:
+                assert (lp[m, :, last + 1:] == 0).all()
+    else:
+        params["logit_b"][:, 0, 0] = 1e4
+        seq, lp = _member_held_to_plain(params, feats, kernel, dt)
+        assert (seq == 0).all() and (lp[..., 1:] == 0).all()
+
+
+@pytest.fixture
+def wide_vocab():
+    """Two members at vocab 1279 (padded to 1280: 10 tiles of 128 columns,
+    Vpad / 5 = 256), 256-d features, all 128 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opts = FCModelOptions(vocab_size=1279, fc_feat_size=256)
+    lay = DecodeLayout(build_spec(opts), opts)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    theta = lay.spec.init_theta(g) * 3
+    feats = torch.randn((2, 128, 256), generator=g, device="cuda")
+    return lay, torch.stack([lay.to_dec(theta), lay.to_dec(theta * 0.7)]), \
+        feats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("tile", [128, 256], ids=["tile128", "vpad_over_5"])
+def test_k4_vocab_tiles_on_a_wider_vocab(wide_vocab, tile, dt):
+    """K4 at tile 128 (10 vocab tiles, one split cluster barrier each) and
+    at Vpad / 5 (5 tiles of 2 x 128 columns): tokens K1's bit for bit; at
+    f32 tokens equal the plain twin's, lp within 2e-5."""
+    lay, members, feats = wide_vocab
+    _member_held_to_plain(lay.prep(members, dt), feats, "K4", dt, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_member_cluster_holds_a_chunk(small_members, dt):
+    """A chunk of 48 members (96 CTAs) is resident at once: the card holds
+    at least 48 clusters of the member kernel at both weight dtypes; the
+    bf16 main path keeps several tiles in flight."""
+    info = tdc.member_cluster_info(dt)
+    assert info["cluster"] == 2 and info["threads"] == 512
+    assert info["max_active_clusters"] >= 48, info
+    assert info["smem_bytes"] <= 232448
+    assert info["tiles_in_flight"] >= 1
+    if dt == torch.bfloat16:
+        assert info["ring_slots"] >= 4 and info["tiles_in_flight"] >= 2, info
 
 
 @pytest.mark.cuda
