@@ -47,11 +47,15 @@ Phases, each printed as it ends (any failure exits non-zero):
 11. K5's, K6's and K7's times beside their plain versions', the delta-operand
     path doing the same work, and their bounds; K5 beside its parts (K7's
     draw, K2 on the f32 dump) and K1 again as the run's anchor;
-12. K3 (decode_sample) on the chunk's 48 members x 5 lanes, the Gumbel
-    values drawn in the kernel from the lane seeds the engine draws, f32
-    (TF32 off) and bf16, against its plain version: tokens equal but at
-    near-ties of logits + G, lp within 2e-5 at f32, no pad column sampled;
-    the host-table form fed the plain stream's table gives the same tokens;
+12. K3 (decode_sample, the member kernel with a Gumbel policy) on the
+    chunk's 48 members x 5 lanes, the Gumbel values drawn in the kernel
+    from the lane seeds the engine draws, f32 (TF32 off) and bf16, against
+    its plain version: tokens equal but at near-ties of logits + G, lp
+    within 2e-5 at f32, no pad column sampled; the host-table form fed the
+    plain stream's table gives the same tokens, and fed an all-zero table
+    K1's tokens bit for bit; a 256-row batch through the task's row blocks
+    (two launches, the second at row offset 128) against the plain version
+    of all 256 rows;
 13. K4 (decode_tiled, vocab tile 1920 = Vpad / 5) against K1: tokens bit for
     bit at f32 and bf16, lp within 2e-5 of its plain version;
 14. three generations each of the sample, self_critical and sc_loss kinds
@@ -65,8 +69,10 @@ Phases, each printed as it ends (any failure exits non-zero):
     3 iterations with validation and a snapshot, K3 carrying the samples
     and K4 the baselines and validation, then a resume for one more;
 17. K3's and K4's times beside their plain versions', a library yardstick
-    (cuBLAS products, plus torch's Gumbel-max for K3) and their bounds; one
-    self_critical generation under torch.profiler.
+    (cuBLAS products, plus torch's Gumbel-max for K3) and their bounds; K3
+    at Vpad 1920 beside 9600 (its fixed cost per step and cost per vocab
+    tile) and its launch shape; one self_critical generation under
+    torch.profiler.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -121,10 +127,18 @@ def ptxas_lines(report: str) -> list:
             m = re.search(r"\d+([a-z_]+_kernel)(?:I(\w*?)E)?E", entry.group(1))
             name = m.group(1) if m else entry.group(1)
             args = m.group(2) if m else None
+            # the member kernel's Gumbel policy: none (K1, K4), seed or
+            # table (K3)
+            policy = re.search(r"(No|Seed|Table)Gumbel$", args or "")
+            if policy:
+                args = re.match(r"[tf]*(?:Lb[01]E)*", args).group(0)
             if args and re.fullmatch(r"[tf]*(Lb[01]E)*(Lb[01])?", args):
                 args = re.sub(r"Lb([01])E?", r"\1", args)
-                name += "<" + ",".join({"t": "bf16", "f": "f32"}.get(c, c)
-                                       for c in args) + ">"
+                words = [{"t": "bf16", "f": "f32"}.get(c, c) for c in args]
+                if policy:
+                    words.append({"No": "none", "Seed": "seed",
+                                  "Table": "table"}[policy.group(1)])
+                name += "<" + ",".join(words) + ">"
         elif "registers" in line or "spill" in line:
             out.append((name, line.strip()))
     return out
@@ -171,6 +185,43 @@ def executed_steps(seq, T: int):
     zero = seq == 0
     first0 = torch.where(zero.any(-1), zero.int().argmax(-1), T - 1)
     return (first0.max(-1).values + 1).clamp(max=T)
+
+
+# K1, K2 and K3 also run on the first 15 vocab tiles (Vpad 1920) of the
+# same weights, beside the full 75: a cluster runs until its rows finish, so
+# a launch lasts the image step plus its longest member's, lane's or pair's
+# steps; the difference per step and vocab tile separates the cost of a tile
+# from the fixed cost of a step (embedding, gates, merges, barriers)
+VOCAB_CUT = 1920
+
+
+def narrow_vocab(d: dict, lead: int) -> dict:
+    """Decode params cut to the first VOCAB_CUT vocab columns; ``lead``
+    leading axes before the embedding's vocab axis."""
+    out = dict(d)
+    out["logit_w"] = d["logit_w"][..., :VOCAB_CUT].contiguous()
+    out["logit_b"] = d["logit_b"][..., :VOCAB_CUT].contiguous()
+    out["embed"] = d["embed"][(slice(None),) * lead
+                              + (slice(0, VOCAB_CUT),)].contiguous()
+    return out
+
+
+def step_costs(ms: float, cut_ms: float, steps, Vpad: int) -> tuple:
+    """(fixed us per step, us per step and 128-column vocab tile) from a
+    launch's ms at Vpad and at VOCAB_CUT columns and the longest steps each
+    ran (the image step folded into both)."""
+    step_full, step_cut = ms / steps[0], cut_ms / steps[1]
+    per_tile = (step_full - step_cut) / ((Vpad - VOCAB_CUT) // 128)
+    return (step_cut - per_tile * (VOCAB_CUT // 128)) * 1e3, per_tile * 1e3
+
+
+def log_step_costs(phase: str, name: str, ms: float, cut_ms: float, steps,
+                   Vpad: int, costs: tuple, card: str):
+    log(f"{phase} {name} at Vpad {VOCAB_CUT} ({VOCAB_CUT // 128} vocab "
+        f"tiles): {cut_ms:.3f} ms per launch, longest {steps[1]} steps; at "
+        f"Vpad {Vpad} ({Vpad // 128} tiles) {ms:.3f} ms, {steps[0]} steps: "
+        f"per step and 128-column vocab tile {costs[1]:.3f} us, fixed per "
+        f"step {costs[0]:.3f} us (the image step folded into both) ({card})")
 
 
 def decode_flops(n_steps, B: int, F: int, Vpad: int) -> float:
@@ -255,6 +306,15 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
         torch.cuda.synchronize()
         return tuple(c.launches for c in counters)
 
+    def kind_task(kind, **tpu):
+        exp = {"dataset": "mscoco", "policy_options": {
+            "fitness": kind, "vbn": False, "model_options": {
+                "input_encoding_size": 128, "rnn_size": 128,
+                "fc_feat_size": Fd}}}
+        return CocoTask(exp, Config(batch_size=B),
+                        TpuConfig(seed=0, precision="bf16", delta_dtype="bf16",
+                                  **tpu), device=dev, data=task.data)
+
     # ---- [12] K3 against its plain version on one chunk -------------------
     # the lane seeds the engine draws for the chunk's pair-major members
     lanes = np.stack([lane_seeds(seeds[0][:P], np.full(P, s), spi)
@@ -307,6 +367,51 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
         f"the in-kernel draw on {sub} x {spi} lanes; the kernel's Gumbel "
         f"values {float((g_card == g_plain).float().mean()):.4%} bitwise "
         f"the plain stream's, max difference {g_err:.3g}")
+    # fed an all-zero table, every lane takes K1's argmax: key = logit + 0,
+    # the same runs and merges, so tokens and lp are K1's bit for bit
+    zeros = torch.zeros((sub, spi, T, B, Vpad), device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        params = lay.prep(members[:sub], dt)
+        seq_z, lp_z = dc.decode_fused(params, feats2[:sub], T, True,
+                                      greedy=False, gumbel=zeros)
+        seq_1, lp_1 = dc.decode_fused(params, feats2[:sub], T, True)
+        for lane in range(spi):
+            if not (torch.equal(seq_z[:, lane], seq_1)
+                    and torch.equal(lp_z[:, lane], lp_1)):
+                raise AssertionError(f"K3 {dt}: lane {lane} fed a zero table "
+                                     "is not K1 bit for bit")
+    del zeros
+    log(f"[12] K3 host-table form fed an all-zero table: tokens and lp of "
+        f"every lane bitwise K1's on {sub} members, f32 and bf16")
+    # a 256-row batch through the task's row blocks: two launches, the
+    # second drawing at row offset 128, against the plain version of all
+    # 256 rows; lp compared at the steps a row is still running (a block's
+    # early exit leaves its later steps 0, the unsplit decode does not)
+    idx256 = torch.as_tensor(np.random.default_rng(12).integers(
+        0, task.train_n, size=(sub, 2 * B)), device=dev)
+    feats256 = task.train_fc[idx256]
+    params = lay.prep(members[:sub], torch.float32)
+    sc_task = kind_task("sc_loss")  # a kind that reads lp
+    before = dc.decode_sample.launches
+    seq_s, lp_s = sc_task._sample(params, feats256, lanes[:sub])
+    torch.cuda.synchronize()
+    n_launch = dc.decode_sample.launches - before
+    seq_p, lp_p, gap_p = dc.decode_sample_plain(
+        params, feats256, T, True, seeds=lanes[:sub], top2_gap=True)
+    share, n_diff = check_near_ties(seq_s, seq_p, gap_p, "K3 at 256 rows")
+    same = (seq_s == seq_p).all(-1)
+    running = torch.cat([torch.ones_like(seq_p[..., :1], dtype=torch.bool),
+                         seq_p[..., :-1] > 0], -1)
+    err256 = float(((lp_s - lp_p).abs() * running)[same].max())
+    if n_launch != 2 or err256 > 2e-5:
+        raise AssertionError(f"K3 at 256 rows: {n_launch} launches (2 "
+                             f"expected), lp error {err256:.3g} (limit 2e-5)")
+    del seq_p, lp_p, gap_p
+    log(f"[12] K3 f32 at 256 rows through the task's row blocks ({n_launch} "
+        f"launches, the second at row offset 128), {sub} members x {spi} "
+        f"lanes: {share:.4%} of rows equal to the plain version of all 256 "
+        f"rows, {n_diff} differ, each first at a near-tie; max |lp - plain| "
+        f"{err256:.3g} on equal rows")
 
     # ---- [13] K4 against K1 ------------------------------------------------
     tile = Vpad // 5  # 1920 at full width
@@ -330,15 +435,6 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
             f"{float((lp4 - lp1).abs().max()):.3g}{msg}")
 
     # ---- [14] one generation of each further fitness kind ------------------
-    def kind_task(kind, **tpu):
-        exp = {"dataset": "mscoco", "policy_options": {
-            "fitness": kind, "vbn": False, "model_options": {
-                "input_encoding_size": 128, "rnn_size": 128,
-                "fc_feat_size": Fd}}}
-        return CocoTask(exp, Config(batch_size=B),
-                        TpuConfig(seed=0, precision="bf16", delta_dtype="bf16",
-                                  **tpu), device=dev, data=task.data)
-
     def engine(t):
         return NESEngine(t, Adam(BENCH["stepsize"]), MutationKind.DEFAULT,
                          pop_chunk=P, delta_dtype="bf16")
@@ -352,7 +448,8 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
     gens = BENCH["gens"]
     kind_ms, engines = {}, {}
     for kind in ("sample", "self_critical", "sc_loss", "greedy_logprob"):
-        eng = engines[kind] = engine(kind_task(kind))
+        eng = engines[kind] = engine(
+            sc_task if kind == "sc_loss" else kind_task(kind))
         generation(eng)  # untimed warm-up
         zero()
         times, outs = [], []
@@ -501,6 +598,26 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
     w_bytes = sum(v.numel() * v.element_size() for v in params16.values())
     k3_bytes = w_bytes + feats2.numel() * 2 + lanes.size * 4 + seq3.numel() * 8
     k4_bytes = w_bytes + feats2.numel() * 2 + seq4.numel() * 8
+    # K3 at Vpad 1920 beside 9600: its fixed cost per step and its cost per
+    # vocab tile, over all the launch's waves of clusters
+    params16_n = narrow_vocab(params16, 1)
+    k3_cut_ms = time_ms(lambda: dc.decode_fused(
+        params16_n, feats2, T, False, greedy=False, seeds=lanes))
+    seq3_n, _ = dc.decode_fused(params16_n, feats2, T, False, greedy=False,
+                                seeds=lanes)
+    steps = [int(executed_steps(s.reshape(M * spi, B, T), T).max())
+             for s in (seq3, seq3_n)]
+    del params16_n, seq3_n
+    k3_costs = step_costs(k3_ms, k3_cut_ms, steps, Vpad)
+    log_step_costs("[17]", "K3", k3_ms, k3_cut_ms, steps, Vpad, k3_costs,
+                   card)
+    info3 = dc.member_cluster_info(torch.bfloat16, sampled=True)
+    k3_ctas = info3["cluster"] * M * spi
+    log(f"[17] K3's launch shape: {M * spi} clusters of {info3['cluster']} "
+        f"CTAs ({k3_ctas} CTAs), {info3['smem_bytes']} B dynamic shared "
+        f"memory, {info3['ring_slots']} ring slots, "
+        f"cudaOccupancyMaxActiveClusters {info3['max_active_clusters']}: "
+        f"{M * spi / info3['max_active_clusters']:.2f} waves ({card})")
     rows = []
     member_ctas = dc.member_cluster_info()["cluster"] * M
     for name, replaces, ms, plain, lib, nbytes, flops, ops, err, launches in (
@@ -523,6 +640,10 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
             "library_ms": lib})
         if name == "decode_tiled":
             rows[-1]["ctas_per_launch"] = member_ctas
+        else:
+            rows[-1]["ctas_per_launch"] = k3_ctas
+            rows[-1]["us_fixed_per_step"], \
+                rows[-1]["us_per_step_and_vocab_tile"] = k3_costs
         log(f"[17] {name}: {ms:.3f} ms per launch (plain {plain:.3f} ms, "
             f"library yardstick {lib:.3f} ms, bound {b_ms:.4f} ms by {b_by}; "
             f"{flops / 1e9:.1f} GFLOP on the tensor cores, {ops / 1e9:.1f} G "
@@ -585,20 +706,26 @@ def main() -> int:
             f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']}; "
             f"{info['cluster'] * BENCH['pop_chunk']} CTAs per launch at "
             f"{BENCH['pop_chunk']} pairs, all resident")
-    for wdt in (torch.bfloat16, torch.float32):
-        info = dc.member_cluster_info(wdt)
+    for wdt, sampled in ((torch.bfloat16, False), (torch.float32, False),
+                         (torch.bfloat16, True), (torch.float32, True)):
+        info = dc.member_cluster_info(wdt, sampled)
         if info["max_active_clusters"] < 2 * BENCH["pop_chunk"]:
             raise AssertionError(f"member kernel {info}: a chunk of "
                                  f"{2 * BENCH['pop_chunk']} members is not "
                                  "resident")
-        log(f"[1] member kernel (K1, K4), weights {wdt}: clusters of "
+        # K3: one cluster per member and lane (5 lanes per image)
+        clusters = 2 * BENCH["pop_chunk"] * (5 if sampled else 1)
+        log(f"[1] member kernel ({'K3' if sampled else 'K1, K4'}), weights "
+            f"{wdt}: clusters of "
             f"{info['cluster']} CTAs x {info['threads']} threads, "
             f"{info['smem_bytes']} B dynamic shared memory, "
             f"{info['ring_slots']} ring slots of {info['tile_rows']} k-rows, "
             f"{info['tiles_in_flight']} in flight; "
             f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']}; "
-            f"{info['cluster'] * 2 * BENCH['pop_chunk']} CTAs per launch at "
-            f"{2 * BENCH['pop_chunk']} members, all resident")
+            f"{info['cluster'] * clusters} CTAs per launch at "
+            f"{2 * BENCH['pop_chunk']} members"
+            + (f" x 5 lanes, {clusters / info['max_active_clusters']:.2f} "
+               "waves" if sampled else ", all resident"))
 
     # ---- the fixture, the task and one generation's inputs -----------------
     t0 = time.time()
@@ -757,24 +884,10 @@ def main() -> int:
         base, dparams, feats, T, torch.bfloat16, False))
     k2_plain = time_ms(lambda: dc.decode_pair_perturb_plain(
         base, dparams, feats, T, torch.bfloat16, False), reps=3)
-    # K1 and K2 on the first 15 vocab tiles (Vpad 1920) of the same
-    # weights, beside the full 75: a cluster runs until its member's rows
-    # (K2: both signs' rows) finish, so a launch lasts the image step plus
-    # its longest member's or pair's steps; the difference per step and
-    # vocab tile separates the cost of a tile from the fixed cost of a step
-    # (embedding, gates, merges, barriers)
-    cut = 1920
-
-    def narrow(d, lead):
-        out = dict(d)
-        out["logit_w"] = d["logit_w"][..., :cut].contiguous()
-        out["logit_b"] = d["logit_b"][..., :cut].contiguous()
-        out["embed"] = d["embed"][(slice(None),) * lead + (slice(0, cut),)
-                                  ].contiguous()
-        return out
-
-    base_n, dparams_n = narrow(base, 0), narrow(dparams, 1)
-    params16_n = narrow(params16, 1)
+    # K1 and K2 at Vpad 1920 beside 9600 (K2: a pair runs until both signs'
+    # rows finish)
+    base_n, dparams_n = narrow_vocab(base, 0), narrow_vocab(dparams, 1)
+    params16_n = narrow_vocab(params16, 1)
     per_step = {}
     for name, ms, run_full, run_cut, rows in (
             ("K1", k1_ms,
@@ -788,16 +901,9 @@ def main() -> int:
         cut_ms = time_ms(run_cut)
         steps = [int(executed_steps(fn()[0].reshape(-1, rows, T), T).max())
                  for fn in (run_full, run_cut)]
-        step_full, step_cut = ms / steps[0], cut_ms / steps[1]
-        per_tile = (step_full - step_cut) / ((Vpad - cut) // 128)
-        fixed = step_cut - per_tile * (cut // 128)
-        per_step[name] = (fixed * 1e3, per_tile * 1e3)
-        log(f"[5] {name} at Vpad {cut} ({cut // 128} vocab tiles): "
-            f"{cut_ms:.3f} ms per launch, longest {steps[1]} steps; at Vpad "
-            f"{Vpad} ({Vpad // 128} tiles) {ms:.3f} ms, {steps[0]} steps: per "
-            f"step and 128-column vocab tile {per_tile * 1e3:.3f} us, fixed "
-            f"per step {fixed * 1e3:.3f} us (the image step folded into both) "
-            f"({card})")
+        per_step[name] = step_costs(ms, cut_ms, steps, Vpad)
+        log_step_costs("[5]", name, ms, cut_ms, steps, Vpad, per_step[name],
+                       card)
     del base_n, dparams_n, params16_n
 
     def library():

@@ -11,8 +11,9 @@ Port of ``nes_img_captioning_tpu/ops/decode_pallas.py``:
   replaces the Pallas ``decode_fused`` with ``greedy=False``
   (``decode_pallas.py:658``, branch ``:198-226``): L Gumbel-max samples per
   member, ``argmax(logits + G)`` with G drawn in the kernel from each lane's
-  uint32 seed (``ops/noise.py``), or read from a host table
-  (``gumbel=...``, the form of ``host_rng=True``); lp = logit[token] - lse;
+  uint32 seed (``ops/noise.py``; ``row0`` places the launch's rows in a
+  larger batch's stream), or read from a host table (``gumbel=...``, the
+  form of ``host_rng=True``); lp = logit[token] - lse;
 * ``decode_tiled`` (K4), or ``decode_fused(vocab_tile=N)``, replaces the
   Pallas ``decode_fused`` with ``vocab_tile > 0`` (``:112-157,170-182``):
   K1 with the logit reduction merged over vocab tiles in order, so the
@@ -40,13 +41,14 @@ Kernel sources: ``csrc/decode.cu``, built with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (loaded with ``ctypes``) on first
 use, into ``_build/`` inside this package.
 
-What bounds them on an H100, and the design. A CTA or a cluster holds all
-B <= 128 rows of its member, lane or pair, so the batch-wide early exit
-stays inside it. The 17-step recurrence is serial; the work per step is
+What bounds them on an H100, and the design. A cluster holds all B <= 128
+rows of its member, lane or pair, so the batch-wide early exit stays inside
+it; callers split a larger batch (``tasks/captioning.py``). The 17-step recurrence is serial; the work per step is
 three products (i2h, h2h: 128x128x640 each; logits: 128x128xVpad) whose
 weights (~5.8 MB per member in bf16, far above an SM's 227 KB of shared
-memory) stream as tiles into shared memory. K1 and K4 give each member a
-cluster of 2 CTAs (one per column half, 96 CTAs for 48 members), fed by a
+memory) stream as tiles into shared memory. K1, K3 and K4 give each member
+(K3: each member and sample lane) a cluster of 2 CTAs (one per column half,
+96 CTAs for 48 members), fed by a
 ring of the member's own weight tiles copied by TMA and read in place by
 the products (no conversion pass), each warp releasing a slot on its own;
 K4 folds the halves' row partials at the end of every vocab tile behind a
@@ -65,10 +67,12 @@ HBM stream of the chunk's weights bound K1, K2, K4 and K5. The logits
 never leave registers: each thread keeps a running max / first-index
 argmax / online sum-of-exp over its columns, merged across threads with
 ties to the smaller index. A launch covers a whole chunk of members or
-pairs (the JAX package ``vmap``s over the chunk). K3 runs one CTA per
-(member, lane), 240 for a chunk of 48 members at 5 lanes, and its time is
-set by drawing T * B * Vpad Gumbel values per CTA (two ``logf`` each and a
-quarter of a Philox call), not by the products.
+pairs (the JAX package ``vmap``s over the chunk). K3's 240 clusters (48
+members x 5 lanes) run in about 3.6 waves; it draws T * B * Vpad Gumbel
+values per lane, a quarter of a Philox call each, and takes the two
+``logf`` of ``-log(-log u)`` only for a value that can still beat its row's
+running key (an exact skip: the tokens and lp are those of drawing every
+value).
 
 Each kernel has a plain PyTorch twin with the same signature, following the
 JAX kernel's rounding points (weights and feats in ``dt``, products with f32
@@ -95,7 +99,7 @@ from .noise import gumbel_plain, philox4x32_10, philox_normal_plain
 __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
            "decode_fused", "decode_fused_plain", "decode_sample",
            "decode_sample_plain", "decode_tiled", "decode_tiled_plain",
-           "gumbel_table", "decode_pair_perturb",
+           "gumbel_table", "gumbel_counts", "decode_pair_perturb",
            "decode_pair_perturb_plain", "decode_pair_rng",
            "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_plain",
            "pair_grad_rng", "pair_grad_rng_plain", "philox_words", "build_kernels",
@@ -273,7 +277,8 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
 def decode_fused_plain(params: dict, feats: torch.Tensor,
                        seq_length: int = 16, need_logprobs: bool = True, *,
                        greedy: bool = True, seeds=None, gumbel=None,
-                       vocab_tile: int = 0, top2_gap: bool = False):
+                       vocab_tile: int = 0, top2_gap: bool = False,
+                       row0: int = 0):
     """Plain twin of ``decode_fused``, the same signature: K1's for a greedy
     untiled call, else K3's (``decode_sample_plain``) or K4's
     (``decode_tiled_plain``). params: one member's dict
@@ -285,7 +290,7 @@ def decode_fused_plain(params: dict, feats: torch.Tensor,
     if not greedy:
         return decode_sample_plain(params, feats, seq_length, need_logprobs,
                                    seeds=seeds, gumbel=gumbel,
-                                   top2_gap=top2_gap)
+                                   top2_gap=top2_gap, row0=row0)
     params, feats, single = _batched(params, feats)
     out = _decode_plain(params, feats, seq_length, need_logprobs,
                         vocab_tile=vocab_tile, top2_gap=top2_gap)
@@ -299,6 +304,15 @@ def decode_tiled_plain(params: dict, feats: torch.Tensor, vocab_tile: int,
     tiles of ``vocab_tile`` columns (a multiple of 128 dividing Vpad)."""
     return decode_fused_plain(params, feats, seq_length, need_logprobs,
                               vocab_tile=vocab_tile, top2_gap=top2_gap)
+
+
+def _check_lanes(seeds, gumbel, row0: int):
+    """A sampling call takes exactly one of seeds and gumbel; a row offset
+    places seeded rows in a larger batch (a table holds its own rows)."""
+    _check((seeds is None) != (gumbel is None),
+           "sampling takes exactly one of seeds and gumbel")
+    _check(row0 >= 0 and (row0 == 0 or gumbel is None),
+           f"row0={row0}: a non-negative offset of seeded rows")
 
 
 def _lanes(params: dict, seeds, gumbel):
@@ -322,15 +336,15 @@ def _lanes(params: dict, seeds, gumbel):
 
 def decode_sample_plain(params: dict, feats: torch.Tensor,
                         seq_length: int = 16, need_logprobs: bool = True, *,
-                        seeds=None, gumbel=None, top2_gap: bool = False):
+                        seeds=None, gumbel=None, top2_gap: bool = False,
+                        row0: int = 0):
     """Plain twin of K3: L sampled captions per member, each lane's Gumbel
     values drawn from its uint32 lane seed (``seeds`` (M, L), the stream of
-    ops/noise.py) or read from ``gumbel`` (M, L, T, B, Vpad) f32. One
-    member: seeds (L,), gumbel (L, T, B, Vpad). Returns (seq, lp[, gap]) of
-    shape (M, L, B, T), or (L, B, T) for one member; gap is that of logits
-    + G."""
-    _check((seeds is None) != (gumbel is None),
-           "sampling takes exactly one of seeds and gumbel")
+    ops/noise.py, for batch rows ``row0 ..``) or read from ``gumbel`` (M,
+    L, T, B, Vpad) f32. One member: seeds (L,), gumbel (L, T, B, Vpad).
+    Returns (seq, lp[, gap]) of shape (M, L, B, T), or (L, B, T) for one
+    member; gap is that of logits + G."""
+    _check_lanes(seeds, gumbel, row0)
     single, M, L, u32, g = _lanes(params, seeds, gumbel)
     params, feats, _ = _batched(params, feats)
     B, Vpad = feats.shape[1], params["logit_w"].shape[-1]
@@ -338,7 +352,7 @@ def decode_sample_plain(params: dict, feats: torch.Tensor,
         s64 = torch.from_numpy(u32.astype(np.int64)).to(feats.device)
 
         def gumbel_at(t):
-            return gumbel_plain(s64, t, B, Vpad).reshape(M, L * B, Vpad)
+            return gumbel_plain(s64, t, B, Vpad, row0).reshape(M, L * B, Vpad)
     else:
         def gumbel_at(t):
             return g[:, :, t].to(torch.float32).reshape(M, L * B, Vpad)
@@ -480,9 +494,11 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_decode_fused.restype = ci
     lib.nes_decode_tiled.argtypes = [ci] * 8 + [vp] * 10 + [vp] * 2 + [vp]
     lib.nes_decode_tiled.restype = ci
-    for fn in (lib.nes_decode_sample, lib.nes_decode_sample_table):
-        fn.argtypes = [ci] * 8 + [vp] * 10 + [vp] + [vp] * 2 + [vp]
-        fn.restype = ci
+    lib.nes_decode_sample.argtypes = [ci] * 9 + [vp] * 10 + [vp] * 3 + [vp]
+    lib.nes_decode_sample.restype = ci
+    lib.nes_decode_sample_table.argtypes = \
+        [ci] * 8 + [vp] * 10 + [vp] * 3 + [vp]
+    lib.nes_decode_sample_table.restype = ci
     lib.nes_decode_pair_perturb.argtypes = \
         [ci] * 8 + [vp] * (1 + 9 + 9) + [vp] * 2 + [vp]
     lib.nes_decode_pair_perturb.restype = ci
@@ -491,7 +507,7 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_decode_pair_rng.restype = ci
     lib.nes_pair_cluster_info.argtypes = [ci, ci, vp]
     lib.nes_pair_cluster_info.restype = ci
-    lib.nes_member_cluster_info.argtypes = [ci, vp]
+    lib.nes_member_cluster_info.argtypes = [ci, ci, vp]
     lib.nes_member_cluster_info.restype = ci
     i64 = ctypes.c_longlong
     lib.nes_pair_delta_dump.argtypes = [ci, i64] + [vp] * 3 + [vp]
@@ -500,8 +516,10 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_pair_grad_rng.restype = ci
     lib.nes_philox_words.argtypes = [ctypes.c_uint, i64, vp, vp]
     lib.nes_philox_words.restype = ci
-    lib.nes_gumbel_table.argtypes = [ctypes.c_uint, ci, ci, ci, vp, vp]
+    lib.nes_gumbel_table.argtypes = [ctypes.c_uint, ci, ci, ci, ci, vp, vp]
     lib.nes_gumbel_table.restype = ci
+    lib.nes_gumbel_counts.argtypes = [vp]
+    lib.nes_gumbel_counts.restype = ci
     return lib
 
 
@@ -579,12 +597,12 @@ def _launch_args(params: dict, feats: torch.Tensor, what: str):
 
 def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
                  need_logprobs: bool = True, *, greedy: bool = True,
-                 seeds=None, gumbel=None, vocab_tile: int = 0):
+                 seeds=None, gumbel=None, vocab_tile: int = 0, row0: int = 0):
     """Decode of one member, or of a batch of members in one launch (params
     with a leading member axis M, feats (M, B, F)): K1, the greedy decode,
     one cluster of 2 CTAs per member; with ``vocab_tile`` K4
     (``decode_tiled``); with ``greedy=False`` K3 (``decode_sample``), which
-    takes ``seeds`` or ``gumbel``. Returns (seq (…, B, T) int32, lp (…, B,
+    takes ``seeds`` (and ``row0``) or ``gumbel``. Returns (seq (…, B, T) int32, lp (…, B,
     T) f32), with a lane axis before B when sampling. CPU tensors run the
     plain twin; CUDA tensors launch the kernel. Tokens equal K2's on
     ``prep(base ± delta)`` bit for bit; lp sums exp over the columns in the
@@ -592,7 +610,7 @@ def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
     _check_variant(params, greedy, seeds, gumbel, vocab_tile)
     if not greedy:
         return decode_sample(params, feats, seq_length, need_logprobs,
-                             seeds=seeds, gumbel=gumbel)
+                             seeds=seeds, gumbel=gumbel, row0=row0)
     if vocab_tile:
         return decode_tiled(params, feats, vocab_tile, seq_length,
                             need_logprobs)
@@ -648,22 +666,26 @@ decode_tiled.launches = 0
 
 
 def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
-                  need_logprobs: bool = True, *, seeds=None, gumbel=None):
-    """K3: L Gumbel-max sampled captions per member in one launch, one CTA
-    per (member, lane). ``seeds``: (M, L) uint32 lane seeds (host ints or
-    array), the Gumbel values drawn in the kernel; or ``gumbel``: an (M, L,
-    T, B, Vpad) f32 table on the card (the host-table form). One member:
-    seeds (L,), gumbel (L, T, B, Vpad). Returns (seq, lp) of shape (M, L,
-    B, T), or (L, B, T); lp = logit[token] - lse."""
-    _check((seeds is None) != (gumbel is None),
-           "sampling takes exactly one of seeds and gumbel")
+                  need_logprobs: bool = True, *, seeds=None, gumbel=None,
+                  row0: int = 0):
+    """K3: L Gumbel-max sampled captions per member in one launch of the
+    member kernel, one 2-CTA cluster per (member, lane). ``seeds``: (M, L)
+    uint32 lane seeds (host ints or array), the Gumbel values drawn in the
+    kernel for batch rows ``row0 .. row0 + B - 1`` (a batch above 128 rows
+    is decoded in launches of 128 with their offsets, the stream of one
+    launch over all rows); or ``gumbel``: an (M, L, T, B, Vpad) f32 table
+    on the card (the host-table form). One member: seeds (L,), gumbel (L,
+    T, B, Vpad). Returns (seq, lp) of shape (M, L, B, T), or (L, B, T); lp
+    = logit[token] - lse."""
+    _check_lanes(seeds, gumbel, row0)
     if not feats.is_cuda:
         return decode_sample_plain(params, feats, seq_length, need_logprobs,
-                                   seeds=seeds, gumbel=gumbel)
+                                   seeds=seeds, gumbel=gumbel, row0=row0)
     single, M, L, u32, g = _lanes(params, seeds, gumbel)
     params, feats, (M_, B, F), Vpad, code, stream, _ = _launch_args(
         params, feats, "params")
     _check(M_ == M, f"{M_} members, {M} of seeds or gumbel")
+    _check_aligned(params, "params")
     dev = feats.device
     seq = torch.empty((M, L, B, seq_length), dtype=torch.int32, device=dev)
     lp = torch.empty((M, L, B, seq_length), dtype=torch.float32, device=dev)
@@ -671,7 +693,7 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
     if u32 is not None:
         seeds_d = _seeds_on(u32.reshape(-1), dev)
         err = _kernels().nes_decode_sample(
-            code, int(need_logprobs), M, L, B, F, Vpad, seq_length,
+            code, int(need_logprobs), M, L, B, F, Vpad, seq_length, row0,
             feats.data_ptr(), *prm, seeds_d.data_ptr(), seq.data_ptr(),
             lp.data_ptr(), stream)
     else:
@@ -693,20 +715,32 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
 decode_sample.launches = 0
 
 
-def gumbel_table(seed: int, t: int, B: int, Vpad: int, device) -> torch.Tensor:
-    """(B, Vpad) f32: K3's Gumbel values of lane seed ``seed`` at step t,
-    from the kernels' generator on a CUDA device and from the plain one
-    (ops/noise.py) on the CPU — the check that the two draw the same
-    values."""
+def gumbel_table(seed: int, t: int, B: int, Vpad: int, device,
+                 row0: int = 0) -> torch.Tensor:
+    """(B, Vpad) f32: K3's Gumbel values of lane seed ``seed`` at step t for
+    batch rows ``row0 ..``, from the kernels' generator on a CUDA device and
+    from the plain one (ops/noise.py) on the CPU — the check that the two
+    draw the same values."""
     device = torch.device(device)
     if device.type != "cuda":
-        return gumbel_plain(torch.tensor(int(seed) & 0xFFFFFFFF), t, B, Vpad)
+        return gumbel_plain(torch.tensor(int(seed) & 0xFFFFFFFF), t, B, Vpad,
+                            row0)
     out = torch.empty((B, Vpad), dtype=torch.float32, device=device)
     err = _kernels().nes_gumbel_table(
-        int(seed) & 0xFFFFFFFF, t, B, Vpad, out.data_ptr(),
+        int(seed) & 0xFFFFFFFF, t, row0, B, Vpad, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, "gumbel_table")
     return out
+
+
+def gumbel_counts() -> tuple[int, int]:
+    """(values seen, values drawn by the two logf) of K3's launches since
+    the last call, and reset: counted only by a build with
+    ``member::GUMBEL_COUNT`` set (a sweep variant of
+    scripts/torch_pair_tiles.py), else (0, 0)."""
+    out = (ctypes.c_ulonglong * 2)()
+    _raise_on(_kernels().nes_gumbel_counts(out), "gumbel_counts")
+    return int(out[0]), int(out[1])
 
 
 def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
@@ -788,14 +822,16 @@ def pair_cluster_info(dtype=torch.bfloat16, delta_dtype=torch.bfloat16
                      "tile_rows", "max_active_clusters"), out))
 
 
-def member_cluster_info(dtype=torch.bfloat16) -> dict:
-    """The member kernel's (K1, K4) launch shape on the current card for
-    weight dtype ``dtype``: CTAs per cluster (one cluster per member),
-    threads per CTA, dynamic shared memory bytes, ring slots, k-rows per
-    tile, the clusters the card holds at once
+def member_cluster_info(dtype=torch.bfloat16, sampled: bool = False) -> dict:
+    """The member kernel's launch shape on the current card for weight
+    dtype ``dtype``, greedy (K1, K4) or ``sampled`` (K3, whose row partials
+    carry two more fields): CTAs per cluster (one cluster per member or
+    lane), threads per CTA, dynamic shared memory bytes, ring slots, k-rows
+    per tile, the clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``) and tiles in flight."""
     out = (ctypes.c_int * 7)()
-    err = _kernels().nes_member_cluster_info(_DTYPE_CODE[dtype], out)
+    err = _kernels().nes_member_cluster_info(_DTYPE_CODE[dtype],
+                                             int(sampled), out)
     _raise_on(err, "member_cluster_info")
     return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
                      "tile_rows", "max_active_clusters", "tiles_in_flight"),

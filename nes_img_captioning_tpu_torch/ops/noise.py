@@ -33,7 +33,9 @@ Philox4x32-10 under other key words, so it never meets the delta stream:
   and ``bits(fold_in(key, i))``, which torch cannot reproduce);
 * Gumbel values: step ``t``, row ``r`` and column ``c`` of a lane take word
   ``c & 3`` of key ``(lane seed, GUMBEL_KEY1)`` and counter ``(c >> 2, r,
-  t, 0)``, so one Philox call serves four neighbouring columns; the bits
+  t, 0)``, so one Philox call serves four neighbouring columns; ``r`` is
+  the row's index in the whole batch, so a launch over rows ``row0..`` of
+  a larger batch draws that batch's values; the bits
   become G by the JAX kernel's arithmetic (``decode_pallas.py:207-216``):
   ``u = f32((b >> 9) | 0x3F800000) - 1``, ``u = u * f32(1 - 2e-7) +
   f32(1e-7)``, ``G = -log(-log(u))``, every product and sum rounded to f32.
@@ -138,14 +140,16 @@ def gumbel_of_bits(bits: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def gumbel_plain(seeds: torch.Tensor, t: int, rows: int,
-                 Vpad: int) -> torch.Tensor:
+def gumbel_plain(seeds: torch.Tensor, t: int, rows: int, Vpad: int,
+                 row0: int = 0) -> torch.Tensor:
     """Step ``t``'s Gumbel values of lanes with uint32 seeds ``seeds``
-    (int64 tensor of any shape S): (*S, rows, Vpad) f32, the values K3 draws
-    in the kernel. Vpad is a multiple of 4."""
+    (int64 tensor of any shape S) for batch rows ``row0 .. row0 + rows -
+    1``: (*S, rows, Vpad) f32, the values K3 draws in the kernel. Vpad is a
+    multiple of 4."""
     dev = seeds.device
     q = torch.arange(Vpad // 4, dtype=torch.int64, device=dev)
-    r = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64,
+                     device=dev)[:, None]
     key = (seeds.to(torch.int64) & _U32)[..., None, None]
     zero = torch.zeros_like(key + r + q)
     words = philox4x32_10([q + zero, r + zero, zero + int(t), zero],

@@ -17,9 +17,11 @@ batches are image-level: greedy decoding of the reference's 5 identical
 rows per image gives 5 identical captions, so each image is decoded once.
 The sampling kinds draw ``seq_per_img`` (default 5) independent samples per
 image, rows image-major (row ``b * spi + i``), as the reference's
-``repeat(feats, 5)``. Host validation decodes the val split with K1 (K4
-when tiled) and scores it with word-level plain CIDEr. Validation fused
-into the generation waits for a later slice.
+``repeat(feats, 5)``. A batch above the kernels' 128 rows is decoded in
+row blocks of at most 128, one launch each (K3's blocks draw the Gumbel
+stream of one launch over all rows). Host validation decodes the val split
+with K1 (K4 when tiled) and scores it with word-level plain CIDEr.
+Validation fused into the generation waits for a later slice.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..data.mscoco import CocoData
 from ..fitness.criteria import FITNESS_CRITERIA, criterion_device
 from ..fitness.scorer import IndexedCiderScorer
 from ..models.fc_caption import FCCaptionModel, FCModelOptions
-from ..ops.decode_cuda import PAD_LANE, pad_vocab
+from ..ops.decode_cuda import KERNEL_WIDTH, PAD_LANE, pad_vocab
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -81,6 +83,15 @@ class CocoTask(Task):
             layer_n=bool(mopts.get("layer_n", False)),
             layer_n_affine=bool(mopts.get("layer_n_affine", False)),
         ), device="meta")  # the task needs the spec; members are flat thetas
+        o = self.model.options
+        if self.device.type == "cuda" and not (
+                o.input_encoding_size == o.rnn_size == KERNEL_WIDTH
+                and o.fc_feat_size % KERNEL_WIDTH == 0):
+            raise ValueError(
+                f"input_encoding_size={o.input_encoding_size}, rnn_size="
+                f"{o.rnn_size}, fc_feat_size={o.fc_feat_size}: the CUDA "
+                f"decode kernels take E = R = {KERNEL_WIDTH} and a feature "
+                f"width that is a multiple of {KERNEL_WIDTH}")
 
         self.train_fc = torch.as_tensor(self.data.split_feats("train"),
                                         device=self.device)
@@ -106,6 +117,20 @@ class CocoTask(Task):
                 f"tpu.decode_vocab_tile={self._vocab_tile}: expected a "
                 f"multiple of {PAD_LANE} dividing the padded vocab {Vpad}")
 
+        # the reference's frozen DF table, CiderD(df='coco-train-idxs')
+        # (src/captioning/policies.py:72): caption_options.cider_df names
+        # the pickle (fitness/ciderd.py load_df_pickle); unset, the DF is
+        # fitted on the train ground truths
+        self._frozen_df = None
+        if copts.get("cider_df"):
+            from ..fitness.ciderd import load_df_pickle
+
+            self._frozen_df = load_df_pickle(copts["cider_df"])
+            logger.info(
+                "loaded frozen CIDEr-D DF table %s (%d n-grams, ref_len "
+                "%.4f)", copts["cider_df"],
+                sum(len(d) for d in self._frozen_df[0]), self._frozen_df[1])
+
         self._device_cider = None
         if tpu_cfg.device_cider is not False:
             if self.data.vocab_size + 1 >= (1 << 14):
@@ -116,6 +141,7 @@ class CocoTask(Task):
                         len(self.train_gts))
             self._device_cider = DeviceCider(self.train_gts,
                                              variant="cider-d",
+                                             frozen_df=self._frozen_df,
                                              device=self.device)
 
         self.decode_layout = None
@@ -189,22 +215,36 @@ class CocoTask(Task):
         kernel, built once per generation."""
         return self.decode_layout.prep(base_dec, torch.float32)
 
+    @staticmethod
+    def _by_rows(decode, B: int, axis: int):
+        """``decode(lo, hi)`` on row blocks [lo, hi) of at most the kernels'
+        128 rows, one launch each, its (seq, lp) joined along ``axis``.
+        Rows are independent but for the batch-wide early exit, which only
+        skips steps whose tokens are 0 anyway, so no token changes."""
+        outs = [decode(lo, min(lo + KERNEL_WIDTH, B))
+                for lo in range(0, B, KERNEL_WIDTH)]
+        if len(outs) == 1:
+            return outs[0]
+        return tuple(torch.cat(o, axis) for o in zip(*outs))
+
     def rollout_pair_dec(self, base_params: dict, delta_dec, idx,
                          consts=None):
         """Both rollouts of antithetic pairs, the perturbation applied in
         the kernel (K2): delta_dec (P, dim_dec) in its storage dtype, idx
-        (P, B). One launch for the P pairs. Returns (P, 2) [pos, neg]
-        fitnesses."""
+        (P, B). One launch for the P pairs per block of 128 rows. Returns
+        (P, 2) [pos, neg] fitnesses."""
         from ..ops.decode_cuda import decode_pair_perturb
 
         consts = self.device_consts() if consts is None else consts
         feats = consts["train_fc"][idx]
-        seq2, lp2 = decode_pair_perturb(
-            # the delta keeps its own dtype into the kernel; the kernel's
-            # f32 + f32(delta) sum is the per-member path's base + delta
-            base_params, self.decode_layout.prep(delta_dec, delta_dec.dtype),
-            feats, seq_length=self.model.options.seq_length,
-            dtype=self._decode_dtype, need_logprobs=self.need_logprobs)
+        # the delta keeps its own dtype into the kernel; the kernel's f32 +
+        # f32(delta) sum is the per-member path's base + delta
+        delta = self.decode_layout.prep(delta_dec, delta_dec.dtype)
+        seq2, lp2 = self._by_rows(lambda lo, hi: decode_pair_perturb(
+            base_params, delta, feats[:, lo:hi],
+            seq_length=self.model.options.seq_length,
+            dtype=self._decode_dtype, need_logprobs=self.need_logprobs),
+            idx.shape[-1], 2)
         return self._pair_fitness(seq2, lp2, idx, consts)
 
     def rollout_pair_rng(self, base_params: dict, scale_params: dict, seeds,
@@ -212,15 +252,17 @@ class CocoTask(Task):
         """rollout_pair_dec with each pair's delta drawn in the kernel (K5)
         from its seed: only the P uint32 seeds go in, the f32 delta never
         exists outside the kernel's scratch. seeds (P,) host uint32, idx
-        (P, B). One launch for the P pairs. Returns (P, 2) [pos, neg]
-        fitnesses."""
+        (P, B). One launch for the P pairs per block of 128 rows (each draws
+        the deltas again). Returns (P, 2) [pos, neg] fitnesses."""
         from ..ops.decode_cuda import decode_pair_rng
 
         consts = self.device_consts() if consts is None else consts
-        seq2, lp2 = decode_pair_rng(
-            base_params, scale_params, seeds, consts["train_fc"][idx],
+        feats = consts["train_fc"][idx]
+        seq2, lp2 = self._by_rows(lambda lo, hi: decode_pair_rng(
+            base_params, scale_params, seeds, feats[:, lo:hi],
             seq_length=self.model.options.seq_length,
-            dtype=self._decode_dtype, need_logprobs=self.need_logprobs)
+            dtype=self._decode_dtype, need_logprobs=self.need_logprobs),
+            idx.shape[-1], 2)
         return self._pair_fitness(seq2, lp2, idx, consts)
 
     def _pair_fitness(self, seq2, lp2, idx, consts):
@@ -234,24 +276,42 @@ class CocoTask(Task):
             lp=lp2.reshape(2 * P, *lp2.shape[2:])).reshape(P, 2)
 
     def _greedy(self, params: dict, feats, need_logprobs: bool = False):
-        """Greedy decode of a batch of members: K1, or K4 with
-        tpu.decode_vocab_tile."""
+        """Greedy decode of a batch of members (feats (M, B, F)) or of one
+        (feats (B, F)): K1, or K4 with tpu.decode_vocab_tile, in blocks of
+        at most 128 rows."""
         from ..ops.decode_cuda import decode_fused
 
-        return decode_fused(params, feats, self.model.options.seq_length,
-                            need_logprobs, vocab_tile=self._vocab_tile)
+        return self._by_rows(lambda lo, hi: decode_fused(
+            params, feats[..., lo:hi, :], self.model.options.seq_length,
+            need_logprobs, vocab_tile=self._vocab_tile), feats.shape[-2], -2)
+
+    def _sample(self, params: dict, feats, lanes):
+        """K3 on a batch of members, feats (M, B, F), in blocks of at most
+        128 rows: ``lanes`` (M, spi) uint32 lane seeds, each block drawing
+        at its row offset, or an (M, spi, T, B, Vpad) f32 Gumbel table,
+        sliced by row. Returns (seq, lp), each (M, spi, B, T)."""
+        from ..ops.decode_cuda import decode_fused
+
+        def block(lo, hi):
+            if torch.is_tensor(lanes):
+                noise = {"gumbel": lanes[..., lo:hi, :].contiguous()}
+            else:
+                noise = {"seeds": lanes, "row0": lo}
+            return decode_fused(params, feats[:, lo:hi],
+                                self.model.options.seq_length,
+                                self.need_logprobs, greedy=False, **noise)
+
+        return self._by_rows(block, feats.shape[1], 2)
 
     def rollout_dec(self, vec_dec, idx, consts=None, lanes=None):
-        """Rollouts of decode-ordered members, one launch per decode:
-        vec_dec (M, dim_dec), idx (M, B). Greedy kinds decode each member's
-        B rows once (K1, or K4 when tiled). The sampling kinds decode
-        seq_per_img lanes per member in one K3 launch, ``lanes`` giving
-        their noise: (M, spi) uint32 lane seeds (host), or an (M, spi, T, B,
-        Vpad) f32 Gumbel table (K3's host-table form); the self-critical
-        kinds also decode each member greedily for the baseline. Returns
-        (M,) fitnesses."""
-        from ..ops.decode_cuda import decode_fused
-
+        """Rollouts of decode-ordered members, one launch per decode and
+        block of 128 rows: vec_dec (M, dim_dec), idx (M, B). Greedy kinds
+        decode each member's B rows once (K1, or K4 when tiled). The
+        sampling kinds decode seq_per_img lanes per member with K3,
+        ``lanes`` giving their noise: (M, spi) uint32 lane seeds (host), or
+        an (M, spi, T, B, Vpad) f32 Gumbel table (K3's host-table form); the
+        self-critical kinds also decode each member greedily for the
+        baseline. Returns (M,) fitnesses."""
         consts = self.device_consts() if consts is None else consts
         params = self.decode_layout.prep(vec_dec, self._decode_dtype)
         feats = consts["train_fc"][idx]
@@ -263,10 +323,7 @@ class CocoTask(Task):
             if lanes is None:
                 raise ValueError(f"fitness {self.fitness_kind!r} samples: "
                                  "rollout_dec needs its lanes' noise")
-            noise = {"gumbel": lanes} if torch.is_tensor(lanes) \
-                else {"seeds": lanes}
-            seq, lp = decode_fused(params, feats, T, self.need_logprobs,
-                                   greedy=False, **noise)  # (M, spi, B, T)
+            seq, lp = self._sample(params, feats, lanes)  # (M, spi, B, T)
             M, spi, B = seq.shape[:3]
             # image-major rows b * spi + i
             seq = seq.transpose(1, 2).reshape(M, B * spi, T)
@@ -307,14 +364,14 @@ class CocoTask(Task):
 
     def _decode_split(self, theta, feats, num: int, bs: int) -> np.ndarray:
         """Greedy-decode the first ``num`` rows of a split (all for -1, 0 or
-        None) with K1 (K4 when tiled), in launches of at most ``bs`` rows
-        and at most the kernel's 128. Greedy rows are independent, so the
-        chunking changes no token."""
-        from ..ops.decode_cuda import KERNEL_WIDTH, prepare_decode_params
+        None) with K1 (K4 when tiled), in batches of at most ``bs`` rows
+        (launches of at most the kernel's 128). Greedy rows are
+        independent, so the chunking changes no token."""
+        from ..ops.decode_cuda import prepare_decode_params
 
         n = feats.shape[0] if num in (-1, None, 0) else min(num,
                                                             feats.shape[0])
-        rows = max(min(bs, n, KERNEL_WIDTH), 1)
+        rows = max(min(bs, n), 1)
         params = prepare_decode_params(self.spec, theta, self.model.options,
                                        dtype=self._decode_dtype)
         seqs = [self._greedy(params, feats[s:s + rows])[0]

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Time the seven decode kernels of two checkouts of the port on one card,
+interleaved, to compare them within one run.
+
+    python3 scripts/torch_kernel_ab.py ROOT_A ROOT_B
+
+Each ROOT holds a ``nes_img_captioning_tpu_torch`` package (for example this
+checkout and an unpacked ``git archive`` of its parent). Both are built at
+once (``nvcc`` into each package's ``_build/``), then timed in processes of
+their own in the order A, B, B, A. Shapes are the bench's: 24 pairs (48
+members), K3 with 5 lanes per member, batch 128, vocab 9487 (Vpad 9600),
+2048-d features, bf16 weights, T = 16, K6 over 144 pairs, inputs made from
+seed 0. One JSON line per run: ms per launch between CUDA events of K1
+(``decode_fused``), K2 (``decode_pair_perturb``, bf16 delta), K3
+(``decode_sample``), K4 (``decode_tiled`` at vocab tile 1920), K5
+(``decode_pair_rng``), K6 (``pair_grad_rng``) and K7 (``pair_delta_dump``),
+with the card's name and power limit; then one line of each kernel's mean
+ms per root and B's change against A in percent.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+
+KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
+
+
+def worker(root: str, build: bool):
+    sys.path.insert(0, root)
+    import torch
+
+    from nes_img_captioning_tpu_torch.models.fc_caption import (
+        FCModelOptions,
+        build_spec,
+    )
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
+    from nes_img_captioning_tpu_torch.ops.noise import lane_seeds
+
+    if build:
+        dc.build_kernels()
+        return
+    P, B, T, F = 24, 128, 16, 144
+    opts = FCModelOptions(vocab_size=9487, fc_feat_size=2048)
+    lay = DecodeLayout(build_spec(opts), opts)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    theta = lay.spec.init_theta(g)
+    base_vec = lay.to_dec(theta)
+    scale_vec = lay.to_dec(torch.full_like(theta, 0.01), pad_scale=0.0)
+    d16 = torch.stack([(scale_vec * torch.randn(
+        lay.dim_dec, generator=g, device="cuda")).to(torch.bfloat16)
+        for _ in range(P)])
+    members = torch.stack([base_vec + d16, base_vec - d16], 1).reshape(2 * P, -1)
+    feats = torch.randn((P, B, 2048), generator=g, device="cuda")
+    feats2 = feats.repeat_interleave(2, 0)
+    base = lay.prep(base_vec, torch.float32)
+    scale = lay.prep(scale_vec, torch.float32)
+    dp16 = lay.prep(d16, torch.bfloat16)
+    params = lay.prep(members, torch.bfloat16)
+    rng = np.random.default_rng(0)
+    seeds = rng.integers(0, 2**32, size=F, dtype=np.uint32)
+    weights = torch.as_tensor(rng.uniform(-1, 1, size=F).astype(np.float32),
+                              device="cuda")
+    lanes = lane_seeds(np.repeat(seeds[:P], 2), np.tile([1, -1], P), 5)
+    runs = {
+        "k1": lambda: dc.decode_fused(params, feats2, T, False),
+        "k2": lambda: dc.decode_pair_perturb(base, dp16, feats, T,
+                                             torch.bfloat16, False),
+        "k3": lambda: dc.decode_fused(params, feats2, T, False, greedy=False,
+                                      seeds=lanes),
+        "k4": lambda: dc.decode_fused(params, feats2, T, False,
+                                      vocab_tile=1920),
+        "k5": lambda: dc.decode_pair_rng(base, scale, seeds[:P], feats, T,
+                                         torch.bfloat16, False),
+        "k6": lambda: dc.pair_grad_rng(scale, seeds, weights),
+        "k7": lambda: dc.pair_delta_dump(scale, seeds[:P]),
+    }
+    row = {"root": root}
+    for name in KERNELS:
+        fn = runs[name]
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        row[f"{name}_ms"] = a.elapsed_time(b) / 5
+    row["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    print(json.dumps(row), flush=True)
+
+
+def main():
+    if sys.argv[1] == "--worker":
+        worker(sys.argv[2], "--build" in sys.argv)
+        return
+    a, b = sys.argv[1:3]
+    builds = [subprocess.Popen([sys.executable, __file__, "--worker", r,
+                                "--build"]) for r in (a, b)]
+    if any(p.wait() for p in builds):
+        raise SystemExit("a build failed")
+    rows = []
+    for r in (a, b, b, a):
+        out = subprocess.run([sys.executable, __file__, "--worker", r],
+                             check=True, capture_output=True, text=True)
+        print(out.stdout, end="", flush=True)
+        rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    mean = {r: {k: np.mean([x[f"{k}_ms"] for x in rows if x["root"] == r])
+                for k in KERNELS} for r in (a, b)}
+    print(json.dumps({"mean_ms": mean, "b_vs_a_percent": {
+        k: 100.0 * (mean[b][k] / mean[a][k] - 1.0) for k in KERNELS}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -5,27 +5,32 @@ card.
     python3 scripts/torch_pair_tiles.py [NAME=VALUE[,NAME=VALUE...] ...]
 
 The pair kernel (K2 ``decode_pair_perturb``, and K5's decode) and the member
-kernel (K1 ``decode_fused``, K4 ``decode_tiled``) stream their weights
+kernel (K1 ``decode_fused``, K3 ``decode_sample``, K4 ``decode_tiled``)
+stream their weights
 through rings of KT-row tiles in shared memory, as many slots as fit up to
 MAXNS, with up to AHEAD_MAX tiles in flight (``pair::`` and ``member::``
 constants in ``nes_img_captioning_tpu_torch/csrc/decode.cu``). A bare NAME
 is a ``pair::`` constant, ``member.NAME`` a ``member::`` one. Each variant
 named on the command line (for example ``KT=32,MAXNS=6`` or
-``member.KT=64,member.AHEAD_MAX=2``) is the package copied into
+``member.KT=64,member.AHEAD_MAX=2``; ``member.GUMBEL_SKIP=0`` draws every
+Gumbel value of K3, ``member.GUMBEL_COUNT=1`` counts the values K3 draws)
+is the package copied into
 ``nes_img_captioning_tpu_torch/_build/variants/``, with those constants
 rewritten, built there (all builds at once) and timed in a process of its
 own beside the package as committed. No constant moves a sum, so every
-build's K1, K4 and K2 tokens must equal the committed build's bit for bit
-(which ``chip_smoke.py`` holds to the plain twin and to each other): a
-variant that differs is printed with ``"invalid"`` naming the outputs that
-differ, and is not timed. Shapes are the bench's: 24 pairs (48
-members), batch 128, vocab 9487 (Vpad 9600), 2048-d features, bf16
-weights, T = 16, the inputs made from seed 0. One JSON line per build, ms
-per launch between CUDA events: K1, K4 at vocab tile 1920, K2 with a bf16
-delta and K2 with an f32 delta (K5's decode); K1 and K2 on the first 15
-vocab tiles (Vpad 1920), and the cost per step and vocab tile and the fixed
-cost per step that each pair of times gives; both kernels' ring shapes and
-the card.
+build's K1, K4 and K2 tokens, and K3's tokens and lp, must equal the
+committed build's bit for bit (which ``chip_smoke.py`` holds to the plain
+twin and to each other): a variant that differs is printed with
+``"invalid"`` naming the outputs that differ, and is not timed. Shapes are
+the bench's: 24 pairs (48 members), K3 with 5 lanes per member, batch 128,
+vocab 9487 (Vpad 9600), 2048-d features, bf16 weights, T = 16, the inputs
+made from seed 0. One JSON line per build, ms per launch between CUDA
+events: K1, K4 at vocab tile 1920, K2 with a bf16 delta and K2 with an f32
+delta (K5's decode), K3; K1, K2 and K3 on the first 15 vocab tiles (Vpad
+1920), and the cost per step and vocab tile and the fixed cost per step
+that each pair of times gives; K3's Gumbel values per second, and with
+``member.GUMBEL_COUNT=1`` the share of them that took the two logf; the
+kernels' ring shapes and the card.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "nes_img_captioning_tpu_torch"
@@ -83,6 +90,7 @@ def worker(root: str):
     )
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
     from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
+    from nes_img_captioning_tpu_torch.ops.noise import lane_seeds
 
     if "--build" in sys.argv:
         dc.build_kernels()
@@ -104,6 +112,9 @@ def worker(root: str):
     dp32 = lay.prep(d32, torch.float32)
     params = lay.prep(members, torch.bfloat16)
     feats2 = feats.repeat_interleave(2, 0)
+    # K3's lanes: 5 per member, the lane seeds the engine draws
+    lanes = lane_seeds(np.repeat(np.arange(P, dtype=np.uint32) + 7, 2),
+                       np.tile([1, -1], P), 5)
 
     def time_ms(fn, reps=5):
         fn()
@@ -123,8 +134,13 @@ def worker(root: str):
     def k2(b, d):
         return dc.decode_pair_perturb(b, d, feats, T, torch.bfloat16, False)
 
+    def k3(p, need_lp=False):
+        return dc.decode_fused(p, feats2, T, need_lp, greedy=False,
+                               seeds=lanes)
+
     row = {"root": root,
            "member": dc.member_cluster_info(torch.bfloat16),
+           "member_sampled": dc.member_cluster_info(torch.bfloat16, True),
            "pair": dc.pair_cluster_info(torch.bfloat16, torch.bfloat16)}
     row["pair"]["ring_slots_f32_delta"] = dc.pair_cluster_info(
         torch.bfloat16, torch.float32)["ring_slots"]
@@ -135,6 +151,12 @@ def worker(root: str):
         "k2_bf16_delta": k2(base, dp16)[0],
         "k2_f32_delta": k2(base, dp32)[0],
     }
+    dc.gumbel_counts()  # reset
+    tokens["k3"], tokens["k3_lp"] = k3(params, True)
+    seen, drawn = dc.gumbel_counts()  # nonzero with member.GUMBEL_COUNT=1
+    if seen:
+        row["k3_logf_share"] = drawn / seen
+        row["k3_values_seen"] = seen
     ref_path = ROOT / PKG / "_build" / "variants" / "reference_tokens.pt"
     if Path(root) == ROOT:
         ref_path.parent.mkdir(parents=True, exist_ok=True)
@@ -152,6 +174,7 @@ def worker(root: str):
         params, feats2, T, False, vocab_tile=1920))
     row["k2_bf16_delta_ms"] = time_ms(lambda: k2(base, dp16))
     row["k2_f32_delta_ms"] = time_ms(lambda: k2(base, dp32))
+    row["k3_ms"] = time_ms(lambda: k3(params))
     # the same weights cut to the first 15 vocab tiles (Vpad 1920): the
     # difference per step parts the cost of a vocab tile from the fixed
     # cost of a step (a launch lasts its longest member's or pair's steps)
@@ -165,19 +188,23 @@ def worker(root: str):
                                   + (slice(0, cut),)].contiguous()
         return out
 
-    def longest(seq, rows):
+    def executed(seq, rows):
+        """Token steps each cluster ran: up to the step on which its last
+        row emitted 0."""
         zero = (seq == 0).reshape(-1, rows, T)
         first = torch.where(zero.any(-1), zero.int().argmax(-1), T - 1)
-        return int((first.max(-1).values + 1).clamp(max=T).max())
+        return (first.max(-1).values + 1).clamp(max=T)
 
     base_n, dp16_n, params_n = narrow(base, 0), narrow(dp16, 1), \
         narrow(params, 1)
     for name, full, cut_fn, full_fn, rows in (
             ("k1", "k1_ms", lambda: k1(params_n), lambda: k1(params), B),
             ("k2", "k2_bf16_delta_ms", lambda: k2(base_n, dp16_n),
-             lambda: k2(base, dp16), 2 * B)):
+             lambda: k2(base, dp16), 2 * B),
+            ("k3", "k3_ms", lambda: k3(params_n), lambda: k3(params), B)):
         row[f"{name}_vpad{cut}_ms"] = time_ms(cut_fn)
-        steps = [longest(fn()[0], rows) for fn in (full_fn, cut_fn)]
+        steps = [int(executed(fn()[0], rows).max())
+                 for fn in (full_fn, cut_fn)]
         row[f"{name}_longest_steps"] = steps
         step_full = row[full] / steps[0]
         step_cut = row[f"{name}_vpad{cut}_ms"] / steps[1]
@@ -185,6 +212,9 @@ def worker(root: str):
         row[f"{name}_us_per_step_and_vocab_tile"] = per_tile * 1e3
         row[f"{name}_us_fixed_per_step"] = (
             step_cut - per_tile * (cut // 128)) * 1e3
+    # K3's draw: one Gumbel value per row, column and executed step
+    row["k3_gumbels_per_s"] = float(executed(tokens["k3"], B).sum()) * B \
+        * lay.Vpad / (row["k3_ms"] * 1e-3)
     row["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True

@@ -429,3 +429,195 @@ def test_k7_k5_k6_share_one_noise_stream(small_members):
     for p in range(3):
         ordered = ordered + w[p] * flat[p]
     assert torch.equal(grad, ordered)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k3_member_cluster_shape(small_members, dt):
+    """K3 runs on the member kernel: its layout (5-field row partials, one
+    partial buffer) keeps K1's ring slots and residency; K1's layout is
+    unchanged (227,712 B at bf16)."""
+    greedy = tdc.member_cluster_info(dt)
+    info = tdc.member_cluster_info(dt, sampled=True)
+    assert info["cluster"] == 2 and info["threads"] == 512
+    assert info["smem_bytes"] <= 232448
+    assert info["ring_slots"] == greedy["ring_slots"], (info, greedy)
+    assert info["max_active_clusters"] >= 48, info
+    if dt == torch.bfloat16:
+        assert greedy["smem_bytes"] == 227712 and info["ring_slots"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k3_zero_table_is_k1(small_members, dt):
+    """The host-table form fed an all-zero table takes K1's argmax: every
+    lane's tokens and lp are K1's bit for bit (key = logit + 0 = logit, the
+    same runs and merges)."""
+    lay, members, feats, _ = small_members
+    params = lay.prep(members, dt)
+    zeros = torch.zeros((2, 3, 16, 32, lay.Vpad), device="cuda")
+    seq3, lp3 = tdc.decode_fused(params, feats, greedy=False, gumbel=zeros)
+    seq1, lp1 = tdc.decode_fused(params, feats)
+    torch.cuda.synchronize()
+    for lane in range(3):
+        assert torch.equal(seq3[:, lane], seq1), lane
+        assert torch.equal(lp3[:, lane], lp1), lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["single_member", "rows_finish_apart",
+                                  "exit_at_step_0"])
+def test_k3_member_edges(small_members, case, dt):
+    """K3 on the member kernel, 3 lanes per member, against its plain twin
+    (tokens equal but at near-ties of logits + G, lp within 2e-5 at f32 on
+    equal rows): single_member: one unbatched member gives the batched
+    call's lanes bit for bit; rows_finish_apart: an EOS bias under which
+    the rows end at different steps, a lane's lp 0 after its last row
+    ends; exit_at_step_0: every row emits EOS at step 0."""
+    lay, members, feats, _ = small_members
+    params = lay.prep(members, dt)
+    seeds = np.array([[5, 6, 0xFFFFFFFF], [7, 8, 9]], np.uint32)
+    if case == "rows_finish_apart":
+        best = None
+        for b0 in np.linspace(-4.0, 12.0, 33):
+            params["logit_b"][:, 0, 0] = float(b0)
+            seq_p = tdc.decode_sample_plain(params, feats, seeds=seeds)[0]
+            n = len(torch.unique(_finish_steps(seq_p)))
+            if best is None or n > best[0]:
+                best = (n, float(b0))
+        params["logit_b"][:, 0, 0] = best[1]
+    elif case == "exit_at_step_0":
+        params["logit_b"][:, 0, 0] = 1e4
+    seq, lp = tdc.decode_fused(params, feats, greedy=False, seeds=seeds)
+    seq_p, lp_p, gap_p = tdc.decode_sample_plain(params, feats, seeds=seeds,
+                                                 top2_gap=True)
+    torch.cuda.synchronize()
+    assert _first_diffs_at_near_ties(seq, seq_p, gap_p) <= 2
+    same = (seq == seq_p).all(-1)
+    if dt == torch.float32:
+        assert float((lp - lp_p).abs()[same].max()) < 2e-5
+    if case == "single_member":
+        one = {k: v[1] for k, v in params.items()}
+        seq1, lp1 = tdc.decode_fused(one, feats[1], greedy=False,
+                                     seeds=seeds[1])
+        assert seq1.shape == (3, 32, 16)
+        assert torch.equal(seq1, seq[1]) and torch.equal(lp1, lp[1])
+    elif case == "rows_finish_apart":
+        steps = _finish_steps(seq)
+        assert len(torch.unique(steps)) >= 3, steps
+        for m in range(2):
+            for lane in range(3):
+                last = int(steps[m, lane].max())
+                if last < 15:
+                    assert (lp[m, lane, :, last + 1:] == 0).all()
+    else:
+        assert (seq == 0).all() and (lp[..., 1:] == 0).all()
+
+
+@pytest.fixture
+def card_task():
+    """A CocoTask factory on the card at E = R = 128, vocab 300, 256-d
+    features, f32 weights, over an in-memory synthetic split of 64
+    images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.data.synthetic import (
+        synthetic_coco_arrays,
+    )
+    from nes_img_captioning_tpu_torch.tasks.captioning import CocoTask
+    from nes_img_captioning_tpu_torch.utils.config import Config, TpuConfig
+
+    data = CocoData.from_arrays(synthetic_coco_arrays(
+        n_train=64, n_val=8, n_test=8, vocab_size=300, fc_feat_size=256,
+        cap_len=9, seed=0))
+
+    def make(kind):
+        exp = {"dataset": "mscoco", "policy_options": {
+            "fitness": kind, "vbn": False, "model_options": {
+                "input_encoding_size": 128, "rnn_size": 128,
+                "fc_feat_size": 256}}}
+        return CocoTask(exp, Config(batch_size=256),
+                        TpuConfig(seed=0, precision="f32"), device="cuda",
+                        data=data)
+    return make
+
+
+def _card_members(task, n):
+    lay = task.decode_layout
+    g = torch.Generator(device="cuda").manual_seed(3)
+    theta = lay.spec.init_theta(g) * 3
+    return lay, torch.stack([lay.to_dec(theta * (1 - 0.25 * i))
+                             for i in range(n)]), g
+
+
+@pytest.mark.cuda
+def test_k3_256_rows_through_the_task(card_task):
+    """sc_loss at B = 256: the task decodes K3 in two launches of 128 rows
+    (the second at row offset 128), which draw the plain twin's stream of
+    one 256-row batch: tokens equal but at near-ties, lp within 2e-5 on
+    equal rows at every step the criterion reads; the card's Gumbel values
+    at row offset 128 are the plain stream's within 2 ulps."""
+    task = card_task("sc_loss")
+    lay, members, g = _card_members(task, 2)
+    params = lay.prep(members, torch.float32)
+    idx = torch.randint(0, 64, (2, 256), generator=g, device="cuda")
+    feats = task.train_fc[idx]
+    seeds = np.array([[11, 12, 13, 14, 15], [16, 17, 18, 19, 20]], np.uint32)
+    before = tdc.decode_sample.launches
+    seq, lp = task._sample(params, feats, seeds)
+    assert tdc.decode_sample.launches == before + 2
+    assert seq.shape == (2, 5, 256, 16)
+    seq_p, lp_p, gap_p = tdc.decode_sample_plain(params, feats, seeds=seeds,
+                                                 top2_gap=True)
+    torch.cuda.synchronize()
+    assert _first_diffs_at_near_ties(seq, seq_p, gap_p) <= 4
+    same = (seq == seq_p).all(-1)
+    read = torch.cat([torch.ones_like(seq_p[..., :1], dtype=torch.bool),
+                      seq_p[..., :-1] > 0], -1)
+    assert float(((lp - lp_p).abs() * read)[same].max()) < 2e-5
+    fits = task.rollout_dec(members, idx, lanes=seeds)
+    assert fits.shape == (2,) and torch.isfinite(fits).all()
+    g_card = tdc.gumbel_table(12345, 3, 32, lay.Vpad, "cuda", row0=128)
+    g_cpu = tdc.gumbel_table(12345, 3, 32, lay.Vpad, "cpu", row0=128)
+    assert float((g_card.cpu() - g_cpu).abs().max()) <= 2 * 1.91e-6
+
+
+@pytest.mark.cuda
+def test_k2_k5_take_256_rows_through_the_task(card_task):
+    """The pair kernels at B = 256 through the task: two launches of 128
+    rows each; the fitnesses equal those of the plain pair decode over all
+    256 rows (K2's plain twin fed the delta; for K5, fed K7's dump of the
+    seeds, the delta K5 draws), f32 tokens being the plain twin's."""
+    task = card_task("greedy")
+    lay, members, g = _card_members(task, 1)
+    base = task.pair_base_params(members[0])
+    sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05, device="cuda"),
+                    pad_scale=0.0)
+    delta = torch.stack([sc * torch.randn(lay.dim_dec, generator=g,
+                                          device="cuda") for _ in range(2)])
+    idx = torch.randint(0, 64, (2, 256), generator=g, device="cuda")
+    feats = task.train_fc[idx]
+    consts = task.device_consts()
+    before = tdc.decode_pair_perturb.launches
+    fits2 = task.rollout_pair_dec(base, delta, idx)
+    assert tdc.decode_pair_perturb.launches == before + 2
+    seq2, lp2 = tdc.decode_pair_perturb_plain(
+        base, lay.prep(delta, torch.float32), feats)
+    want2 = task._pair_fitness(seq2, lp2, idx, consts)
+    assert torch.equal(fits2, want2)
+    scale = lay.prep(sc, torch.float32)
+    seeds = [21, 22]
+    before = tdc.decode_pair_rng.launches
+    fits5 = task.rollout_pair_rng(base, scale, seeds, idx)
+    assert tdc.decode_pair_rng.launches == before + 2
+    seq5, lp5 = tdc.decode_pair_perturb_plain(
+        base, tdc.pair_delta_dump(scale, seeds), feats)
+    want5 = task._pair_fitness(seq5, lp5, idx, consts)
+    assert torch.equal(fits5, want5)
+    assert fits2.shape == fits5.shape == (2, 2)

@@ -31,7 +31,9 @@ def _namespace(key: str) -> tuple:
     {"KT": "32", "MAXNS": "6"},
     {"member.KT": "64", "member.MAXNS": "8"},
     {"member.AHEAD_MAX": "2", "AHEAD_MAX": "3", "member.KT": "32"},
-], ids=["pair", "member", "both"])
+    {"member.GUMBEL_SKIP": "0"},
+    {"member.GUMBEL_COUNT": "1", "member.KT": "64"},
+], ids=["pair", "member", "both", "k3_no_skip", "k3_count"])
 def test_rewrite_sets_each_constant_in_its_namespace(values):
     out = tiles.rewrite(SRC, values)
     for ns in ("pair", "member"):
@@ -46,7 +48,8 @@ def test_rewrite_sets_each_constant_in_its_namespace(values):
 
 
 @pytest.mark.parametrize("key", ["member.NSLOT", "member.KPW", "LDB",
-                                 "member.THREADS", "member.SWIZZLE"])
+                                 "member.THREADS", "member.SWIZZLE",
+                                 "GUMBEL_SKIP"])
 def test_rewrite_refuses_a_constant_its_namespace_lacks(key):
     with pytest.raises(ValueError, match="not defined once"):
         tiles.rewrite(SRC, {key: "3"})
