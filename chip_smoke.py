@@ -30,12 +30,18 @@ Phases, each printed as it ends (any failure exits non-zero):
    yardstick for their products, and their bound; K1 and K2 on the first
    15 vocab tiles (Vpad 1920) beside the full 75, which parts the cost per
    vocab tile from the fixed cost per step; one profiled generation;
-6. K7 (pair_delta_dump) on 24 seeds: the card's Philox words equal the
-   plain stream's, and its deltas the plain version's within 8 ulps;
+6. K7 (pair_delta_dump) on 24 seeds: the card's Philox words (the split
+   rounds the delta stream runs) equal the plain stream's; its deltas are
+   bitwise the plain version's run on the card (torch's CUDA log, sqrt and
+   cos), within 8 ulps of the plain version on the CPU, and the flat entry
+   (pair_delta_dump_flat) gives the dict form's values;
+6b. the Box-Muller functions: the narrowed logf, sqrtf and cosf that K5,
+   K6 and K7 run are bitwise the library calls on all 2^23 inputs each
+   (box_muller_table);
 7. K5 (decode_pair_rng), f32 and bf16: tokens and lp bitwise equal to K2
    fed K7's dump, and held to the plain version;
 8. K6 (pair_grad_rng) over a generation's 144 lanes: bitwise the ordered
-   f32 sum of K7's dumps, and within 1e-6 of its plain version;
+   f32 sum of K7's dumps, and bitwise its plain version on the card;
 9. three kernel-noise generations (tpu.kernel_noise) after a warm-up: K5
    and K6 launched, K1, K2 and K7 not; bitwise equal to the delta-operand
    generation fed K7's dumps; one profiled generation with no normal_
@@ -45,8 +51,11 @@ Phases, each printed as it ends (any failure exits non-zero):
     iterations with validation and snapshots, then a resume from the
     snapshot for one more generation — the path a user runs;
 11. K5's, K6's and K7's times beside their plain versions', the delta-operand
-    path doing the same work, and their bounds; K5 beside its parts (K7's
-    draw, K2 on the f32 dump) and K1 again as the run's anchor;
+    path doing the same work, and their bounds by bytes and by operations
+    (NORMAL_INT_OPS and NORMAL_F32_OPS per normal); K7 alone (the flat entry, K5's draw) beside its
+    dict wrapper, and one torch.randn of the same count as a rate reference
+    (not the same stream); K5 beside its parts (K7's draw, K2 on the f32
+    dump) and K1 again as the run's anchor;
 12. K3 (decode_sample, the member kernel with a Gumbel policy) on the
     chunk's 48 members x 5 lanes, the Gumbel values drawn in the kernel
     from the lane seeds the engine draws, f32 (TF32 off) and bf16, against
@@ -88,8 +97,20 @@ import time
 
 import numpy as np
 
+from scripts.bench_fixture import (
+    BENCH,
+    bench_task,
+    generation_inputs,
+    noise_engine,
+)
+
 PEAK_BF16 = 989e12      # H100 SXM dense tensor-core bf16, FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 outside the tensor cores, FLOP/s
+# 32-bit integer operations per s: the f32 rate counts an FMA as 2 FLOP on
+# 128 lanes per SM and clock; integer add, logical, shift and multiply(-add)
+# run on 64 lanes per SM and clock (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), one operation each
+PEAK_INT32 = PEAK_F32 / 4
 HBM_BYTES_PER_S = 3.35e12
 # a lower count of the operations one of K3's Gumbel values needs, each
 # taken at the f32 rate: two logarithms (at least a special-function op
@@ -97,8 +118,18 @@ HBM_BYTES_PER_S = 3.35e12
 # the compare (7), and a quarter of a Philox4x32-10 call (10 rounds of 2
 # multiply-highs, 2 multiplies, 4 xors and 2 key adds: 25)
 GUMBEL_OPS = 32
-BENCH = dict(pairs=144, batch=128, pop_chunk=24, sigma=0.01, stepsize=0.001,
-             l2coeff=1e-7, gens=3)
+# a lower count of the operations one normal of the delta stream (K5's draw,
+# K6, K7) needs, by type. Integer (at PEAK_INT32): half a Philox4x32-10 call
+# with every word that depends on the seed alone or on the counter alone
+# made once (the key schedule, rounds 1-2's products; round 2 keeps its 2
+# xors, rounds 3-10 their 2 32x32->64 products and 2 three-input xors: 34),
+# and the two words' top bits into floats (1 each): 19. f32 FLOP (at
+# PEAK_F32): Box-Muller, 13: the two uniforms, 1 - u, the log, x -2, the
+# sqrt, x 2 pi, the cos, r * c and x scale, each special function counted
+# as 2; K6 adds the multiply and the add of its weighted sum (GRAD_SUM_OPS)
+NORMAL_INT_OPS = 19
+NORMAL_F32_OPS = 13
+GRAD_SUM_OPS = 2
 
 
 def log(msg: str):
@@ -279,12 +310,7 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
     from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
     from nes_img_captioning_tpu_torch.ops.noise import gumbel_plain, lane_seeds
-    from nes_img_captioning_tpu_torch.tasks.captioning import CocoTask
-    from nes_img_captioning_tpu_torch.utils.config import (
-        Config,
-        TpuConfig,
-        load_experiment,
-    )
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
 
     dev = theta.device
     lay = task.decode_layout
@@ -307,13 +333,7 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
         return tuple(c.launches for c in counters)
 
     def kind_task(kind, **tpu):
-        exp = {"dataset": "mscoco", "policy_options": {
-            "fitness": kind, "vbn": False, "model_options": {
-                "input_encoding_size": 128, "rnn_size": 128,
-                "fc_feat_size": Fd}}}
-        return CocoTask(exp, Config(batch_size=B),
-                        TpuConfig(seed=0, precision="bf16", delta_dtype="bf16",
-                                  **tpu), device=dev, data=task.data)
+        return bench_task(dev, kind, task.data, **tpu)
 
     # ---- [12] K3 against its plain version on one chunk -------------------
     # the lane seeds the engine draws for the chunk's pair-major members
@@ -672,15 +692,8 @@ def main() -> int:
 
     from nes_img_captioning_tpu_torch.algorithms.nes import NESEngine
     from nes_img_captioning_tpu_torch.algorithms.optimizers import Adam
-    from nes_img_captioning_tpu_torch.data.core import EpochSampler
-    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
-    from nes_img_captioning_tpu_torch.data.synthetic import (
-        synthetic_coco_arrays,
-    )
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
     from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
-    from nes_img_captioning_tpu_torch.tasks.captioning import CocoTask
-    from nes_img_captioning_tpu_torch.utils.config import Config, TpuConfig
 
     dev = torch.device("cuda")
     card = nvidia_smi()
@@ -729,16 +742,7 @@ def main() -> int:
 
     # ---- the fixture, the task and one generation's inputs -----------------
     t0 = time.time()
-    arrays = synthetic_coco_arrays(n_train=2048, n_val=256, n_test=256,
-                                   vocab_size=9487, fc_feat_size=2048,
-                                   cap_len=9, seed=0)
-    exp = {"dataset": "mscoco", "policy_options": {
-        "fitness": "greedy", "vbn": False, "model_options": {
-            "input_encoding_size": 128, "rnn_size": 128,
-            "fc_feat_size": 2048}}}
-    task = CocoTask(exp, Config(batch_size=BENCH["batch"]),
-                    TpuConfig(seed=0, precision="bf16", delta_dtype="bf16"),
-                    device=dev, data=CocoData.from_arrays(arrays))
+    task = bench_task(dev)
     lay = task.decode_layout
     log(f"[1] fixture + task in {time.time() - t0:.1f} s: "
         f"{task.spec.num_params:,} params, vocab {task.data.vocab_size}, "
@@ -824,11 +828,7 @@ def main() -> int:
 
     # ---- [4] whole generations through both eval paths ----------------------
     F = BENCH["pairs"]
-    rng = np.random.default_rng(0)
-    sampler = EpochSampler(task.train_n, seed=0)
-    seeds = rng.integers(0, 2**32, size=(BENCH["gens"], F), dtype=np.uint32)
-    batches = np.stack([sampler.member_batches(F, B)
-                        for _ in range(BENCH["gens"])])
+    seeds, batches = generation_inputs(task, BENCH["gens"])
     sens = torch.ones_like(theta)
     runs = {}
     for path, kp in (("pair kernel", True), ("per-member", False)):
@@ -996,23 +996,54 @@ def main() -> int:
     dump = dc.pair_delta_dump(scale_params, seeds24)
     dump_flat = torch.stack([lay.flat_dec({k: v[p] for k, v in dump.items()})
                              for p in range(P)])
+    flat_scale = lay.flat_dec(scale_params)
     plain_flat = torch.stack([
         lay.flat_dec(dc.pair_delta_dump_plain(scale_params, int(sd)))
         for sd in seeds24])
     torch.cuda.synchronize()
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
     k7_err = float((dump_flat - plain_flat).abs().max())
-    # logf and cosf are within 1-2 ulp of the exact result, on the card and
-    # in torch's kernels alike; |n| < 6, where 8 ulps are 8 * 4.77e-7
+    # on the card the plain version runs torch's CUDA log, sqrt and cos,
+    # which are the library calls the kernel's narrowed forms equal ([6b]):
+    # bit for bit, the sign of every zero included
+    if not torch.equal(bits(dump_flat), bits(plain_flat)):
+        raise AssertionError(f"K7: not bitwise the plain version on the card "
+                             f"(max |delta - plain| {k7_err:.3g})")
+    if not torch.equal(bits(dc.pair_delta_dump_flat(flat_scale, seeds24)),
+                       bits(dump_flat)):
+        raise AssertionError("K7: the flat entry differs from the dict form")
+    # the plain version on the CPU runs the CPU's log and cos, each within
+    # 1-2 ulp of the exact result as the card's are; |n| < 6, where 8 ulps
+    # are 8 * 4.77e-7
+    cpu_flat = dc.pair_delta_dump_flat(flat_scale.cpu(), int(seeds24[0]))
+    cpu_err = float((dump_flat[0].cpu() - cpu_flat).abs().max())
     k7_tol = 8 * 4.77e-7 * BENCH["sigma"]
-    if k7_err > k7_tol:
-        raise AssertionError(f"K7: |delta - plain| {k7_err:.3g} > {k7_tol:.3g}")
+    if cpu_err > k7_tol:
+        raise AssertionError(f"K7: |delta - plain on the CPU| {cpu_err:.3g} "
+                             f"> {k7_tol:.3g}")
     if (dump_flat[:, scale == 0] != 0).any():
         raise AssertionError("K7: a pad lane drew noise")
-    same = float((dump_flat == plain_flat).float().mean())
+    cpu_same = float((dump_flat[0].cpu() == cpu_flat).float().mean())
     log(f"[6] K7 pair_delta_dump, {P} seeds x {lay.dim_dec:,}: Philox words "
-        f"bitwise equal to the plain stream (known answer too); "
-        f"max |delta - plain| {k7_err:.3g} (<= {k7_tol:.3g}: 8 ulps), "
-        f"{same:.4%} bitwise equal; pad lanes 0")
+        f"bitwise equal to the plain stream (known answer too); deltas "
+        f"bitwise equal to the plain version on the card, and the flat entry "
+        f"to the dict form; seed 0 against the plain version on the CPU: max "
+        f"|delta - plain| {cpu_err:.3g} (<= {k7_tol:.3g}: 8 ulps), "
+        f"{cpu_same:.4%} bitwise equal; pad lanes 0")
+
+    # ---- [6b] the Box-Muller functions against the library -------------------
+    table = dc.box_muller_table(dev)
+    torch.cuda.synchronize()
+    for r, name in enumerate(("logf(1 - u)", "sqrtf(-2 logf(1 - u))",
+                              "cosf(f32(2 pi) u)")):
+        differ = int((bits(table[r, 0]) != bits(table[r, 1])).sum())
+        if differ:
+            raise AssertionError(f"[6b] {name}: the narrowed form differs "
+                                 f"from the library call at {differ} of the "
+                                 f"2^23 inputs")
+        log(f"[6b] {name}: the narrowed form equals the library call bit for "
+            f"bit on all {table.shape[-1]:,} inputs")
+    del table
 
     # ---- [7] K5: bitwise K2 fed K7's dump, held to its plain version --------
     k5 = {}
@@ -1048,27 +1079,25 @@ def main() -> int:
         -1, 1, size=n_chunks * P).astype(np.float32), device=dev)
     w_all[F:] = 0.0
     grad6 = lay.flat_dec(dc.pair_grad_rng(scale_params, seeds_all, w_all))
-    dumps = dc.pair_delta_dump(scale_params, seeds_all)
+    dumps = dc.pair_delta_dump_flat(flat_scale, seeds_all)
     ordered = torch.zeros_like(grad6)
     for i in range(seeds_all.shape[0]):
-        ordered = ordered + w_all[i] * lay.flat_dec(
-            {k: v[i] for k, v in dumps.items()})
+        ordered = ordered + w_all[i] * dumps[i]
     del dumps
-    if not torch.equal(grad6, ordered):
+    if not torch.equal(bits(grad6), bits(ordered)):
         raise AssertionError("K6: not bitwise the ordered sum of K7's dumps")
     grad6_plain = lay.flat_dec(dc.pair_grad_rng_plain(scale_params,
                                                       seeds_all, w_all))
     torch.cuda.synchronize()
     k6_err = float((grad6 - grad6_plain).abs().max())
-    if k6_err > 1e-6:
-        raise AssertionError(f"K6: |grad - plain| {k6_err:.3g} > 1e-6")
+    if not torch.equal(bits(grad6), bits(grad6_plain)):
+        raise AssertionError(f"K6: not bitwise the plain version on the card "
+                             f"(max |grad - plain| {k6_err:.3g})")
     log(f"[8] K6 pair_grad_rng over {seeds_all.shape[0]} lanes: bitwise the "
-        f"ordered f32 sum of K7's dumps; max |grad - plain| {k6_err:.3g}")
+        f"ordered f32 sum of K7's dumps and the plain version on the card")
 
     # ---- [9] the kernel-noise generation -----------------------------------
-    eng_n = NESEngine(task, Adam(BENCH["stepsize"]), MutationKind.DEFAULT,
-                      pop_chunk=P, kernel_perturb=True, kernel_noise=True,
-                      delta_dtype="bf16")
+    eng_n = noise_engine(task)
     th, state = theta.clone(), eng_n.optimizer.init(eng_n.dim, dev)
     eng_n.generation(th, state, sens, BENCH["sigma"], seeds[0], batches[0],
                      BENCH["stepsize"], BENCH["l2coeff"])  # warm-up
@@ -1212,10 +1241,21 @@ def main() -> int:
     k2_dump_ms = time_ms(lambda: dc.decode_pair_perturb(
         base, dump, feats, T, torch.bfloat16, False))
     k1_again = time_ms(lambda: dc.decode_fused(params16, feats2, T, False))
-    k7_ms = time_ms(lambda: dc.pair_delta_dump(scale_params, seeds24))
+    # K7 alone: the flat entry is the launch, and K5's draw is the same
+    # launch on the same seeds; the dict wrapper adds the copies into the
+    # nine tensors
+    k7_ms = time_ms(lambda: dc.pair_delta_dump_flat(flat_scale, seeds24),
+                    reps=20)
+    k7_dict_ms = time_ms(lambda: dc.pair_delta_dump(scale_params, seeds24),
+                         reps=20)
+    # a rate reference only: torch's own normals (Philox4x32-10 and
+    # Box-Muller too, but another stream and arithmetic), the same count
+    randn_ms = time_ms(lambda: torch.randn((P, lay.dim_dec), device=dev),
+                       reps=20)
     k7_plain = time_ms(lambda: dc.pair_delta_dump_plain(scale_params,
                                                         seeds24), reps=2)
-    k6_ms = time_ms(lambda: dc.pair_grad_rng(scale_params, seeds_all, w_all))
+    k6_ms = time_ms(lambda: dc.pair_grad_rng(scale_params, seeds_all, w_all),
+                    reps=10)
     k6_plain = time_ms(lambda: dc.pair_grad_rng_plain(scale_params,
                                                       seeds_all, w_all),
                        reps=1)
@@ -1243,19 +1283,28 @@ def main() -> int:
     k5_bytes = 2 * f32_bytes + feats.numel() * 2 + seq5.numel() * 8
     k7_bytes = f32_bytes + P * f32_bytes + P * 4
     k6_bytes = 2 * f32_bytes + seeds_all.shape[0] * 8
-    for name, replaces, ms, plain, nbytes, flops, err, launches, lib, dpath, \
-            normals in (
+    # the bound: bytes read and written once, and the operations: K5's
+    # products on the tensor cores, and per normal NORMAL_INT_OPS integer
+    # and NORMAL_F32_OPS f32 operations (K6 also its weighted sum's
+    # GRAD_SUM_OPS), each type at its own rate
+    n5 = n7 = P * lay.dim_dec
+    n6 = seeds_all.shape[0] * lay.dim_dec
+    for name, replaces, ms, plain, nbytes, flops, f32_ops, normals, err, \
+            launches, lib, dpath in (
         ("decode_pair_rng", "nes_img_captioning_tpu/ops/decode_pallas.py:488",
-         k5_ms, k5_plain, k5_bytes, flops5, k5["max_abs_err"], counts_m[2], lib_ms,
-         None, P * lay.dim_dec),
+         k5_ms, k5_plain, k5_bytes, flops5, NORMAL_F32_OPS, n5,
+         k5["max_abs_err"], counts_m[2], lib_ms, None),
         ("pair_grad_rng", "nes_img_captioning_tpu/ops/decode_pallas.py:587",
-         k6_ms, k6_plain, k6_bytes, 0.0, k6_err, counts_m[3], None, k6_delta,
-         seeds_all.shape[0] * lay.dim_dec),
+         k6_ms, k6_plain, k6_bytes, 0.0, NORMAL_F32_OPS + GRAD_SUM_OPS, n6,
+         k6_err, counts_m[3], None, k6_delta),
         ("pair_delta_dump", "nes_img_captioning_tpu/ops/decode_pallas.py:533",
-         k7_ms, k7_plain, k7_bytes, 0.0, k7_err, check_counts[4], None,
-         k7_delta, P * lay.dim_dec),
+         k7_ms, k7_plain, k7_bytes, 0.0, NORMAL_F32_OPS, n7, k7_err,
+         check_counts[4], None, k7_delta),
     ):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_int = NORMAL_INT_OPS * normals / PEAK_INT32
+        t_f32 = f32_ops * normals / PEAK_F32
+        t_ops = max(flops / PEAK_BF16, t_int, t_f32)
         b_ms = max(t_bytes, t_ops) * 1e3
         b_by = "bytes" if t_bytes >= t_ops else "operations"
         kernels.append({
@@ -1267,12 +1316,22 @@ def main() -> int:
             "normals_per_s": normals / (ms * 1e-3)})
         if name == "decode_pair_rng":
             kernels[-1]["ctas_per_launch"] = pair_ctas
+        if name == "pair_delta_dump":
+            kernels[-1]["dict_wrapper_ms"] = k7_dict_ms
+            kernels[-1]["randn_ms_not_same_stream"] = randn_ms
         log(f"[11] {name}: {ms:.3f} ms per launch (plain {plain:.3f} ms, "
             + (f"cuBLAS products {lib:.3f} ms, " if lib is not None else
                f"delta-operand path {dpath:.3f} ms, ")
-            + f"bound {b_ms:.4f} ms by {b_by}; {normals:,} normals, "
-            f"{normals / (ms * 1e-3):.4g} per s; {nbytes / 1e6:.1f} MB) "
-            f"({card})")
+            + f"bound {b_ms:.4f} ms by {b_by}: bytes {t_bytes * 1e3:.4f}, "
+            f"operations {t_ops * 1e3:.4f} ms (integer {t_int * 1e3:.4f}, "
+            f"f32 {t_f32 * 1e3:.4f}), {b_ms / ms:.1%} of it; "
+            f"{normals:,} normals, {normals / (ms * 1e-3):.4g} per s; "
+            f"{nbytes / 1e6:.1f} MB) ({card})")
+    log(f"[11] K7 alone (pair_delta_dump_flat, = K5's draw) {k7_ms:.3f} ms; "
+        f"its dict wrapper pair_delta_dump {k7_dict_ms:.3f} ms (the copies "
+        f"into nine tensors); reference only, not the same stream: one "
+        f"torch.randn of the same {n7:,} normals {randn_ms:.3f} ms, "
+        f"{n7 / (randn_ms * 1e-3):.4g} per s ({card})")
 
     log(f"[11] K5 {k5_ms:.3f} ms = its draw (K7 alone {k7_ms:.3f} ms) + the "
         f"pair decode on an f32 delta (K2 fed K7's dump {k2_dump_ms:.3f} ms; "

@@ -23,8 +23,9 @@ One generation, in the decode-ordered parameter layout (ops/decode_layout.py):
 With ``tpu.kernel_noise`` on (it rides on the pair kernel), steps 1, 2 and 5
 draw no noise outside the kernels: K5 (``decode_pair_rng``) makes each
 pair's f32 delta in the kernel from its seed, once per chunk, and K6
-(``pair_grad_rng``) draws the same deltas again and sums the weighted
-gradient, once per generation (JAX: ``nes.py:356-403``).
+(``pair_grad_rng_flat``, on the flat decode-ordered scale) draws the same
+deltas again and sums the weighted gradient, once per generation (JAX:
+``nes.py:356-403``).
 
 The eval paths feed the fitness scorer the same tensors laid out the same
 way, and every gradient sums ``w_i * delta_i`` in pair order with each
@@ -206,10 +207,10 @@ class NESEngine(PopulationEngine):
 
         weights = self._pair_weights(fitnesses, seeds_l.shape)
         if self._kernel_noise:
-            from ..ops.decode_cuda import pair_grad_rng
+            from ..ops.decode_cuda import pair_grad_rng_flat
 
-            grad = lay.flat_dec(pair_grad_rng(
-                scale_params, seeds_l.reshape(-1), weights.reshape(-1)))
+            grad = pair_grad_rng_flat(scale_dec, seeds_l.reshape(-1),
+                                      weights.reshape(-1))
         else:
             grad = torch.zeros_like(scale_dec)
             for c in range(n_chunks):

@@ -27,15 +27,21 @@ Port of ``nes_img_captioning_tpu/ops/decode_pallas.py``:
   ``scale * N(0, 1)`` drawn on the card from the pair's uint32 seed;
 * ``pair_grad_rng`` (K6) replaces the Pallas ``pair_grad_rng``
   (``decode_pallas.py:575-607``): ``sum_i w_i * delta(seed_i)``, each delta
-  drawn again from its seed;
+  drawn again from its seed; ``pair_grad_rng_flat`` is its launch on the
+  flat decode-ordered scale, the one the engine calls;
 * ``pair_delta_dump`` (K7) replaces the Pallas ``pair_delta_dump``
-  (``decode_pallas.py:526-551``): the delta K5 and K6 realize for a seed.
+  (``decode_pallas.py:526-551``): the delta K5 and K6 realize for a seed;
+  ``pair_delta_dump_flat`` is its launch on the flat scale, without the
+  per-tensor copies.
 
 K5-K7 share one noise stream, a Philox4x32-10 counter keyed on (seed,
 element index) (``ops/noise.py`` has its definition and plain version), so
 their deltas are bitwise equal; the stream is not the TPU's (a deliberate
-deviation, README). K6 and K7 are elementwise and bound by drawing the
-normals; the notes in ``csrc/decode.cu`` give each kernel's design.
+deviation, README). K6 and K7 are elementwise and bound by the instructions
+each normal issues; they run the library's ``logf``, ``sqrtf`` and ``cosf``
+narrowed to the stream's 2^23 inputs each, which ``box_muller_table`` holds
+to the library calls bit for bit. The notes in ``csrc/decode.cu`` give each
+kernel's design.
 
 Kernel sources: ``csrc/decode.cu``, built with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (loaded with ``ctypes``) on first
@@ -94,15 +100,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .noise import gumbel_plain, philox4x32_10, philox_normal_plain
+from .noise import TWO_PI_F32, gumbel_plain, philox4x32_10, philox_normal_plain
 
 __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
            "decode_fused", "decode_fused_plain", "decode_sample",
            "decode_sample_plain", "decode_tiled", "decode_tiled_plain",
            "gumbel_table", "gumbel_counts", "decode_pair_perturb",
            "decode_pair_perturb_plain", "decode_pair_rng",
-           "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_plain",
-           "pair_grad_rng", "pair_grad_rng_plain", "philox_words", "build_kernels",
+           "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_flat",
+           "pair_delta_dump_plain", "pair_grad_rng", "pair_grad_rng_flat",
+           "pair_grad_rng_plain", "philox_words", "box_muller_table",
+           "build_kernels",
            "pair_cluster_info", "member_cluster_info", "PAIR_TENSORS"]
 
 PAD_LANE = 128
@@ -411,14 +419,36 @@ def _as_dict(flat: torch.Tensor, like: dict) -> dict:
     return out
 
 
+def _deltas_plain(flat: torch.Tensor, u32: np.ndarray) -> torch.Tensor:
+    """(P, dim) f32: the plain delta of each seed on the flat scale."""
+    j = torch.arange(flat.shape[0], device=flat.device)
+    return torch.stack([philox_normal_plain(int(s), j, flat) for s in u32])
+
+
+def _weights(weights, n: int, device) -> torch.Tensor:
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=device).reshape(-1).contiguous()
+    _check(w.shape[0] == n, f"{w.shape[0]} weights for {n} seeds")
+    return w
+
+
+def _grad_plain(flat: torch.Tensor, u32: np.ndarray,
+                w: torch.Tensor) -> torch.Tensor:
+    """(dim,) f32: sum_i w[i] * delta(u32[i]) in pair order, each product
+    rounded to f32 before it is added."""
+    j = torch.arange(flat.shape[0], device=flat.device)
+    g = torch.zeros_like(flat)
+    for i, s in enumerate(u32):
+        g = g + w[i] * philox_normal_plain(int(s), j, flat)
+    return g
+
+
 def pair_delta_dump_plain(scale: dict, seeds) -> dict:
     """Plain twin of K7: the f32 delta ``scale * N(0, 1)`` of each seed, as
     a dict shaped like ``scale`` (a leading seed axis P unless ``seeds`` is
     a single int)."""
     u32, single = _seeds_u32(seeds)
-    flat = _flat_scale(scale)
-    j = torch.arange(flat.shape[0], device=flat.device)
-    deltas = torch.stack([philox_normal_plain(int(s), j, flat) for s in u32])
+    deltas = _deltas_plain(_flat_scale(scale), u32)
     return _as_dict(deltas[0] if single else deltas, scale)
 
 
@@ -428,15 +458,8 @@ def pair_grad_rng_plain(scale: dict, seeds, weights) -> dict:
     order. Returns an f32 dict shaped like ``scale``."""
     u32, _ = _seeds_u32(seeds)
     flat = _flat_scale(scale)
-    w = torch.as_tensor(weights, dtype=torch.float32,
-                        device=flat.device).reshape(-1)
-    _check(w.shape[0] == u32.shape[0],
-           f"{w.shape[0]} weights for {u32.shape[0]} seeds")
-    j = torch.arange(flat.shape[0], device=flat.device)
-    g = torch.zeros_like(flat)
-    for i, s in enumerate(u32):
-        g = g + w[i] * philox_normal_plain(int(s), j, flat)
-    return _as_dict(g, scale)
+    return _as_dict(_grad_plain(flat, u32, _weights(weights, u32.shape[0],
+                                                     flat.device)), scale)
 
 
 def decode_pair_rng_plain(base: dict, scale: dict, seeds, feats: torch.Tensor,
@@ -520,6 +543,8 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_gumbel_table.restype = ci
     lib.nes_gumbel_counts.argtypes = [vp]
     lib.nes_gumbel_counts.restype = ci
+    lib.nes_box_table.argtypes = [vp, vp]
+    lib.nes_box_table.restype = ci
     return lib
 
 
@@ -911,27 +936,74 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
 decode_pair_rng.launches = 0
 
 
+def _check_flat(flat: torch.Tensor) -> torch.Tensor:
+    _check(flat.dim() == 1 and flat.dtype == torch.float32,
+           f"flat scale: {flat.dtype} of shape {tuple(flat.shape)}, not a "
+           "1-D f32 vector")
+    # the stream's counter j >> 1 is one 32-bit word, and the kernels index
+    # element pairs in 32 bits
+    _check(flat.shape[0] < 2**32, f"{flat.shape[0]} elements: the stream "
+           "holds fewer than 2^32")
+    return flat.contiguous()
+
+
+def pair_delta_dump_flat(flat: torch.Tensor, seeds) -> torch.Tensor:
+    """K7 on the flat decode-ordered f32 scale (dim,): the (P, dim) f32
+    deltas of the P seeds, or (dim,) for a single seed, with no per-tensor
+    copies — the launch ``pair_delta_dump`` wraps, and K7's time alone. A
+    CPU tensor runs the plain version; a CUDA one launches the kernel,
+    counted on ``pair_delta_dump.launches``."""
+    u32, single = _seeds_u32(seeds)
+    flat = _check_flat(flat)
+    if not flat.is_cuda:
+        out = _deltas_plain(flat, u32)
+    else:
+        P, dim = u32.shape[0], flat.shape[0]
+        out = torch.empty((P, dim), dtype=torch.float32, device=flat.device)
+        seeds_d = _seeds_on(u32, flat.device)
+        err = _kernels().nes_pair_delta_dump(
+            P, dim, flat.data_ptr(), seeds_d.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(flat.device).cuda_stream)
+        _raise_on(err, "pair_delta_dump")
+        pair_delta_dump.launches += 1
+    return out[0] if single else out
+
+
 def pair_delta_dump(scale: dict, seeds) -> dict:
     """K7: the f32 delta K5 and K6 realize for each seed, all seeds in one
     launch. scale: f32 dict (pad lanes 0); seeds: one host seed or P of
     them. Returns a dict shaped like ``scale``, with a leading P axis unless
-    a single seed was given."""
+    a single seed was given: ``pair_delta_dump_flat`` cut into the nine
+    tensors."""
     if not scale["img_w"].is_cuda:
         return pair_delta_dump_plain(scale, seeds)
-    flat = _check_scale(scale, scale)
-    u32, single = _seeds_u32(seeds)
-    P, dim = u32.shape[0], flat.shape[0]
-    out = torch.empty((P, dim), dtype=torch.float32, device=flat.device)
-    seeds_d = _seeds_on(u32, flat.device)
-    err = _kernels().nes_pair_delta_dump(
-        P, dim, flat.data_ptr(), seeds_d.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(flat.device).cuda_stream)
-    _raise_on(err, "pair_delta_dump")
-    pair_delta_dump.launches += 1
-    return _as_dict(out[0] if single else out, scale)
+    return _as_dict(pair_delta_dump_flat(_check_scale(scale, scale), seeds),
+                    scale)
 
 
 pair_delta_dump.launches = 0
+
+
+def pair_grad_rng_flat(flat: torch.Tensor, seeds, weights) -> torch.Tensor:
+    """K6 on the flat decode-ordered f32 scale (dim,): the (dim,) f32
+    gradient ``sum_i weights[i] * delta(seeds[i])``, summed over the pairs
+    in order — the engine's gradient, with no per-tensor copies. A CPU
+    tensor runs the plain version; a CUDA one launches the kernel, counted
+    on ``pair_grad_rng.launches``."""
+    u32, _ = _seeds_u32(seeds)
+    flat = _check_flat(flat)
+    w = _weights(weights, u32.shape[0], flat.device)
+    if not flat.is_cuda:
+        return _grad_plain(flat, u32, w)
+    out = torch.empty_like(flat)
+    seeds_d = _seeds_on(u32, flat.device)
+    err = _kernels().nes_pair_grad_rng(
+        u32.shape[0], flat.shape[0], flat.data_ptr(), seeds_d.data_ptr(),
+        w.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(flat.device).cuda_stream)
+    _raise_on(err, "pair_grad_rng")
+    pair_grad_rng.launches += 1
+    return out
 
 
 def pair_grad_rng(scale: dict, seeds, weights) -> dict:
@@ -941,24 +1013,33 @@ def pair_grad_rng(scale: dict, seeds, weights) -> dict:
     F f32 (pad lanes 0). Returns an f32 dict shaped like ``scale``."""
     if not scale["img_w"].is_cuda:
         return pair_grad_rng_plain(scale, seeds, weights)
-    flat = _check_scale(scale, scale)
-    u32, _ = _seeds_u32(seeds)
-    w = torch.as_tensor(weights, dtype=torch.float32,
-                        device=flat.device).reshape(-1).contiguous()
-    _check(w.shape[0] == u32.shape[0],
-           f"{w.shape[0]} weights for {u32.shape[0]} seeds")
-    out = torch.empty_like(flat)
-    seeds_d = _seeds_on(u32, flat.device)
-    err = _kernels().nes_pair_grad_rng(
-        u32.shape[0], flat.shape[0], flat.data_ptr(), seeds_d.data_ptr(),
-        w.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(flat.device).cuda_stream)
-    _raise_on(err, "pair_grad_rng")
-    pair_grad_rng.launches += 1
-    return _as_dict(out, scale)
+    return _as_dict(pair_grad_rng_flat(_check_scale(scale, scale), seeds,
+                                       weights), scale)
 
 
 pair_grad_rng.launches = 0
+
+
+def box_muller_table(device) -> torch.Tensor:
+    """(3, 2, 2^23) f32: for every 23-bit value k, u = k 2^-23, the rows
+    ``logf(1 - u)``, ``sqrtf(-2 logf(1 - u))`` and ``cosf(f32(2 pi) u)``;
+    on a CUDA device by the library call (column 0) and by the narrowed
+    form K5, K6 and K7 run (column 1) — the check that the two agree bit
+    for bit over every input the stream can give; on the CPU both columns
+    hold the plain version's (torch's) values."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        u = (torch.arange(1 << 23, dtype=torch.int32) | 0x3F800000).view(
+            torch.float32) - 1.0
+        lg = torch.log(1.0 - u)
+        two_pi = torch.tensor(TWO_PI_F32, dtype=torch.float32)
+        rows = torch.stack([lg, torch.sqrt(-2.0 * lg), torch.cos(two_pi * u)])
+        return torch.stack([rows, rows], 1)
+    out = torch.empty((3, 2, 1 << 23), dtype=torch.float32, device=device)
+    err = _kernels().nes_box_table(
+        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, "box_muller_table")
+    return out
 
 
 def philox_words(seed: int, n: int, device) -> torch.Tensor:

@@ -13,13 +13,22 @@ members), K3 with 5 lanes per member, batch 128, vocab 9487 (Vpad 9600),
 seed 0. One JSON line per run: ms per launch between CUDA events of K1
 (``decode_fused``), K2 (``decode_pair_perturb``, bf16 delta), K3
 (``decode_sample``), K4 (``decode_tiled`` at vocab tile 1920), K5
-(``decode_pair_rng``), K6 (``pair_grad_rng``) and K7 (``pair_delta_dump``),
-with the card's name and power limit; then one line of each kernel's mean
-ms per root and B's change against A in percent.
+(``decode_pair_rng``), K6 (``pair_grad_rng``) and K7 (``pair_delta_dump``,
+its dict wrapper, which both roots have); the device time per launch, under
+``torch.profiler``, of K7's kernel alone (``k7_kernel``) and of K5's two
+launches (``k5_draw``, the same kernel, and ``k5_decode``); the median
+host time of 9 kernel-noise generations (``gen_noise``: ``NESEngine`` with
+``tpu.kernel_noise`` at the bench settings, 144 pairs, on the synthetic
+fixture, after a warm-up; each ends in ``torch.cuda.synchronize()``); a
+SHA-256 of K5's tokens and lp (bf16, logprobs on), K6's gradient and K7's
+dump; and the card's name and power limit. Then one line of each time's mean per
+root and B's change against A in percent. The delta stream must not move:
+the run exits non-zero when a digest differs between the runs.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -27,6 +36,69 @@ import sys
 import numpy as np
 
 KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
+PROFILED = ("k7_kernel", "k5_draw", "k5_decode", "gen_noise")
+
+
+def sha256(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def noise_generation_ms(reps: int = 9) -> float:
+    """Median ms of a kernel-noise generation (K5, K6) at the bench
+    settings on the synthetic fixture (``scripts/bench_fixture.py``, as
+    ``chip_smoke.py`` [9] runs it), after one warm-up."""
+    import time
+
+    import torch
+    from bench_fixture import (
+        BENCH,
+        bench_task,
+        generation_inputs,
+        noise_engine,
+    )
+
+    task = bench_task(torch.device("cuda"))
+    theta = task.generate_theta(
+        torch.Generator(device="cuda").manual_seed(0))
+    eng = noise_engine(task)
+    seeds, batches = generation_inputs(task, reps + 1)
+    sens = torch.ones_like(theta)
+    state = eng.optimizer.init(eng.dim, theta.device)
+    times = []
+    for g in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        theta, state, _ = eng.generation(
+            theta, state, sens, BENCH["sigma"], seeds[g], batches[g],
+            BENCH["stepsize"], BENCH["l2coeff"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def profiled_ms(fn, reps: int) -> dict:
+    """Device ms per call of fn's kernels by name, under torch.profiler:
+    the delta draw (pair_delta_dump_kernel) and the pair decode
+    (pair_kernel)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"draw": 0.0, "decode": 0.0}
+    for evt in prof.key_averages():
+        for part, key in (("draw", "pair_delta_dump_kernel"),
+                          ("decode", "pair_kernel")):
+            if key in evt.key:
+                out[part] += evt.self_device_time_total / 1e3 / reps
+    return out
 
 
 def worker(root: str, build: bool):
@@ -87,11 +159,22 @@ def worker(root: str, build: bool):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(5):
+        for _ in range(10):
             fn()
         b.record()
         torch.cuda.synchronize()
-        row[f"{name}_ms"] = a.elapsed_time(b) / 5
+        row[f"{name}_ms"] = a.elapsed_time(b) / 10
+    row["k7_kernel_ms"] = profiled_ms(runs["k7"], 20)["draw"]
+    k5 = profiled_ms(runs["k5"], 5)
+    row["k5_draw_ms"], row["k5_decode_ms"] = k5["draw"], k5["decode"]
+    seq5, lp5 = dc.decode_pair_rng(base, scale, seeds[:P], feats, T,
+                                   torch.bfloat16, True)
+    g6, d7 = runs["k6"](), runs["k7"]()
+    row["gen_noise_ms"] = noise_generation_ms()
+    row["digest"] = {
+        "k5": sha256(seq5, lp5),
+        "k6": sha256(*(g6[k] for k in dc.PAIR_TENSORS)),
+        "k7": sha256(*(d7[k] for k in dc.PAIR_TENSORS))}
     row["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -114,10 +197,16 @@ def main():
                              check=True, capture_output=True, text=True)
         print(out.stdout, end="", flush=True)
         rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    names = KERNELS + PROFILED
     mean = {r: {k: np.mean([x[f"{k}_ms"] for x in rows if x["root"] == r])
-                for k in KERNELS} for r in (a, b)}
+                for k in names} for r in (a, b)}
+    same = all(x["digest"] == rows[0]["digest"] for x in rows)
     print(json.dumps({"mean_ms": mean, "b_vs_a_percent": {
-        k: 100.0 * (mean[b][k] / mean[a][k] - 1.0) for k in KERNELS}}))
+        k: 100.0 * (mean[b][k] / mean[a][k] - 1.0) for k in names},
+        "digests_equal": same}))
+    if not same:
+        raise SystemExit("the K5, K6 or K7 digests differ between the roots: "
+                         "the delta stream moved")
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ from nes_img_captioning_tpu_torch.models.fc_caption import (
 )
 from nes_img_captioning_tpu_torch.ops import decode_cuda as tdc
 from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
+from nes_img_captioning_tpu_torch.ops.noise import philox_normal_plain
 
 
 @pytest.fixture
@@ -394,12 +395,17 @@ def test_k4_tokens_equal_k1(small_members, dt):
         tdc.decode_fused(params, feats, vocab_tile=256)
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32)
+
+
 @pytest.mark.cuda
 def test_k7_k5_k6_share_one_noise_stream(small_members):
-    """K7's deltas lie within 8 ulps of the plain version's (logf and cosf
-    may round differently from torch's), exactly 0 on pad lanes; K5 with
-    f32 and bf16 weights is bitwise K2 fed K7's dump; K6 is bitwise the
-    ordered f32 sum of the dumps."""
+    """K7's deltas are bitwise the plain version's on the card (torch's
+    CUDA log, sqrt and cos are the library calls the kernel's narrowed
+    forms equal), within 8 ulps of the plain version on the CPU, exactly 0
+    on pad lanes; K5 with f32 and bf16 weights is bitwise K2 fed K7's dump;
+    K6 is bitwise the ordered f32 sum of the dumps."""
     lay, members, feats, _ = small_members
     theta_dec = members[0]
     sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05, device="cuda"),
@@ -414,7 +420,9 @@ def test_k7_k5_k6_share_one_noise_stream(small_members):
     plain = torch.stack([lay.flat_dec(tdc.pair_delta_dump_plain(scale, s))
                          for s in seeds])
     torch.cuda.synchronize()
-    assert float((flat - plain).abs().max()) <= 8 * 4.77e-7 * 0.05
+    assert torch.equal(_bits(flat), _bits(plain))
+    cpu = tdc.pair_delta_dump_flat(sc.cpu(), seeds[0])
+    assert float((flat[0].cpu() - cpu).abs().max()) <= 8 * 4.77e-7 * 0.05
     assert (flat[:, sc == 0] == 0).all()
     base = lay.prep(theta_dec, torch.float32)
     for dt in (torch.float32, torch.bfloat16):
@@ -429,6 +437,111 @@ def test_k7_k5_k6_share_one_noise_stream(small_members):
     for p in range(3):
         ordered = ordered + w[p] * flat[p]
     assert torch.equal(grad, ordered)
+
+
+@pytest.mark.cuda
+def test_box_muller_narrowed_equals_library(small_members):
+    """The logf, sqrtf and cosf that K5, K6 and K7 run, narrowed to the
+    stream's inputs, equal the library calls bit for bit on all 2^23 inputs
+    each (csrc/decode.cu, box_table_kernel)."""
+    table = tdc.box_muller_table("cuda")
+    torch.cuda.synchronize()
+    assert table.shape == (3, 2, 1 << 23)
+    for r in range(3):
+        assert torch.equal(_bits(table[r, 0]), _bits(table[r, 1])), r
+    # the table is the stream's: u = 0 gives log 0, a radius of -0, cos 1
+    assert _bits(table[1, 0, :1]).item() == -0x80000000
+    assert table[2, 0, 0].item() == 1.0
+
+
+def _toy_scale(dim: int) -> torch.Tensor:
+    """A flat f32 noise scale of ``dim`` elements on the card: the toy
+    layout's (vocab 40, E = R = 16, 24-d features; pad lanes 0) cut or
+    tiled to ``dim``."""
+    opts = FCModelOptions(vocab_size=40, input_encoding_size=16, rnn_size=16,
+                          fc_feat_size=24)
+    lay = DecodeLayout(build_spec(opts), opts)
+    g = torch.Generator().manual_seed(dim)
+    sc = lay.to_dec(torch.rand(lay.spec.num_params, generator=g) + 0.01,
+                    pad_scale=0.0)
+    return sc.repeat(dim // sc.numel() + 1)[:dim].cuda()
+
+
+# dims: the toy layout's 7344 (quads, the last block of threads partly
+# idle), odd and 2 mod 4 (the scalar path), 1 and 5 (less than a quad)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [7344, 7343, 7342, 1, 5])
+def test_k7_bitwise_plain_on_card(small_members, dim):
+    """K7 (the flat entry) on a flat scale of any length, and on a scale
+    that is not 16-byte aligned: bitwise the plain version run on the
+    card, and the dict form's values."""
+    sc = _toy_scale(dim + 1)
+    seeds = [7, 0xFFFFFFFF, 0x9E3779B9]
+    plain = torch.stack([philox_normal_plain(
+        s, torch.arange(dim, device="cuda"), sc[:dim]) for s in seeds])
+    for flat in (sc[:dim], sc[1:]):  # aligned, and 4 bytes past it
+        want = plain if flat.data_ptr() == sc.data_ptr() else torch.stack([
+            philox_normal_plain(s, torch.arange(dim, device="cuda"),
+                                    flat) for s in seeds])
+        got = tdc.pair_delta_dump_flat(flat, seeds)
+        torch.cuda.synchronize()
+        assert got.shape == (3, dim)
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(tdc.pair_delta_dump_flat(flat, seeds[1]), got[1])
+
+
+@pytest.mark.cuda
+def test_k7_flat_entry_equals_dict_form(small_members):
+    """pair_delta_dump is pair_delta_dump_flat cut into the nine tensors:
+    the same values, one launch each."""
+    lay, _, _, _ = small_members
+    sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.01, device="cuda"),
+                    pad_scale=0.0)
+    scale = lay.prep(sc, torch.float32)
+    seeds = np.array([1, 2, 3, 4, 5], np.uint32)
+    before = tdc.pair_delta_dump.launches
+    flat = tdc.pair_delta_dump_flat(sc, seeds)
+    dump = tdc.pair_delta_dump(scale, seeds)
+    assert tdc.pair_delta_dump.launches == before + 2
+    for p in range(5):
+        assert torch.equal(_bits(lay.flat_dec({k: v[p] for k, v in
+                                               dump.items()})), _bits(flat[p]))
+
+
+# F: 1, 3 and 5 seeds (the four-seed unroll's remainder), a generation's
+# 144, and 600 (beyond the 512 seeds a block stages at once)
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,dim", [(1, 0), (3, 0), (5, 0), (144, 0),
+                                   (5, 7344), (3, 7343), (600, 1026)],
+                         ids=["F1", "F3", "F5", "F144", "toy_tail",
+                              "odd_dim", "F600"])
+def test_k6_bitwise_ordered_sum_of_k7(small_members, F, dim):
+    """K6 is bitwise the ordered f32 sum of K7's dumps, sum_i f32(w_i *
+    delta_i) added in seed order, on the small layout (dim 0 here) and on
+    the toy layout's flat scale, its odd tail included."""
+    lay, _, _, _ = small_members
+    if dim:
+        sc = _toy_scale(dim)
+    else:
+        sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05,
+                                   device="cuda"), pad_scale=0.0)
+    rng = np.random.default_rng(F)
+    seeds = rng.integers(0, 2**32, size=F, dtype=np.uint32)
+    w = torch.as_tensor(rng.uniform(-1, 1, F).astype(np.float32),
+                        device="cuda")
+    before = tdc.pair_grad_rng.launches
+    grad = tdc.pair_grad_rng_flat(sc, seeds, w)
+    assert tdc.pair_grad_rng.launches == before + 1
+    dumps = tdc.pair_delta_dump_flat(sc, seeds)
+    ordered = torch.zeros_like(sc)
+    for i in range(F):
+        ordered = ordered + w[i] * dumps[i]
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(grad), _bits(ordered))
+    if not dim:
+        scale = lay.prep(sc, torch.float32)
+        assert torch.equal(lay.flat_dec(tdc.pair_grad_rng(scale, seeds, w)),
+                           grad)
 
 
 @pytest.mark.cuda

@@ -124,6 +124,47 @@ def dump_at(dump: dict, p: int) -> dict:
     return {k: v[p] for k, v in dump.items()}
 
 
+def test_flat_entries_plain_equal_dict_forms(toy):
+    """On CPU tensors the flat entries run the plain versions: K7's (P, dim)
+    dump equals pair_delta_dump_plain of each seed, flattened, and a single
+    seed gives its row; K6's gradient equals pair_grad_rng_plain,
+    flattened; F = 0 gives zeros; anything but a 1-D f32 scale is refused."""
+    lay, scale, seeds = toy["lay"], toy["scale"], toy["seeds"]
+    flat = lay.flat_dec(scale)
+    got = tdc.pair_delta_dump_flat(flat, seeds)
+    assert got.shape == (F_PAIRS, lay.dim_dec)
+    for p, s in enumerate(seeds):
+        assert torch.equal(got[p], lay.flat_dec(
+            tdc.pair_delta_dump_plain(scale, int(s))))
+    assert torch.equal(tdc.pair_delta_dump_flat(flat, int(seeds[2])), got[2])
+    w = torch.tensor([0.5, -1.25, 0.0, 2.0])
+    assert torch.equal(tdc.pair_grad_rng_flat(flat, seeds, w), lay.flat_dec(
+        tdc.pair_grad_rng_plain(scale, seeds, w)))
+    assert not tdc.pair_grad_rng_flat(flat, [], []).any()
+    with pytest.raises(ValueError, match="1-D f32"):
+        tdc.pair_delta_dump_flat(flat.double(), seeds)
+    with pytest.raises(ValueError, match="weights"):
+        tdc.pair_grad_rng_flat(flat, seeds, w[:3])
+
+
+def test_box_muller_table_is_the_stream():
+    """box_muller_table's rows, indexed by a word's top 23 bits, rebuild
+    the plain stream's normals: n = sqrt-row[b1 >> 9] * cos-row[b2 >> 9]
+    for the words of the first 4096 counters of a seed; its log row is
+    log(1 - u) (0 at u = 0, the radius -0 there)."""
+    table = tdc.box_muller_table("cpu")
+    assert table.shape == (3, 2, 1 << 23)
+    assert torch.equal(table[:, 0], table[:, 1])
+    assert table[0, 0, 0] == 0 and str(float(table[1, 0, 0])) == "-0.0"
+    q = torch.arange(4096)
+    z = torch.zeros_like(q)
+    words = philox4x32_10([q, z, z, z], (12345, 0))
+    n = torch.stack([table[1, 0, words[0] >> 9] * table[2, 0, words[1] >> 9],
+                     table[1, 0, words[2] >> 9] * table[2, 0, words[3] >> 9]],
+                    -1).reshape(-1)
+    assert torch.equal(n, unit_normal_plain(12345, torch.arange(8192)))
+
+
 def test_unit_normal_moments():
     """2^17 draws of one seed, and the same count over 64 seeds: mean 0,
     variance 1, skewness 0, kurtosis 3, within five standard errors."""
