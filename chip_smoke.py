@@ -49,7 +49,9 @@ Phases, each printed as it ends (any failure exits non-zero):
 10. NESMaster on experiments/mscoco_nes.json cut to 144 pairs, batch 128,
     pop_chunk 24, bf16, 256 validation images, kernel noise on: 4
     iterations with validation and snapshots, then a resume from the
-    snapshot for one more generation — the path a user runs;
+    snapshot for one more generation — the path a user runs; blocks of 2
+    generations, so tpu.fused_validation "auto" validates on the card, one
+    row-block launch of K1 per generation;
 11. K5's, K6's and K7's times beside their plain versions', the delta-operand
     path doing the same work, and their bounds by bytes and by operations
     (NORMAL_INT_OPS and NORMAL_F32_OPS per normal); K7 alone (the flat entry, K5's draw) beside its
@@ -75,13 +77,26 @@ Phases, each printed as it ends (any failure exits non-zero):
     packed vector and theta bitwise equal to the K1 generation;
 16. NESMaster on experiments/mscoco_nes.json with fitness self_critical and
     decode_vocab_tile 1920 (144 pairs, batch 128, 256 validation images):
-    3 iterations with validation and a snapshot, K3 carrying the samples
-    and K4 the baselines and validation, then a resume for one more;
+    3 iterations with validation on the card and a snapshot, K3 carrying
+    the samples, K4 the baselines and K4's row-block launch the
+    validation, then a resume for one more;
 17. K3's and K4's times beside their plain versions', a library yardstick
     (cuBLAS products, plus torch's Gumbel-max for K3) and their bounds; K3
     at Vpad 1920 beside 9600 (its fixed cost per step and cost per vocab
     tile) and its launch shape; one self_critical generation under
-    torch.profiler.
+    torch.profiler;
+18. NESMaster on experiments/mscoco_nes.json at full width with its 5000
+    validation images (val_batch_size 256, gens_per_dispatch 8; kernel
+    noise, 144 pairs, batch 128, pop_chunk 24): 8 iterations with fused
+    validation and 4 with host validation (and 4 and 4 with 256 validation
+    images), ms per iteration of each, theta bitwise equal after 4 and the
+    acc series within 1e-4, one row-block launch of K1 per validation;
+    validate_device and podium_merge under
+    torch.cuda.set_sync_debug_mode("error"); the row-block launch over the
+    5000 rows (K1 and K4) bit for bit the 40 launches of one block each,
+    and held to its plain twin on the same bf16 rows (tokens up to
+    near-ties, lp), with its time against theirs, its bound, its plain twin
+    and cuBLAS.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -325,7 +340,7 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
 
     def zero():
         torch.cuda.synchronize()
-        for c in counters:
+        for c in (*counters, dc.decode_rows):
             c.launches = 0
 
     def counts():
@@ -546,12 +561,11 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
             not np.isfinite(master.stats.score_stats()[1]).all():
         raise AssertionError("self-critical NESMaster: 3 finite iterations "
                              "with validation expected")
-    n_val = min(256, task.val_fc.shape[0])
-    val_launches = -(-n_val // min(n_val, 128))
-    want_m = (0, 0, 3 * n_chunks, 3 * (n_chunks + val_launches), 0, 0, 0)
-    if c_m != want_m:
+    want_m = (0, 0, 3 * n_chunks, 3 * n_chunks, 0, 0, 0)
+    if not master._val_fused or c_m != want_m or dc.decode_rows.launches != 3:
         raise AssertionError(f"self-critical master launches (K1..K7) {c_m} "
-                             f"!= {want_m}")
+                             f"!= {want_m}, or row-block K4 "
+                             f"{dc.decode_rows.launches} != 3")
     zinfo = glob.glob(os.path.join(runs_dir, "train", "snapshot",
                                    "z_info_*.json"))
     if len(zinfo) != 1 or not zinfo[0].endswith(
@@ -563,8 +577,9 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
         f"{[round(a, 4) for a in acc]}; mean fitness "
         f"{[round(m, 4) for m in master.stats.score_stats()[1]]}; ms per "
         f"iteration {[round(t * 1e3, 3) for t in master.stats.time_stats()]}"
-        f"; launches K3 {c_m[2]} (samples), K4 {c_m[3]} (baselines and "
-        f"validation), K1 K2 K5 K6 K7 0; snapshot {os.path.basename(zinfo[0])}")
+        f"; launches K3 {c_m[2]} (samples), K4 {c_m[3]} (baselines), "
+        f"row-block K4 3 (validation on the card), K1 K2 K5 K6 K7 0; "
+        f"snapshot {os.path.basename(zinfo[0])}")
     exp2 = experiment("resume")
     exp2["from_infos"] = zinfo[0]
     resumed = NESMaster(exp2, device=dev, data=task.data)
@@ -679,6 +694,301 @@ def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
     for ms, count, key in prof_rows[:12]:
         log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
     return rows
+
+
+# [18]'s validation subset: experiments/mscoco_nes.json's num_val_items
+VAL_ITEMS = 5000
+# [18]'s bound on |lp - plain| of the bf16 row-block launch where tokens
+# agree: the kernel and its twin round the same bf16 values and differ only
+# in the order of their f32 sums; a wrong row block, weight or step moves a
+# log-probability over 9488 tokens by far more
+LP_BF16_TOL = 1e-2
+
+
+def rows_flops(seq, F: int, V1: int) -> float:
+    """Multiply-adds x 2 that one row-block decode of seq (N, T) needs:
+    each block of 128 rows runs the image product, the image step's input
+    gate product (its h is 0, so no h2h), both gate products of every token
+    step and the logits over the V1 real vocab columns (not the padding),
+    until its longest row ends; the rows are the block's real ones."""
+    W, T = 128, seq.shape[-1]
+    total = 0.0
+    for lo in range(0, seq.shape[0], W):
+        blk = seq[lo:lo + W]
+        n = int(executed_steps(blk[None], T)[0])
+        total += 2.0 * blk.shape[0] * (F * W + W * 5 * W
+                                       + n * (2 * W * 5 * W + W * V1))
+    return total
+
+
+def validation_phase(card: str) -> list:
+    """Phase 18: NESMaster on experiments/mscoco_nes.json at full width with
+    VAL_ITEMS validation images (val_batch_size 256, gens_per_dispatch 8,
+    kernel noise, 144 pairs, batch 128, pop_chunk 24): 8 iterations with
+    fused validation (validate_device, K1 over all row blocks in one
+    launch, the device podium) and 4 with host validation (the same launch,
+    the native scorer), theta bitwise equal after 4 and the acc series
+    within 1e-4; 4 and 4 with 256 validation images; validate_device and
+    podium_merge under torch.cuda.set_sync_debug_mode("error"); the
+    row-block launch at VAL_ITEMS rows in bf16 against one launch per block
+    of 128, K1 and K4, bit for bit, and against its plain twin on the same
+    rows (near-ties, lp), with times, bound, plain and cuBLAS times.
+    Returns its row of the kernels line."""
+    import glob
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.es import podium_merge
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.data.synthetic import (
+        synthetic_coco_arrays,
+    )
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    data = CocoData.from_arrays(synthetic_coco_arrays(
+        n_train=2048, n_val=VAL_ITEMS, n_test=8, vocab_size=9487,
+        fc_feat_size=2048, cap_len=9, seed=0))
+    log(f"[18] fixture with {VAL_ITEMS} val images in "
+        f"{time.time() - t0:.1f} s")
+    runs_dir = os.path.join("logs", f"chip_smoke_val_{os.getpid()}")
+    B, F, P = BENCH["batch"], BENCH["pairs"], BENCH["pop_chunk"]
+
+    def experiment(name: str, fused: bool, n_val: int) -> dict:
+        exp = load_experiment("experiments/mscoco_nes.json")
+        if (exp["config"]["num_val_items"], exp["config"]["val_batch_size"],
+                exp["tpu"]["gens_per_dispatch"]) != (VAL_ITEMS, 256, 8):
+            raise AssertionError("mscoco_nes.json: validation settings "
+                                 "changed")
+        exp["config"].update(batch_size=B, snapshot_freq=4,
+                             num_val_items=n_val)
+        exp["nb_offspring"] = F
+        exp["tpu"].update(pop_chunk=P, precision="bf16", delta_dtype="bf16",
+                          kernel_noise=True, fused_validation=fused)
+        exp["log_dir"] = os.path.join(runs_dir, f"{name}_{n_val}")
+        return exp
+
+    counters = (dc.decode_rows, dc.decode_fused, dc.decode_pair_rng,
+                dc.pair_grad_rng)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return tuple(c.launches for c in counters)
+
+    n_chunks = -(-F // P)
+
+    def both_paths(n_val: int, fused_iters: int):
+        """``fused_iters`` iterations with fused validation (blocks of 4)
+        and 4 with host validation on ``n_val`` val images: launch counts,
+        theta after 4 bitwise equal, acc series within 1e-4."""
+        masters = {}
+        for name, fused in (("fused", True), ("host", False)):
+            m = NESMaster(experiment(name, fused, n_val), device=dev,
+                          data=data)
+            # the scorers are built before the timed iterations (the host
+            # one builds the native library on its first use)
+            m.task.val_scorer
+            m.task.device_val_consts()
+            masters[name] = m
+        fused, host = masters["fused"], masters["host"]
+        c_f = counted(lambda: fused.run_master(max_iterations=4))
+        theta4 = fused.theta.clone()
+        c_h = counted(lambda: host.run_master(max_iterations=4))
+        runs = [("fused", c_f), ("host", c_h)]
+        if fused_iters > 4:
+            runs.append(("fused, iterations 5-8", counted(
+                lambda: fused.run_master(max_iterations=fused_iters))))
+        if not fused._val_fused or host._val_fused:
+            raise AssertionError("[18] fused_validation did not resolve")
+        for what, c in runs:
+            if c != (4, 0, 4 * n_chunks, 4):
+                raise AssertionError(f"[18] {what} launches (row-block K1, "
+                                     f"K1, K5, K6) {c}")
+        if not torch.equal(theta4, host.theta):
+            raise AssertionError("[18] theta after 4 iterations differs "
+                                 "between fused and host validation")
+        acc_f, acc_h = fused.stats.acc_stats(), host.stats.acc_stats()
+        if len(acc_f) != fused_iters or len(acc_h) != 4 or not np.allclose(
+                acc_f[:4], acc_h, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"[18] acc series differ: {acc_f} / "
+                                 f"{acc_h}")
+        if not np.isfinite(fused.stats.score_stats()[1]).all():
+            raise AssertionError("[18] non-finite fitness")
+        if len(glob.glob(os.path.join(runs_dir, f"fused_{n_val}", "models",
+                                      "best", "best_elite", "*.pth"))) != 1:
+            raise AssertionError("[18] the device podium's slot file is "
+                                 "missing")
+        ms_f = [round(t * 1e3, 3) for t in fused.stats.time_stats()]
+        ms_h = [round(t * 1e3, 3) for t in host.stats.time_stats()]
+        log(f"[18] NESMaster (experiments/mscoco_nes.json, {n_val} val "
+            f"images, val_batch_size 256, gens_per_dispatch 8, kernel_noise, "
+            f"{F} pairs, batch {B}, pop_chunk {P}, bf16): fused validation "
+            f"ms per iteration {ms_f} (blocks of 4); host validation {ms_h}; "
+            f"row-block K1 launches {c_f[0]} in 4 iterations (one per "
+            f"validation), K1 per block 0; theta bitwise equal after 4 "
+            f"iterations; acc fused {[round(a, 6) for a in acc_f]}, host "
+            f"{[round(a, 6) for a in acc_h]} ({card})")
+        return fused, host, ms_f, ms_h, c_f
+
+    both_paths(256, 4)
+    fused, host, ms_f, ms_h, c_f = both_paths(VAL_ITEMS, 8)
+
+    # validation alone: fused (device) and host, and no host sync
+    task = fused.task
+    vconsts = task.device_val_consts()
+    theta = fused.theta
+    val_ms = time_ms(lambda: task.validate_device(theta, vconsts))
+    t0 = time.perf_counter()
+    host_val = task.validate(theta)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host.task.validate(theta)
+    host_ms2 = (time.perf_counter() - t0) * 1e3
+    e_rows = fused._elite_rows_dev()
+    e_scores = torch.as_tensor(fused._elite_scores_f32(), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        val = task.validate_device(theta, vconsts)
+        merged = podium_merge(e_rows, e_scores, theta[None], val.reshape(1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if abs(float(val) - host_val) > 1e-4 * max(abs(host_val), 1e-2) or \
+            merged[0].shape != e_rows.shape:
+        raise AssertionError(f"[18] validate_device {float(val)} against "
+                             f"host {host_val}")
+    merge_ms = time_ms(lambda: podium_merge(e_rows, e_scores, theta[None],
+                                            val.reshape(1)), reps=20)
+    log(f"[18] validation of {VAL_ITEMS} images: validate_device "
+        f"{val_ms:.3f} ms (device time), podium_merge {merge_ms:.3f} ms; "
+        f"host validate (decode, copy, native CIDEr, predictions JSON) "
+        f"{host_ms:.3f} / {host_ms2:.3f} ms (host clock); CIDEr device "
+        f"{float(val):.6f}, host {host_val:.6f}; validate_device and "
+        f"podium_merge ran under set_sync_debug_mode('error') ({card})")
+
+    # the row-block launch against one launch per block of 128
+    params = dc.prepare_decode_params(task.spec, theta, task.model.options,
+                                      dtype=torch.bfloat16)
+    feats = vconsts["feats"]
+    T, Fd = task.model.options.seq_length, feats.shape[1]
+    n_blocks = -(-VAL_ITEMS // 128)
+    row = {}
+    for tile in (0, 1920):
+        for need_lp in (True, False):
+            one = dc.decode_rows(params, feats, T, need_lp, vocab_tile=tile)
+            per = [dc.decode_fused(params, feats[lo:lo + 128], T, need_lp,
+                                   vocab_tile=tile)
+                   for lo in range(0, VAL_ITEMS, 128)]
+            if not (torch.equal(one[0], torch.cat([p[0] for p in per]))
+                    and torch.equal(one[1], torch.cat([p[1] for p in per]))):
+                raise AssertionError(f"[18] row-block launch (vocab_tile "
+                                     f"{tile}, lp {need_lp}): not bitwise "
+                                     "the per-block launches")
+        one_ms = time_ms(lambda: dc.decode_rows(params, feats, T, False,
+                                                vocab_tile=tile))
+        per_ms = time_ms(lambda: [
+            dc.decode_fused(params, feats[lo:lo + 128], T, False,
+                            vocab_tile=tile)
+            for lo in range(0, VAL_ITEMS, 128)], reps=2)
+        row[tile] = (one_ms, per_ms)
+        log(f"[18] {'K4 (vocab_tile 1920)' if tile else 'K1'} over "
+            f"{VAL_ITEMS} rows: one launch of {n_blocks} clusters "
+            f"{one_ms:.3f} ms, {n_blocks} launches of one cluster "
+            f"{per_ms:.3f} ms ({per_ms / one_ms:.1f}x); tokens and lp bit "
+            f"for bit ({card})")
+    # the row-block launch against its plain twin on the main path's inputs
+    # (VAL_ITEMS rows, bf16): the timed plain run's tokens are held to the
+    # timed launch's, rows that differ only where the plain top-2 gap is a
+    # near-tie; lp over the row blocks whose tokens all agree (a block's
+    # early exit follows its rows)
+    seq, _ = dc.decode_rows(params, feats, T, False)
+    seq_l, lp_k = dc.decode_rows(params, feats, T, True)
+    plain = {}
+    plain_ms = time_ms(lambda: plain.update(out=dc.decode_rows_plain(
+        params, feats, T, False)), reps=1)
+    seq_p, lp_p, gap_p = dc.decode_rows_plain(params, feats, T, True,
+                                              top2_gap=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(seq, seq_l) and torch.equal(plain["out"][0], seq_p)):
+        raise AssertionError("[18] row-block tokens depend on need_logprobs")
+    share, n_diff = check_near_ties(
+        seq, seq_p, gap_p, f"[18] decode_rows bf16 at {VAL_ITEMS} rows")
+    same = (seq_l == seq_p).all(-1)
+    block = torch.arange(VAL_ITEMS, device=dev) // 128
+    keep = ~torch.isin(block, block[~same])
+    if not bool(keep.any()):
+        raise AssertionError("[18] decode_rows bf16: no row block agrees "
+                             "with the plain twin")
+    err = float((lp_k - lp_p)[keep].abs().max())
+    if err > LP_BF16_TOL:
+        raise AssertionError(f"[18] decode_rows bf16: lp error {err:.3g} > "
+                             f"{LP_BF16_TOL}")
+    params32 = dc.prepare_decode_params(task.spec, theta, task.model.options)
+    seq32, lp32 = dc.decode_rows(params32, feats[:256].float(), T, True)
+    seq_p32, lp_p32 = dc.decode_rows_plain(params32, feats[:256].float(), T,
+                                           True)
+    torch.cuda.synchronize()
+    if not torch.equal(seq32, seq_p32):
+        raise AssertionError("[18] f32 row-block launch: tokens differ from "
+                             "the plain twin")
+    err32 = float((lp32 - lp_p32).abs().max())
+    if err32 > 2e-5:
+        raise AssertionError(f"[18] f32 row-block launch: lp error "
+                             f"{err32:.3g}")
+    tiled_plain_ms = time_ms(lambda: dc.decode_rows_plain(
+        params, feats, T, False, vocab_tile=1920), reps=1)
+
+    def library():
+        # cuBLAS for the decode's products (bf16 in, f32 out) and argmax
+        # over all rows: image step, 17 x gate products, 16 x logits
+        h = (feats @ params["img_w"]).to(torch.bfloat16)
+        for step in range(T + 1):
+            h @ params["i2h_w"]
+            h @ params["h2h_w"]
+            if step:
+                (h @ params["logit_w"]).argmax(-1)
+
+    lib_ms = time_ms(library)
+    flops = rows_flops(seq, Fd, task.model.options.vocab_size + 1)
+    nbytes = sum(v.numel() * v.element_size() for v in params.values()) \
+        + feats.numel() * feats.element_size() + seq.numel() * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16
+    b_ms = max(t_bytes, t_ops) * 1e3
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    ctas = dc.member_cluster_info()["cluster"] * n_blocks
+    log(f"[18] decode_rows at {VAL_ITEMS} rows: {row[0][0]:.3f} ms, {ctas} "
+        f"CTAs (plain twin {plain_ms:.3f} ms, cuBLAS products "
+        f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: {flops / 1e9:.1f} "
+        f"GFLOP, {nbytes / 1e6:.1f} MB, {b_ms / row[0][0]:.1%} of it); bf16 "
+        f"against the plain twin: {share:.4%} of rows identical, {n_diff} "
+        f"differ, each first at a near-tie (top-2 gap < 1e-2), max |lp - "
+        f"plain| {err:.3g} over {int(keep.sum())} rows of agreeing blocks; "
+        f"f32 on 256 rows: tokens equal, max |lp - plain| {err32:.3g}; K4's "
+        f"(vocab_tile 1920) plain twin {tiled_plain_ms:.3f} ms ({card})")
+    shutil.rmtree(runs_dir)
+    return [{
+        "name": "decode_rows", "route": "cuda",
+        "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+        "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py:658",
+        "launches": c_f[0], "max_abs_err": err, "ms": row[0][0],
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "rows": VAL_ITEMS, "ctas_per_launch": ctas,
+        "f32_256_rows_max_abs_err": err32,
+        "per_block_launches_ms": row[0][1], "tiled_1920_ms": row[1920][0],
+        "tiled_1920_per_block_launches_ms": row[1920][1],
+        "tiled_1920_plain_ms": tiled_plain_ms,
+        "validate_device_ms": val_ms, "host_validate_ms": host_ms2,
+        "fused_iteration_ms": ms_f, "host_iteration_ms": ms_h,
+    }]
 
 
 def main() -> int:
@@ -1181,23 +1491,25 @@ def main() -> int:
         exp["log_dir"] = os.path.join(runs_dir, name)
         return exp
 
-    for c in counters:
+    for c in (*counters, dc.decode_rows):
         c.launches = 0
     t0 = time.perf_counter()
     master = NESMaster(experiment("train"), device=dev, data=data)
     master.run_master(max_iterations=4)
     torch.cuda.synchronize()
     counts_m = tuple(c.launches for c in counters)
+    rows_m = dc.decode_rows.launches
     t_master = time.perf_counter() - t0
     acc = master.stats.acc_stats()
     if master.it.iteration() != 4 or len(acc) != 4 or \
             not np.isfinite(master.stats.score_stats()[1]).all():
         raise AssertionError("NESMaster: 4 finite iterations with "
                              "validation expected")
-    if counts_m[2] != 4 * n_chunks or counts_m[3] != 4 or counts_m[0] < 4 \
-            or counts_m[1] or counts_m[4]:
+    if not master._val_fused or counts_m != (0, 0, 4 * n_chunks, 4, 0) \
+            or rows_m != 4:
         raise AssertionError(f"NESMaster launches (K1, K2, K5, K6, K7) "
-                             f"{counts_m}")
+                             f"{counts_m}, row-block K1 {rows_m}, fused "
+                             f"validation {master._val_fused}")
     zinfo = glob.glob(os.path.join(runs_dir, "train", "snapshot",
                                    "z_info_*.json"))
     if len(zinfo) != 1 or not zinfo[0].endswith(
@@ -1209,8 +1521,9 @@ def main() -> int:
         f"mean fitness {[round(m, 4) for m in master.stats.score_stats()[1]]}"
         f"; ms per iteration (generation + validation) "
         f"{[round(t * 1e3, 3) for t in master.stats.time_stats()]}"
-        f"; launches K1 {counts_m[0]}, K5 {counts_m[2]}, K6 {counts_m[3]}, "
-        f"K2 0, K7 0; snapshot {os.path.basename(zinfo[0])}")
+        f"; fused validation, row-block K1 launches {rows_m} (one per "
+        f"generation), K5 {counts_m[2]}, K6 {counts_m[3]}, K1 0, K2 0, K7 0; "
+        f"snapshot {os.path.basename(zinfo[0])}")
     exp2 = experiment("resume")
     exp2["from_infos"] = zinfo[0]
     resumed = NESMaster(exp2, device=dev, data=data)
@@ -1340,6 +1653,7 @@ def main() -> int:
         f"[5] ({card})")
     kernels += sampling_phases(task, theta, members, feats2, seeds, batches,
                                sens, lib_ms, card)
+    kernels += validation_phase(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,11 @@ pair's f32 delta in the kernel from its seed, once per chunk, and K6
 deltas again and sums the weighted gradient, once per generation (JAX:
 ``nes.py:356-403``).
 
+``generation_val_block`` (``tpu.fused_validation``) runs K generations
+with the validation on the card: each first validates its pre-update theta
+(``CocoTask.validate_device``) and merges it into the device podium
+(``es.podium_merge``), with no host sync until the block's rows are read.
+
 The eval paths feed the fitness scorer the same tensors laid out the same
 way, and every gradient sums ``w_i * delta_i`` in pair order with each
 product rounded to f32 first (K6's order), so with equal tokens and equal
@@ -45,6 +50,7 @@ import numpy as np
 import torch
 
 from .engine_base import PopulationEngine
+from .es import podium_merge
 from .experiment import NESExperiment
 from .iteration import Iteration
 from .snapshot import load_loader_state, save_snapshot
@@ -236,6 +242,45 @@ class NESEngine(PopulationEngine):
             packs.append(packed)
         return theta, opt_state, torch.stack(packs)
 
+    def generation_val_block(self, theta, opt_state, sens, sigma,
+                             seeds: np.ndarray, idx: np.ndarray,
+                             stepsize: float, l2coeff: float, e_rows,
+                             e_scores: np.ndarray):
+        """K generations with validation on the card (tpu.fused_validation):
+        each validates its pre-update theta (``task.validate_device``, one
+        validation per generation as the reference's nic_nes/iteration.py:
+        49-50), merges it into the (E, dim) device podium ``e_rows`` (slot
+        scores ``e_scores``, -inf where unfilled) with ``podium_merge``, then
+        runs the generation. seeds (K, F), idx (K, F, B). Returns (theta,
+        opt_state, e_rows, rows (K, 2F+3+E)), each row [fitnesses (2F) |
+        ratio | mean|theta| | val | elite scores (E)], all on the card (JAX:
+        nes.py:448-488)."""
+        vconsts = self.task.device_val_consts()
+        e_scores = torch.as_tensor(np.asarray(e_scores, np.float32),
+                                   device=theta.device)
+        rows = []
+        for k in range(seeds.shape[0]):
+            val = self.task.validate_device(theta, vconsts).reshape(1)
+            if e_rows.shape[0]:
+                e_rows, e_scores = podium_merge(e_rows, e_scores, theta[None],
+                                                val)
+            theta, opt_state, packed = self.generation(
+                theta, opt_state, sens, sigma, seeds[k], idx[k], stepsize,
+                l2coeff)
+            rows.append(torch.cat([packed, val, e_scores]))
+        return theta, opt_state, e_rows, torch.stack(rows)
+
+    @staticmethod
+    def unpack_val(rows, F: int, E: int):
+        """(fitnesses (K, F, 2), ratio (K,), mean|theta| (K,), val (K,),
+        elite scores after each merge (K, E)) as numpy from
+        generation_val_block's rows: the block's one host sync."""
+        arr = rows.detach().cpu().numpy()
+        off = 2 * F
+        fits = arr[..., :off].reshape(*arr.shape[:-1], F, 2)
+        return (fits, arr[..., off], arr[..., off + 1], arr[..., off + 2],
+                arr[..., off + 3:off + 3 + E])
+
     @staticmethod
     def unpack(packed, F: int):
         """(fitnesses (F, 2), ratio, mean|theta|) as numpy; accepts a (2F+2,)
@@ -269,8 +314,13 @@ class NESMaster:
     give the same theta. The JAX package's sidecar holds only the batch
     sampler, and its resumed run draws the seeds of generation 1 again.
 
-    Not ported yet, and refused when set: fused validation
-    (``tpu.fused_validation`` true; "auto" resolves off), a device mesh
+    With ``tpu.fused_validation`` (on under "auto" when the run can fuse it
+    and ``gens_per_dispatch`` > 1, as in the JAX package) every generation of
+    a block validates on the card and the podium's rows stay there: the
+    block's rows are read once at its end, and the slot files are written
+    when something reads them (``_materialize_podium``).
+
+    Not ported yet, and refused when set: a device mesh
     (``tpu.mesh_shape``), safe mutations (their sensitivities) and
     ``tpu.profile``."""
 
@@ -282,8 +332,7 @@ class NESMaster:
         self.exp = exp
         self.config = parse_config(exp)
         self.tpu_cfg = tpu = parse_tpu_config(exp)
-        for knob, value in (("fused_validation", tpu.fused_validation is True),
-                            ("mesh_shape", tpu.mesh_shape is not None),
+        for knob, value in (("mesh_shape", tpu.mesh_shape is not None),
                             ("profile", tpu.profile)):
             if value:
                 raise NotImplementedError(
@@ -314,6 +363,9 @@ class NESMaster:
                                           "0_current_params.pth")
         self._rng = np.random.default_rng(tpu.seed)
         self._last_eval = None
+        self._val_fused = False  # resolved by run_master
+        self._elites_dev = None  # the device podium's (E, dim) rows
+        self._podium_dirty = False  # slot files behind the adopted scores
         self._pending_loader_state = None  # set by a from_infos resume
         self._init_theta(exp)
         self._sampler = None  # built lazily; rebuilt on annealing
@@ -389,6 +441,98 @@ class NESMaster:
             return np.tile(self._sampler.batch(bs), (F, 1))
         return self._sampler.member_batches(F, bs)
 
+    # ---- tpu.fused_validation: validation and podium on the card ------------
+
+    def _val_fused_mode(self) -> bool:
+        """Whether the blocks validate on the card (JAX: nes.py:902-925).
+        Capable: device fitness, val_freq 1, patience 0 (patience could
+        anneal sigma inside a block) and device val consts. "auto" turns it
+        on when capable and gens_per_dispatch > 1; true when capable, with a
+        warning when not. The device val consts are built last, only when
+        the answer depends on them."""
+        want = self.tpu_cfg.fused_validation
+        if want is False or (want == "auto"
+                             and self.tpu_cfg.gens_per_dispatch <= 1):
+            return False
+        capable = (self.task.fitness_on_device
+                   and max(self.tpu_cfg.val_freq, 1) == 1
+                   and not self.config.patience
+                   and self.task.device_val_consts() is not None)
+        if want == "auto":
+            return capable
+        if not capable:
+            logger.warning(
+                "tpu.fused_validation=true but this run cannot fuse "
+                "validation (needs device fitness, val_freq=1, patience=0); "
+                "using host validation")
+        return capable
+
+    def _elite_rows_dev(self) -> torch.Tensor:
+        """The device podium's (E, dim) rows, built from the slot files on
+        first use; unfilled slots are zero rows whose -inf scores keep them
+        out of every merge."""
+        if self._elites_dev is None:
+            elites = self.it.best_elites()
+            rows = torch.zeros((len(elites), self.engine.dim),
+                               dtype=torch.float32)
+            for r, (path, _) in enumerate(elites):
+                if path and os.path.isfile(path):
+                    rows[r] = self.task.spec.load_pth(path)
+            self._elites_dev = rows.to(self.device)
+        return self._elites_dev
+
+    def _elite_scores_f32(self) -> np.ndarray:
+        return np.asarray([float(np.float32(s)) if p else -np.inf
+                           for p, s in self.it.best_elites()], np.float32)
+
+    def _materialize_podium(self):
+        """Write the slot files of the scores adopted from the device merge:
+        pull the podium's rows once and install them. Runs before anything
+        reads the slot files (a snapshot, the final one)."""
+        if not self._podium_dirty:
+            return
+        scores = [s for _, s in self.it.best_elites() if np.isfinite(s)]
+        rows = self._elites_dev.cpu()
+        self.it.install_merged_podium(
+            scores, rows, lambda row, path: self.task.spec.save_pth(row, path))
+        self._podium_dirty = False
+
+    def _val_fused_step(self, b: int, t_block: float, sigma, seeds, idx,
+                        F: int, plot: bool):
+        """``b`` generations with validation and podium merge on the card,
+        then the host bookkeeping of each from the block's rows, read in one
+        sync. The merged scores are adopted at once; the rows stay on the
+        card until _materialize_podium (JAX: nes.py:964-1011)."""
+        it = self.it
+        E = len(it.best_elites())
+        new_theta, new_opt_state, e_rows, rows = \
+            self.engine.generation_val_block(
+                self.theta, self.opt_state, self._sens, sigma, seeds, idx,
+                self.optimizer.stepsize, self.config.l2coeff or 0.0,
+                self._elite_rows_dev(), self._elite_scores_f32())
+        fits_all, ratios, norms, vals, etops = self.engine.unpack_val(
+            rows, F, E)
+        block_dt = time.time() - t_block
+        self.theta, self.opt_state = new_theta, new_opt_state
+        # a snapshot serializes experiment.opt_state next to theta
+        self.experiment.opt_state = self.opt_state
+        # adopt the merged scoreboard before the stats: a block ends on a
+        # snapshot iteration, whose snapshot must see the merged podium
+        pre = [float(np.float32(s)) for _, s in it.best_elites()]
+        final = [float(s) for s in etops[b - 1]] if E else []
+        self._elites_dev = e_rows
+        if final != pre:
+            it.adopt_merged_scores([s for s in final if np.isfinite(s)])
+            self._podium_dirty = True
+        for k in range(b):
+            if k:
+                it.incr_iteration()
+                logger.info("********** Iteration %d (chained) **********",
+                            it.iteration())
+            self._record_stats(fits_all[k], ratios[k], [norms[k]],
+                               float(vals[k]), block_dt / b, plot,
+                               best_acc=float(etops[k][0]) if E else None)
+
     # ---- main loop ----------------------------------------------------------
 
     @staticmethod
@@ -403,8 +547,9 @@ class NESMaster:
 
     def _block_budget(self, gens_left: int, limit: int | None) -> int:
         """Generations chained into the next block (tpu.gens_per_dispatch).
-        A block never contains an interior validation, schedule firing or
-        snapshot, so the event cadence is the per-generation one; the size
+        A block never contains an interior schedule firing or snapshot, nor
+        an interior host validation (fused validation runs inside it), so
+        the event cadence is the per-generation one; the size
         is rounded down to a power of two, as in the JAX package, so both
         packages run the same blocks."""
         b = max(self.tpu_cfg.gens_per_dispatch, 1)
@@ -426,9 +571,12 @@ class NESMaster:
         if limit:
             b = min(b, limit - self.it.iteration())
         vf = max(self.tpu_cfg.val_freq, 1)
-        if vf == 1:
+        if self._val_fused:
+            pass  # every generation validates inside the block
+        elif vf == 1:
             return 1  # per-generation validation = per-generation blocks
-        b = min(b, self._gap_to_next(nxt, vf))
+        else:
+            b = min(b, self._gap_to_next(nxt, vf))
         if self.config.schedule_limit:
             b = min(b, self._gap_to_next(nxt, self.config.schedule_limit,
                                          self.config.schedule_start or 0))
@@ -454,10 +602,12 @@ class NESMaster:
         self.it.process_evaluated_elites()
 
     def _record_stats(self, fitnesses, ratio, norm_vec, eval_score, dt,
-                      plot):
+                      plot, best_acc=None):
         """Stats + snapshot for one completed generation, after the update:
         the snapshot's current_model is the post-update theta (the
-        reference's resume point)."""
+        reference's resume point). ``best_acc`` replaces the podium's best
+        score on the fused-validation path, whose interior generations'
+        podiums exist only on the card."""
         config, it, stats = self.config, self.it, self.stats
         stats.record_update_ratio(float(ratio))
         stats.record_score_stats(np.asarray(fitnesses).ravel())
@@ -465,12 +615,14 @@ class NESMaster:
         stats.record_step_time_stats(dt=dt)
         stats.record_norm_stats(norm_vec)
         stats.record_acc_stats(eval_score)
-        stats.record_best_acc_stats(it.best_elites()[0][1])
+        stats.record_best_acc_stats(
+            it.best_elites()[0][1] if best_acc is None else best_acc)
         stats.record_std_stats(it.noise_stdev())
         stats.update_mem_stats()
         stats.log_stats()
         it.log_stats()
         if config.snapshot_freq and it.iteration() % config.snapshot_freq == 0:
+            self._materialize_podium()  # z_info references the slot files
             self._write_current_model()  # z_info references this file
             save_snapshot(stats, it, self.experiment,
                           loader_state=self.loader_state())
@@ -484,6 +636,10 @@ class NESMaster:
         limit = max_iterations or config.max_nb_iterations
         F = self._pair_count()
         val_freq = max(self.tpu_cfg.val_freq, 1)
+        self._val_fused = self._val_fused_mode()
+        if self._val_fused:
+            logger.info("fused validation: every generation validates on "
+                        "the card; the podium stays there")
 
         while not limit or it.iteration() < limit:
             it.incr_epoch()
@@ -511,6 +667,16 @@ class NESMaster:
                     if idx is None:
                         idx = np.empty((b, *row.shape), row.dtype)
                     idx[k] = row
+
+                if self._val_fused:
+                    self._val_fused_step(b, t_block, sigma, seeds, idx, F,
+                                         plot)
+                    if it.patience_reached() or it.schedule_reached():
+                        if config.stepsize_divisor:
+                            self.optimizer.stepsize /= config.stepsize_divisor
+                        self._sampler = None
+                        break  # rebuild the epoch at the new batch size
+                    continue
 
                 new_theta, new_opt_state, packs = \
                     self.engine.generation_block(
@@ -550,6 +716,7 @@ class NESMaster:
         # skip the final snapshot when the loop's freq snapshot just wrote
         # this exact iteration
         if getattr(self, "_last_snapshot_iter", None) != it.iteration():
+            self._materialize_podium()
             self._write_current_model()
             save_snapshot(stats, it, self.experiment,
                           loader_state=self.loader_state())

@@ -18,6 +18,11 @@ Port of ``nes_img_captioning_tpu/ops/decode_pallas.py``:
   Pallas ``decode_fused`` with ``vocab_tile > 0`` (``:112-157,170-182``):
   K1 with the logit reduction merged over vocab tiles in order, so the
   tokens are K1's bit for bit and lp sums in the tiled order;
+* ``decode_rows`` is K1 (K4 with ``vocab_tile``) over any number of rows of
+  one member in one launch, a cluster per block of 128 rows, all reading
+  the one member's weights: validation's decode (the JAX package maps the
+  Pallas ``decode_fused`` over the val chunks, ``tasks/captioning.py:
+  704-714``), the tokens and lp of one launch per block;
 * ``decode_pair_perturb`` (K2) replaces the Pallas ``decode_pair_perturb``
   (``decode_pallas.py:295-354``, body ``_pair_kernel`` ``:251-288``): both
   signs of one antithetic pair, the weights formed as
@@ -45,7 +50,9 @@ kernel's design.
 
 Kernel sources: ``csrc/decode.cu``, built with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (loaded with ``ctypes``) on first
-use, into ``_build/`` inside this package.
+use, into ``_build/`` inside this package. One ``nvcc`` with
+``--split-compile=0`` runs the optimiser and ``ptxas`` on the file's many
+kernel instantiations in parallel over the machine's cores.
 
 What bounds them on an H100, and the design. A cluster holds all B <= 128
 rows of its member, lane or pair, so the batch-wide early exit stays inside
@@ -105,6 +112,7 @@ from .noise import TWO_PI_F32, gumbel_plain, philox4x32_10, philox_normal_plain
 __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
            "decode_fused", "decode_fused_plain", "decode_sample",
            "decode_sample_plain", "decode_tiled", "decode_tiled_plain",
+           "decode_rows", "decode_rows_plain",
            "gumbel_table", "gumbel_counts", "decode_pair_perturb",
            "decode_pair_perturb_plain", "decode_pair_rng",
            "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_flat",
@@ -138,7 +146,9 @@ def prepare_decode_params(spec, theta: torch.Tensor, options,
     """Flat torch-order theta -> the padded-weight dict the kernels take.
     Weights are transposed to (in, out) and cast to ``dtype``; vocab axes
     are padded to the 128 multiple; biases stay f32 and (1, N)-shaped, the
-    padded logit bias at ``NEG`` so a pad token never wins the argmax."""
+    padded logit bias at ``NEG`` so a pad token never wins the argmax.
+    Every tensor is a copy with its own storage, so it is aligned for the
+    kernels' bulk copies whatever its offset in theta."""
     p = spec.unravel(theta)
     V1 = options.vocab_size + 1
     pad = pad_vocab(V1) - V1
@@ -146,11 +156,11 @@ def prepare_decode_params(spec, theta: torch.Tensor, options,
     F = torch.nn.functional
     return {
         "img_w": p["img_embed.weight"].t().to(dtype).contiguous(),
-        "img_b": p["img_embed.bias"].to(f32)[None, :].contiguous(),
+        "img_b": p["img_embed.bias"].to(f32)[None, :].clone(),
         "i2h_w": p["core.i2h.weight"].t().to(dtype).contiguous(),
-        "i2h_b": p["core.i2h.bias"].to(f32)[None, :].contiguous(),
+        "i2h_b": p["core.i2h.bias"].to(f32)[None, :].clone(),
         "h2h_w": p["core.h2h.weight"].t().to(dtype).contiguous(),
-        "h2h_b": p["core.h2h.bias"].to(f32)[None, :].contiguous(),
+        "h2h_b": p["core.h2h.bias"].to(f32)[None, :].clone(),
         "logit_w": F.pad(p["logit.weight"].t(), (0, pad)).to(dtype)
         .contiguous(),
         "logit_b": F.pad(p["logit.bias"], (0, pad), value=NEG).to(f32)
@@ -312,6 +322,20 @@ def decode_tiled_plain(params: dict, feats: torch.Tensor, vocab_tile: int,
     tiles of ``vocab_tile`` columns (a multiple of 128 dividing Vpad)."""
     return decode_fused_plain(params, feats, seq_length, need_logprobs,
                               vocab_tile=vocab_tile, top2_gap=top2_gap)
+
+
+def decode_rows_plain(params: dict, feats: torch.Tensor,
+                      seq_length: int = 16, need_logprobs: bool = True, *,
+                      vocab_tile: int = 0, top2_gap: bool = False):
+    """Plain twin of ``decode_rows``: K1's (K4's) plain twin on each block
+    of 128 rows of feats (N, F), one member's params; (seq, lp[, gap]),
+    each (N, T). Blocks as the kernel's, so the early exits, and with them
+    lp, are the kernel's too."""
+    outs = [decode_fused_plain(params, feats[lo:lo + KERNEL_WIDTH],
+                               seq_length, need_logprobs,
+                               vocab_tile=vocab_tile, top2_gap=top2_gap)
+            for lo in range(0, feats.shape[0], KERNEL_WIDTH)]
+    return tuple(torch.cat(o) for o in zip(*outs))
 
 
 def _check_lanes(seeds, gumbel, row0: int):
@@ -489,9 +513,9 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> tuple[Path, str]:
-    """Compile ``csrc/*.cu`` for sm_90a into ``_build/`` unless a library
-    built from the same sources is already there. Returns (library path,
-    the compiler's ptxas report; empty when nothing was compiled)."""
+    """Compile ``csrc/decode.cu`` for sm_90a into ``_build/`` unless a
+    library built from the same sources is already there. Returns (library
+    path, the compiler's ptxas report; empty when nothing was compiled)."""
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in _SOURCES))
     lib = _BUILD_DIR / f"libnes_decode_{digest.hexdigest()[:12]}.so"
     if lib.is_file():
@@ -499,8 +523,8 @@ def build_kernels() -> tuple[Path, str]:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), *map(str, _SOURCES)]
+           "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", str(tmp), *map(str, _SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -517,6 +541,8 @@ def _kernels() -> ctypes.CDLL:
     lib.nes_decode_fused.restype = ci
     lib.nes_decode_tiled.argtypes = [ci] * 8 + [vp] * 10 + [vp] * 2 + [vp]
     lib.nes_decode_tiled.restype = ci
+    lib.nes_decode_rows.argtypes = [ci] * 7 + [vp] * 10 + [vp] * 2 + [vp]
+    lib.nes_decode_rows.restype = ci
     lib.nes_decode_sample.argtypes = [ci] * 9 + [vp] * 10 + [vp] * 3 + [vp]
     lib.nes_decode_sample.restype = ci
     lib.nes_decode_sample_table.argtypes = \
@@ -605,14 +631,17 @@ def _check_variant(params: dict, greedy: bool, seeds, gumbel,
            "seeds and gumbel are for sampling (greedy=False)")
 
 
-def _launch_args(params: dict, feats: torch.Tensor, what: str):
+def _launch_args(params: dict, feats: torch.Tensor, what: str,
+                 max_rows: int | None = KERNEL_WIDTH):
     """Checks of K1, K3 and K4's operands: (params, feats in dt, (M, B,
-    F), Vpad, dtype code, stream, single member?)."""
+    F), Vpad, dtype code, stream, single member?). ``max_rows=None``: the
+    row-block launch, any number of rows."""
     dt = params["img_w"].dtype
     _check(dt in _DTYPE_CODE, f"weight dtype {dt} is not f32 or bf16")
     params, feats, single = _batched(params, feats)
     M, B, F = feats.shape
-    _check(1 <= B <= KERNEL_WIDTH, f"batch {B} outside 1..{KERNEL_WIDTH}")
+    _check(B >= 1 and (max_rows is None or B <= max_rows),
+           f"batch {B} outside 1..{max_rows}")
     Vpad = _check_params(params, M, F, dt, what=what)
     feats = feats.to(dt).contiguous()
     _check(feats.device == params["img_w"].device, "feats on another device")
@@ -688,6 +717,43 @@ def decode_tiled(params: dict, feats: torch.Tensor, vocab_tile: int,
 
 
 decode_tiled.launches = 0
+
+
+def decode_rows(params: dict, feats: torch.Tensor, seq_length: int = 16,
+                need_logprobs: bool = True, *, vocab_tile: int = 0):
+    """K1 (K4 with ``vocab_tile``) over all N rows of feats (N, F) under one
+    member's params, in one launch: ceil(N / 128) clusters of 2 CTAs, every
+    one reading the member's weights (one member's tensor maps) and cluster
+    b rows [128 b, 128 b + 128), the last block ragged. Returns (seq (N, T)
+    int32, lp (N, T) f32), bit for bit those of one ``decode_fused`` (or
+    ``decode_tiled``) launch per block of 128 rows. CPU tensors run the
+    plain twin."""
+    _check_variant(params, True, None, None, vocab_tile)
+    if not feats.is_cuda:
+        return decode_rows_plain(params, feats, seq_length, need_logprobs,
+                                 vocab_tile=vocab_tile)
+    _check(params["img_w"].dim() == 2 and feats.dim() == 2,
+           "decode_rows takes one member's params and feats (N, F)")
+    params, feats, (_, N, F), Vpad, code, stream, _ = _launch_args(
+        params, feats, "params", max_rows=None)
+    _check_aligned(params, "params")
+    # the last block's outputs are written in full; its rows past N are
+    # padding, sliced off here
+    rows = -(-N // KERNEL_WIDTH) * min(N, KERNEL_WIDTH)
+    seq = torch.empty((rows, seq_length), dtype=torch.int32,
+                      device=feats.device)
+    lp = torch.empty((rows, seq_length), dtype=torch.float32,
+                     device=feats.device)
+    err = _kernels().nes_decode_rows(
+        code, int(need_logprobs), N, F, Vpad, seq_length, vocab_tile,
+        feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
+        seq.data_ptr(), lp.data_ptr(), stream)
+    _raise_on(err, "decode_rows")
+    decode_rows.launches += 1
+    return seq[:N], lp[:N]
+
+
+decode_rows.launches = 0
 
 
 def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,

@@ -19,9 +19,13 @@ The sampling kinds draw ``seq_per_img`` (default 5) independent samples per
 image, rows image-major (row ``b * spi + i``), as the reference's
 ``repeat(feats, 5)``. A batch above the kernels' 128 rows is decoded in
 row blocks of at most 128, one launch each (K3's blocks draw the Gumbel
-stream of one launch over all rows). Host validation decodes the val split
-with K1 (K4 when tiled) and scores it with word-level plain CIDEr.
-Validation fused into the generation waits for a later slice.
+stream of one launch over all rows). Validation decodes the val subset
+with one launch of K1 (K4 when tiled) over all its row blocks
+(``decode_rows``) and scores it with word-level plain CIDEr: on the host
+with the native scorer (``validate``, which also writes the predictions
+JSON), or on the card (``validate_device`` on ``device_val_consts``, no
+host sync), which ``tpu.fused_validation`` runs inside the master's
+blocks.
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ class CocoTask(Task):
         self.val_fc = torch.as_tensor(self.data.split_feats("val"),
                                       device=self.device)
         self.train_gts = self.data.split_gts("train")
-        self._val_scorer = None
+        self._train_scorer = self._val_scorer = None
+        self._val_dev_cache = None
         # predictions artifact destination; absent when the task is built
         # without a run (tests, chip_smoke's kernel phases)
         self._eval_dir = (os.path.join(exp["log_dir"], "eval")
@@ -149,6 +154,17 @@ class CocoTask(Task):
             from ..ops.decode_layout import DecodeLayout
 
             self.decode_layout = DecodeLayout(self.spec, self.model.options)
+
+    @property
+    def train_scorer(self) -> IndexedCiderScorer:
+        """CIDEr-D with DF fitted over the train ground truths (or the
+        frozen ``caption_options.cider_df`` table) on the native scorer: the
+        host counterpart of the device CIDEr-D (JAX: captioning.py:
+        190-201)."""
+        if self._train_scorer is None:
+            self._train_scorer = IndexedCiderScorer(
+                self.train_gts, variant="cider-d", frozen_df=self._frozen_df)
+        return self._train_scorer
 
     @property
     def val_scorer(self) -> IndexedCiderScorer:
@@ -362,21 +378,28 @@ class CocoTask(Task):
 
     # ---- validation ------------------------------------------------------------------
 
-    def _decode_split(self, theta, feats, num: int, bs: int) -> np.ndarray:
-        """Greedy-decode the first ``num`` rows of a split (all for -1, 0 or
-        None) with K1 (K4 when tiled), in batches of at most ``bs`` rows
-        (launches of at most the kernel's 128). Greedy rows are
-        independent, so the chunking changes no token."""
-        from ..ops.decode_cuda import prepare_decode_params
+    def _val_count(self, feats, num) -> int:
+        """Rows of a split that validation decodes: the first ``num`` (all
+        for -1, 0 or None)."""
+        n = feats.shape[0]
+        return n if num in (-1, None, 0) else min(num, n)
 
-        n = feats.shape[0] if num in (-1, None, 0) else min(num,
-                                                            feats.shape[0])
-        rows = max(min(bs, n), 1)
+    def _decode_rows(self, theta, feats) -> torch.Tensor:
+        """Greedy tokens (N, T) of theta on feats (N, F): one launch of K1
+        (K4 when tiled) over all row blocks of 128 (``decode_rows``)."""
+        from ..ops.decode_cuda import decode_rows, prepare_decode_params
+
         params = prepare_decode_params(self.spec, theta, self.model.options,
                                        dtype=self._decode_dtype)
-        seqs = [self._greedy(params, feats[s:s + rows])[0]
-                for s in range(0, n, rows)]
-        return torch.cat(seqs).cpu().numpy()
+        return decode_rows(params, feats, self.model.options.seq_length,
+                           False, vocab_tile=self._vocab_tile)[0]
+
+    def _decode_split(self, theta, feats, num: int) -> np.ndarray:
+        """Greedy-decode the first ``num`` rows of a split (all for -1, 0 or
+        None) in one launch. Greedy rows are independent, so the blocks
+        change no token."""
+        return self._decode_rows(
+            theta, feats[:self._val_count(feats, num)]).cpu().numpy()
 
     def _write_predictions(self, seqs: np.ndarray, split: str):
         """Reference-shaped predictions artifact: eval_cache_{split}.json =
@@ -394,12 +417,54 @@ class CocoTask(Task):
 
     def validate(self, theta) -> float:
         """Word-level plain CIDEr of theta's greedy captions over the first
-        config.num_val_items val images (captioning.py:617-625 of the JAX
-        package)."""
-        bs = self.config.val_batch_size or self.config.batch_size or 64
-        num = self.config.num_val_items or -1
-        seqs = self._decode_split(theta, self.val_fc, num, bs)
+        config.num_val_items val images, scored on the host by the native
+        scorer; writes the predictions JSON (captioning.py:617-625 of the
+        JAX package). The chunks of ``val_batch_size`` the JAX package
+        decodes change no token here: one launch decodes every row."""
+        seqs = self._decode_split(theta, self.val_fc,
+                                  self.config.num_val_items or -1)
         self._write_predictions(seqs, "val")
         mean, _ = self.val_scorer.score(self.data.word_id_rows(seqs),
                                         np.arange(len(seqs)))
         return float(mean)
+
+    def device_val_consts(self) -> dict | None:
+        """The card's constants of ``validate_device``, built once: the val
+        subset's feats in the decode dtype (no padding: the row-block
+        launch takes the ragged last block as it is), the token -> word-id
+        table of ``data.word_id_rows`` as one flat tensor (gathered with
+        ``table[seqs]``), the subset's image indices, and a word-level
+        plain-CIDEr DeviceCider over the val refs: validate()'s subset and
+        scorer. None when the task has no device CIDEr-D (JAX: captioning.
+        py:627-694)."""
+        if self._device_cider is None:
+            return None
+        if self._val_dev_cache is None:
+            from ..ops.cider_device import DeviceCider
+
+            n = self._val_count(self.val_fc, self.config.num_val_items or -1)
+            logger.info("building on-device val CIDEr scorer (%d images)", n)
+            self._val_device_cider = DeviceCider(
+                self.data.split_gts_words("val"), variant="cider",
+                device=self.device)
+            table = self.data.word_id_rows(
+                np.arange(self.data.vocab_size + 1))
+            self._val_dev_cache = {
+                "feats": self.val_fc[:n].to(self._decode_dtype).contiguous(),
+                "word": torch.as_tensor(table, dtype=torch.int64,
+                                        device=self.device),
+                "img": torch.arange(n, device=self.device),
+                "cider": self._val_device_cider.dev,
+            }
+        return self._val_dev_cache
+
+    def validate_device(self, theta, vconsts) -> torch.Tensor:
+        """validate() on the card: one row-block decode of the val subset,
+        the word-id gather and the word-level plain CIDEr of DeviceCider;
+        the mean score as a 0-d f32 tensor on the card, with no host sync
+        and no predictions JSON (JAX: captioning.py:696-724). Equal to
+        validate() to f32 accuracy."""
+        seqs = self._decode_rows(theta, vconsts["feats"])
+        wids = vconsts["word"][seqs.clamp(0, self.data.vocab_size).long()]
+        return self._val_device_cider.score_rows(
+            wids, vconsts["img"], dev=vconsts["cider"]).mean()

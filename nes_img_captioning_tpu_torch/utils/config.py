@@ -9,9 +9,12 @@ JAX package, so a file written for it parses here. The port reads
 ``precision``, ``delta_dtype``, ``kernel_perturb``, ``kernel_noise``,
 ``fused_decode``, ``device_cider``, ``decode_vocab_tile`` (validated when
 the task is built: a multiple of 128 dividing the padded vocab),
-``pop_chunk``, ``gens_per_dispatch``, ``val_freq`` and ``seed``; it refuses
-``fused_validation: true``, ``mesh_shape`` and ``profile``, and accepts the
-others without reading them yet. Unlike the JAX parser, ``kernel_noise``, ``fused_decode`` and
+``pop_chunk``, ``gens_per_dispatch``, ``val_freq``, ``fused_validation``
+(true, false or "auto": validation and podium on the card inside each
+block; "auto" turns it on when the run can fuse it and
+``gens_per_dispatch`` > 1, as the JAX package resolves it) and ``seed``;
+it refuses ``mesh_shape`` and ``profile``, and accepts the others without
+reading them yet. Unlike the JAX parser, ``kernel_noise``, ``fused_decode`` and
 ``device_cider`` are validated like the other tri-state knobs, so a
 near-miss such as ``"false"`` is rejected instead of read as true.
 """
@@ -72,7 +75,7 @@ class TpuConfig:
     decode_vocab_tile: int = 0  # vocab-tiled greedy decode K4; 0 = K1
     gens_per_dispatch: int = 1
     fused_es: object = "auto"
-    fused_validation: object = "auto"
+    fused_validation: object = "auto"  # on-card validation: "auto"|True|False
     es_decode_layout: object = "auto"
     kernel_perturb: object = "auto"  # pair kernel K2: "auto"|True|False
     kernel_noise: object = "auto"

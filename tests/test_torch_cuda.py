@@ -734,3 +734,63 @@ def test_k2_k5_take_256_rows_through_the_task(card_task):
     want5 = task._pair_fitness(seq5, lp5, idx, consts)
     assert torch.equal(fits5, want5)
     assert fits2.shape == fits5.shape == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("vocab_tile", [0, 128], ids=["K1", "K4"])
+def test_decode_rows_bitwise_per_block_launches(small_members, vocab_tile,
+                                                dt):
+    """The row-block launch (validation's decode) at N = 300 rows, blocks
+    of 128, 128 and 44, in one launch: tokens and lp bit for bit those of
+    one decode_fused (decode_tiled) launch per block; f32 tokens equal the
+    plain twin, lp within 2e-5."""
+    lay, members, _, _ = small_members
+    params = lay.prep(members[0], dt)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    feats = torch.randn((300, 256), generator=g, device="cuda")
+    before = tdc.decode_rows.launches
+    seq, lp = tdc.decode_rows(params, feats, need_logprobs=True,
+                              vocab_tile=vocab_tile)
+    assert tdc.decode_rows.launches == before + 1
+    blocks = [tdc.decode_fused(params, feats[lo:lo + 128],
+                               vocab_tile=vocab_tile)
+              for lo in (0, 128, 256)]
+    torch.cuda.synchronize()
+    assert seq.shape == lp.shape == (300, 16)
+    assert torch.equal(seq, torch.cat([b[0] for b in blocks]))
+    assert torch.equal(lp, torch.cat([b[1] for b in blocks]))
+    if dt == torch.float32:
+        seq_p, lp_p = tdc.decode_rows_plain(params, feats,
+                                            vocab_tile=vocab_tile)
+        assert torch.equal(seq, seq_p)
+        assert float((lp - lp_p).abs().max()) < 2e-5
+
+
+@pytest.mark.cuda
+def test_validate_device_on_the_card_makes_no_sync(card_task):
+    """validate_device on the card equals the host validate within rtol
+    2e-5, atol 2e-6; it and podium_merge run under
+    torch.cuda.set_sync_debug_mode("error"), so neither syncs the host."""
+    from nes_img_captioning_tpu_torch.algorithms.es import podium_merge
+
+    task = card_task("greedy")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    theta = task.spec.init_theta(g) * 3
+    vconsts = task.device_val_consts()
+    host = task.validate(theta)
+    e_rows = torch.zeros((2, theta.numel()), device="cuda")
+    e_scores = torch.tensor([0.5, -float("inf")], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        val = task.validate_device(theta, vconsts)
+        rows, scores = podium_merge(e_rows, e_scores, theta[None],
+                                    val.reshape(1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert val.is_cuda and val.dim() == 0
+    np.testing.assert_allclose(float(val), host, rtol=2e-5, atol=2e-6)
+    k = 0 if float(val) > 0.5 else 1
+    assert torch.equal(rows[k], theta)
