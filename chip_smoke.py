@@ -96,7 +96,19 @@ Phases, each printed as it ends (any failure exits non-zero):
     5000 rows (K1 and K4) bit for bit the 40 launches of one block each,
     and held to its plain twin on the same bf16 rows (tokens up to
     near-ties, lp), with its time against theirs, its bound, its plain twin
-    and cuBLAS.
+    and cuBLAS;
+19. ESMaster on experiments/mscoco_es.json at full width (NIC-ES: 1000
+    offspring in chunks of 16, 50 parents, 3 elites, 2 candidates, batch
+    256, 5000 validation images, SM-PROPORTIONAL, bf16) from one tpu.seed
+    on the plain, fused and blocked paths, 6 generations each (the block
+    covers generations 3-6): fitness vectors, children and podium rows bit
+    for bit across the paths, K1 launched ceil(1000 / 16) x 2 times per
+    generation, the fused generation and the block under
+    torch.cuda.set_sync_debug_mode("error"); a sweep whose best child,
+    rebuilt from its seed and decoded alone, keeps its fitness bit for bit;
+    the sweep at pop_chunk 48 beside 16; one fused generation under
+    torch.profiler (idle share, K1's share); K1 at the ES launch shape (16
+    members x 128 rows) against its plain twin, cuBLAS and its bound.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -280,20 +292,18 @@ def decode_flops(n_steps, B: int, F: int, Vpad: int) -> float:
                       + n * (2 * W * 5 * W + W * Vpad))
 
 
-def profile_generation(eng, theta, sens, seeds, batches):
-    """One generation under torch.profiler: (wall ms, card-busy ms, kernel
+def profile_call(fn):
+    """``fn()`` once under torch.profiler: (wall ms, card-busy ms, kernel
     rows (ms, count, name) by device time). Busy is the union of the
     kernels' intervals, so streams that overlap count once."""
     import torch
 
-    state = eng.optimizer.init(eng.dim, theta.device)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.generation(theta, state, sens, BENCH["sigma"], seeds, batches,
-                       BENCH["stepsize"], BENCH["l2coeff"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator's row repeats its kernels' device time
@@ -307,6 +317,14 @@ def profile_generation(eng, theta, sens, seeds, batches):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     return wall_ms, busy / 1e3, rows
+
+
+def profile_generation(eng, theta, sens, seeds, batches):
+    """One NES generation under torch.profiler (``profile_call``)."""
+    state = eng.optimizer.init(eng.dim, theta.device)
+    return profile_call(lambda: eng.generation(
+        theta, state, sens, BENCH["sigma"], seeds, batches,
+        BENCH["stepsize"], BENCH["l2coeff"]))
 
 
 def sampling_phases(task, theta, members, feats2, seeds, batches, sens,
@@ -721,7 +739,25 @@ def rows_flops(seq, F: int, V1: int) -> float:
     return total
 
 
-def validation_phase(card: str) -> list:
+def val_fixture():
+    """The in-memory fixture of phases 18 and 19: the bench's 2048 train
+    images and VAL_ITEMS validation images (mscoco_nes.json's and
+    mscoco_es.json's num_val_items)."""
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.data.synthetic import (
+        synthetic_coco_arrays,
+    )
+
+    t0 = time.time()
+    data = CocoData.from_arrays(synthetic_coco_arrays(
+        n_train=2048, n_val=VAL_ITEMS, n_test=8, vocab_size=9487,
+        fc_feat_size=2048, cap_len=9, seed=0))
+    log(f"[18] fixture with {VAL_ITEMS} val images in "
+        f"{time.time() - t0:.1f} s")
+    return data
+
+
+def validation_phase(card: str, data) -> list:
     """Phase 18: NESMaster on experiments/mscoco_nes.json at full width with
     VAL_ITEMS validation images (val_batch_size 256, gens_per_dispatch 8,
     kernel noise, 144 pairs, batch 128, pop_chunk 24): 8 iterations with
@@ -741,20 +777,10 @@ def validation_phase(card: str) -> list:
 
     from nes_img_captioning_tpu_torch.algorithms.es import podium_merge
     from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
-    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
-    from nes_img_captioning_tpu_torch.data.synthetic import (
-        synthetic_coco_arrays,
-    )
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
     from nes_img_captioning_tpu_torch.utils.config import load_experiment
 
     dev = torch.device("cuda")
-    t0 = time.time()
-    data = CocoData.from_arrays(synthetic_coco_arrays(
-        n_train=2048, n_val=VAL_ITEMS, n_test=8, vocab_size=9487,
-        fc_feat_size=2048, cap_len=9, seed=0))
-    log(f"[18] fixture with {VAL_ITEMS} val images in "
-        f"{time.time() - t0:.1f} s")
     runs_dir = os.path.join("logs", f"chip_smoke_val_{os.getpid()}")
     B, F, P = BENCH["batch"], BENCH["pairs"], BENCH["pop_chunk"]
 
@@ -988,6 +1014,323 @@ def validation_phase(card: str) -> list:
         "tiled_1920_plain_ms": tiled_plain_ms,
         "validate_device_ms": val_ms, "host_validate_ms": host_ms2,
         "fused_iteration_ms": ms_f, "host_iteration_ms": ms_h,
+    }]
+
+
+# [19]: generations per ES path; with snapshots every ES_ITERS iterations
+# the blocked path runs generation 1 plain, 2 fused and 3-6 as one block
+ES_ITERS = 6
+# experiments/mscoco_es.json's settings that phase 19 runs (nb_offspring,
+# population_size, num_elites, num_elite_cands, selection, batch_size,
+# num_val_items, noise_stdev, safe_mutations, precision, pop_chunk,
+# gens_per_dispatch)
+ES_SETTINGS = (1000, 50, 3, 2, "uniform", 256, 5000, 0.005,
+               "SM-PROPORTIONAL", "bf16", 16, 8)
+
+
+def es_phase(card: str, data) -> list:
+    """Phase 19: ESMaster on experiments/mscoco_es.json at full width (1000
+    offspring in chunks of 16, 50 parents, 3 elites, 2 candidates, batch
+    256, 5000 validation images, SM-PROPORTIONAL, bf16) from one tpu.seed
+    on the plain, fused and blocked paths, ES_ITERS generations each:
+    fitness vectors, children and podium rows bit for bit, candidate scores
+    of the fused and blocked paths bit for bit (the plain path's, validated
+    on the host, within 1e-4); K1 launched ceil(1000 / 16) x 2 times per
+    generation; no host sync inside a fused generation or a block. Then a
+    sweep whose best child, rebuilt by materialize and decoded alone, gets
+    its sweep fitness bit for bit, and whose fused generation keeps the
+    same children; the sweep at pop_chunk 48 beside 16; one fused
+    generation under torch.profiler; K1 at the ES launch shape against its
+    plain twin. Returns its row of the kernels line."""
+    import copy
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine, ESMaster
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.utils.config import (
+        load_experiment,
+        parse_tpu_config,
+    )
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_es_{os.getpid()}")
+
+    def experiment(name: str, **tpu) -> dict:
+        exp = load_experiment("experiments/mscoco_es.json")
+        cfg, mo = exp["config"], exp["policy_options"]["model_options"]
+        got = (exp["nb_offspring"], exp["population_size"],
+               exp["num_elites"], exp["num_elite_cands"], exp["selection"],
+               cfg["batch_size"], cfg["num_val_items"], cfg["noise_stdev"],
+               mo["safe_mutations"], exp["tpu"]["precision"],
+               exp["tpu"]["pop_chunk"], exp["tpu"]["gens_per_dispatch"])
+        if got != ES_SETTINGS:
+            raise AssertionError(f"[19] mscoco_es.json changed: {got}")
+        exp["config"]["snapshot_freq"] = ES_ITERS
+        exp["tpu"].update(tpu)
+        exp["log_dir"] = os.path.join(runs_dir, name)
+        return exp
+
+    L, chunk, B = ES_SETTINGS[0], ES_SETTINGS[10], ES_SETTINGS[5]
+    k1_per_gen = -(-L // chunk) * -(-B // 128)
+    counters = (dc.decode_fused, dc.decode_rows, dc.decode_tiled,
+                dc.decode_sample, dc.decode_pair_perturb, dc.decode_pair_rng)
+
+    def no_sync(fn, calls):
+        """fn under set_sync_debug_mode("error"): a host sync raises."""
+        def run(*a, **k):
+            calls.append(fn.__name__)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    def drive(name: str, **tpu):
+        m = ESMaster(experiment(name, **tpu), device=dev, data=data)
+        m.task.val_scorer  # the scorers are built before the timed run
+        m.task.device_val_consts()
+        eng, fits, calls = m.engine, [], []
+        host_fitness, unpack_fused = m.task.host_fitness, eng.unpack_fused
+        unpack_block = ESEngine.unpack_block
+
+        def hf(art, idx):
+            fits.append(host_fitness(art, idx))
+            return fits[-1]
+
+        def uf(packed, n, c):
+            out = unpack_fused(packed, n, c)
+            fits.append(out[0])
+            return out
+
+        def ub(packed, k, n, c, e):
+            out = unpack_block(packed, k, n, c, e)
+            fits.extend(out[0])
+            return out
+
+        m.task.host_fitness, eng.unpack_fused = hf, uf
+        eng.fused_generation = no_sync(eng.fused_generation, calls)
+        eng.fused_block = no_sync(eng.fused_block, calls)
+        ESEngine.unpack_block = staticmethod(ub)
+        try:
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            m.run_master(max_iterations=ES_ITERS)
+            torch.cuda.synchronize()
+            counts = [c.launches for c in counters]
+        finally:
+            ESEngine.unpack_block = staticmethod(unpack_block)
+        rows_want = 2 * ES_ITERS + (2 if name != "plain" else 0)
+        if counts != [ES_ITERS * k1_per_gen, rows_want, 0, 0, 0, 0]:
+            raise AssertionError(f"[19] {name}: launches (K1, row-block K1, "
+                                 f"K4, K3, K2, K5) {counts}")
+        want_calls = {"plain": [], "fused": ["fused_generation"] * 5,
+                      "blocked": ["fused_generation", "fused_block"]}[name]
+        if calls != want_calls or len(fits) != ES_ITERS:
+            raise AssertionError(f"[19] {name}: engine calls {calls}, "
+                                 f"{len(fits)} fitness vectors")
+        if not all(np.isfinite(f).all() for f in fits):
+            raise AssertionError(f"[19] {name}: non-finite fitness")
+        spec = m.task.spec
+        if m.parents_mat is None:
+            children = m._selected_dev[:m._n_selected]
+        else:
+            n_el = sum(p is not None for p in m._parent_paths)
+            children = m.parents_mat[n_el:m._n_parents]
+        podium = [(s, spec.load_pth(p)) for p, s in m.it.best_elites() if p]
+        ms = [round(t * 1e3, 3) for t in m.stats.time_stats()]
+        log(f"[19] ESMaster {name} (experiments/mscoco_es.json: {L} "
+            f"offspring, pop_chunk {chunk}, batch {B}, {ES_SETTINGS[6]} val "
+            f"images, bf16): ms per generation {ms}; K1 launches {counts[0]} "
+            f"({k1_per_gen} per generation), row-block K1 {counts[1]}; "
+            f"engine calls {calls} under set_sync_debug_mode('error') "
+            f"({card})")
+        return m, fits, children.cpu(), podium, counts, ms
+
+    runs = {name: drive(name, **tpu) for name, tpu in (
+        ("plain", {"fused_es": False}), ("fused", {"gens_per_dispatch": 1}),
+        ("blocked", {}))}
+    pm, pfits, pchildren, ppodium, _, _ = runs["plain"]
+    for name in ("fused", "blocked"):
+        m, fits, children, podium, _, _ = runs[name]
+        if not all(np.array_equal(a, b) for a, b in zip(pfits, fits)):
+            raise AssertionError(f"[19] {name}: fitness vectors differ from "
+                                 "the plain path's")
+        if not torch.equal(children, pchildren) or len(podium) != len(
+                ppodium) or not all(torch.equal(a[1], b[1])
+                                    for a, b in zip(podium, ppodium)):
+            raise AssertionError(f"[19] {name}: parents differ from the "
+                                 "plain path's")
+        if m.stats.to_dict()["norm_stats"] != pm.stats.to_dict()[
+                "norm_stats"]:
+            raise AssertionError(f"[19] {name}: mean|policy| differs")
+        if not np.allclose(m.stats.acc_stats(), pm.stats.acc_stats(),
+                           rtol=1e-4, atol=1e-6) or not np.allclose(
+                [s for s, _ in podium], [s for s, _ in ppodium], rtol=1e-4,
+                atol=1e-6):
+            raise AssertionError(f"[19] {name}: candidate or podium scores "
+                                 "beyond 1e-4 of the plain path's")
+    fm, bm = runs["fused"][0], runs["blocked"][0]
+    es_ms = {name: r[5] for name, r in runs.items()}
+    launches = runs["blocked"][4][0]  # K1 in the blocked run, the default
+    if fm.stats.acc_stats() != bm.stats.acc_stats() or [
+            float(np.float32(s)) for s, _ in runs["fused"][3]] != [
+            float(np.float32(s)) for s, _ in runs["blocked"][3]]:
+        raise AssertionError("[19] fused and blocked candidate or podium "
+                             "scores differ")
+    log(f"[19] plain, fused and blocked paths: {ES_ITERS} fitness vectors "
+        f"of {L}, {pchildren.shape[0]} children and {len(ppodium)} podium "
+        f"rows bit for bit; fused and blocked candidate scores bit for bit, "
+        f"plain (host validation) within "
+        f"{max(abs(a - b) for a, b in zip(pm.stats.acc_stats(), fm.stats.acc_stats())):.3g}"
+        f"; acc {[round(a, 6) for a in fm.stats.acc_stats()]} ({card})")
+    del runs, pm, fm
+
+    # a sweep and its best child rebuilt: the same bits, the same fitness
+    m = bm
+    eng, task = m.engine, m.task
+    elites = m._device_elite_rows([p for p, _ in m.it.best_elites() if p])
+    parents = torch.cat([elites, m._selected_dev])
+    rng = np.random.default_rng(1)
+    seeds = rng.integers(0, 2**32, size=L, dtype=np.uint32)
+    pidx = rng.integers(0, parents.shape[0], size=L).astype(np.int32)
+    idx_row = rng.choice(task.train_n, size=B, replace=False)
+    sigma = m.it.noise_stdev()
+    consts, vconsts = task.device_consts(), task.device_val_consts()
+    fit = eng.eval_generation(parents, sigma, seeds, pidx, idx_row)["fitness"]
+    order = np.argsort(-fit.cpu().numpy(), kind="stable")
+    best = eng.materialize(parents, sigma, seeds[order[:1]], pidx[order[:1]])
+    refit = task.rollout(best, torch.as_tensor(idx_row, device=dev))[
+        "fitness"]
+    n_keep = ES_SETTINGS[1] - ES_SETTINGS[2]
+    fit2, selected, _, _ = eng._gen_core(parents, sigma, seeds, pidx,
+                                         idx_row, consts, vconsts, n_keep, 2)
+    kept = eng.materialize(parents, sigma, seeds[order[:n_keep]],
+                           pidx[order[:n_keep]])
+    torch.cuda.synchronize()
+    if not torch.equal(refit[0], fit[int(order[0])]):
+        raise AssertionError(f"[19] rebuilt best child: fitness "
+                             f"{float(refit[0])} != sweep "
+                             f"{float(fit[int(order[0])])}")
+    if not (torch.equal(fit2, fit) and torch.equal(selected, kept)):
+        raise AssertionError("[19] the fused generation's kept children "
+                             "are not materialize's rebuild")
+    log(f"[19] sweep of {L} offspring: the best child rebuilt by "
+        f"materialize and decoded alone scores {float(refit[0]):.6f}, its "
+        f"sweep fitness bit for bit; the fused generation keeps materialize's "
+        f"{n_keep} children bit for bit ({card})")
+
+    # the sweep at pop_chunk 48 beside the config's 16 (A B B A)
+    exp48 = copy.deepcopy(m.exp)
+    exp48["tpu"]["pop_chunk"] = 48
+    eng48 = ESEngine(task, m.mutation,
+                     pop_chunk=parse_tpu_config(exp48).pop_chunk)
+    sweep_ms, sweep_k1 = {chunk: [], 48: []}, {}
+    for c, e in ((chunk, eng), (48, eng48), (48, eng48), (chunk, eng)):
+        torch.cuda.synchronize()
+        before = dc.decode_fused.launches
+        t0 = time.perf_counter()
+        f = e.eval_generation(parents, sigma, seeds, pidx, idx_row)[
+            "fitness"]
+        torch.cuda.synchronize()
+        sweep_ms[c].append((time.perf_counter() - t0) * 1e3)
+        sweep_k1[c] = dc.decode_fused.launches - before
+        if not torch.equal(f, fit):
+            raise AssertionError(f"[19] pop_chunk {c}: fitness differs")
+    log(f"[19] the sweep of {L} offspring at pop_chunk {chunk}: "
+        f"{np.mean(sweep_ms[chunk]):.3f} ms ({sweep_ms[chunk]}, "
+        f"{sweep_k1[chunk]} K1 launches); at pop_chunk 48: "
+        f"{np.mean(sweep_ms[48]):.3f} ms ({sweep_ms[48]}, {sweep_k1[48]} K1 "
+        f"launches); fitness bit for bit (host clock, ending in "
+        f"synchronize) ({card})")
+
+    # one fused generation under the profiler
+    policy = m.policy_theta
+    wall_ms, busy, rows = profile_call(lambda: eng.unpack_fused(
+        ESEngine.fused_generation(eng, elites, elites.shape[0],
+                                  m._selected_dev, sigma, seeds, pidx,
+                                  idx_row, policy, 2)[0], L, 2))
+    k1_dev = sum(r[0] for r in rows if "member_kernel" in r[2])
+    log(f"[19] one fused ES generation under torch.profiler: wall "
+        f"{wall_ms:.3f} ms, card busy {busy:.3f} ms (idle "
+        f"{1 - busy / wall_ms:.2%}); K1 (member_kernel, sweep and "
+        f"validation) {k1_dev:.3f} ms, {k1_dev / busy:.2%} of the card's "
+        f"busy time ({card})")
+    for ms, count, key in rows[:12]:
+        log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    # K1 at the ES launch shape: 16 members x 128 rows, bf16
+    lay, T = task.decode_layout, task.model.options.seq_length
+    kids = eng.materialize(parents, sigma, seeds[:chunk], pidx[:chunk])
+    params = lay.prep(lay.to_dec(kids), torch.bfloat16)
+    feats = task.train_fc[torch.as_tensor(idx_row[:128], device=dev)]
+    feats = feats.expand(chunk, -1, -1).contiguous()
+    del kids
+    k1_ms = time_ms(lambda: dc.decode_fused(params, feats, T, False))
+    plain_ms = time_ms(lambda: dc.decode_fused_plain(params, feats, T,
+                                                     False), reps=1)
+    seq, lp = dc.decode_fused(params, feats, T, True)
+    seq_p, lp_p, gap_p = dc.decode_fused_plain(params, feats, T, True,
+                                               top2_gap=True)
+    torch.cuda.synchronize()
+    share, n_diff = check_near_ties(seq, seq_p, gap_p,
+                                    "[19] K1 bf16 at the ES shape")
+    agree = (seq == seq_p).all(-1).all(-1)  # members decoded alike
+    if not bool(agree.any()):
+        raise AssertionError("[19] K1 bf16: no member agrees with the "
+                             "plain twin")
+    err = float((lp - lp_p)[agree].abs().max())
+    if err > LP_BF16_TOL:
+        raise AssertionError(f"[19] K1 bf16: lp error {err:.3g} > "
+                             f"{LP_BF16_TOL}")
+
+    def library():
+        h = torch.bmm(feats.to(torch.bfloat16), params["img_w"]).to(
+            torch.bfloat16)
+        for step in range(T + 1):
+            torch.bmm(h, params["i2h_w"])
+            torch.bmm(h, params["h2h_w"])
+            if step:
+                torch.bmm(h, params["logit_w"]).argmax(-1)
+
+    lib_ms = time_ms(library)
+    # each member's 128 rows are one row block of rows_flops: the logits
+    # over the V + 1 real columns, no h2h product at the image step
+    Fd, V1 = feats.shape[-1], task.model.options.vocab_size + 1
+    flops = sum(rows_flops(member_seq, Fd, V1) for member_seq in seq)
+    nbytes = sum(v.numel() * v.element_size() for v in params.values()) \
+        + feats.numel() * 2 + seq.numel() * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16
+    b_ms = max(t_bytes, t_ops) * 1e3
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    ctas = dc.member_cluster_info()["cluster"] * chunk
+    log(f"[19] K1 at the ES launch shape ({chunk} members x 128 rows, "
+        f"{ctas} CTAs, bf16): {k1_ms:.3f} ms per launch (plain twin "
+        f"{plain_ms:.3f} ms, cuBLAS products {lib_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB, {b_ms / k1_ms:.1%} of it); against the "
+        f"plain twin {share:.4%} of rows identical, {n_diff} differ, each "
+        f"first at a near-tie, max |lp - plain| {err:.3g} over "
+        f"{int(agree.sum())} agreeing members; {launches} launches in the "
+        f"blocked run ({card})")
+    shutil.rmtree(runs_dir)
+    return [{
+        "name": "decode_fused_es_chunk16", "route": "cuda",
+        "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+        "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py:658",
+        "launches": launches, "max_abs_err": err, "ms": k1_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "ctas_per_launch": ctas,
+        "k1_launches_per_generation": launches // ES_ITERS,
+        "es_generation_ms": es_ms, "sweep_ms_pop_chunk16": float(
+            np.mean(sweep_ms[chunk])),
+        "sweep_ms_pop_chunk48": float(np.mean(sweep_ms[48])),
+        "fused_generation_idle_share": 1 - busy / wall_ms,
+        "k1_share_of_busy": k1_dev / busy,
     }]
 
 
@@ -1653,7 +1996,9 @@ def main() -> int:
         f"[5] ({card})")
     kernels += sampling_phases(task, theta, members, feats2, seeds, batches,
                                sens, lib_ms, card)
-    kernels += validation_phase(card)
+    data = val_fixture()
+    kernels += validation_phase(card, data)
+    kernels += es_phase(card, data)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,7 @@ src/algorithm/nic_nes/experiment.py, src/algorithm/nic_es/experiment.py).
 Dataloader construction lives in the Task; this class only tracks the
 loader-derived counters that go into the z_info checkpoint
 (trainloader_lth, orig_bs). Port of
-``nes_img_captioning_tpu/algorithms/experiment.py``: ``Experiment`` and
-``NESExperiment``; the NIC-ES experiment comes with NIC-ES.
+``nes_img_captioning_tpu/algorithms/experiment.py``.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from .optimizers import make_optimizer
 from ..utils.config import Config
 from ..utils.files import mkdir_p
 
-__all__ = ["Experiment", "NESExperiment"]
+__all__ = ["Experiment", "NESExperiment", "ESExperiment"]
 
 
 class Experiment:
@@ -95,3 +94,42 @@ class NESExperiment(Experiment):
         if self.opt_state is not None:
             self.optimizer.save_to_file(self.opt_state, dim, self.optimizer_path)
         return {**super().to_dict(), "optimizer_state": self.optimizer_path}
+
+
+class ESExperiment(Experiment):
+    """Population hyperparameters + model dirs
+    (reference: src/algorithm/nic_es/experiment.py)."""
+
+    def __init__(self, exp, config, task, master=True):
+        super().__init__(exp, config, task, master)
+        self._population_size = exp.get("population_size", exp["nb_offspring"])
+        self._num_elites = exp["num_elites"]
+        self._num_elite_cands = exp["num_elite_cands"]
+        self._tournament_size = exp.get("tournament_size")
+        self._selection = exp.get("selection", "uniform")
+        if master:
+            models = os.path.join(self._log_dir, "models")
+            self._parents_dir = mkdir_p(os.path.join(models, "parents"))
+            self._offspring_dir = mkdir_p(os.path.join(models, "offspring"))
+            self._elite_dir = mkdir_p(os.path.join(models, "elite"))
+
+    def population_size(self):
+        return self._population_size
+
+    def num_elites(self):
+        return self._num_elites
+
+    def num_elite_cands(self):
+        return self._num_elite_cands
+
+    def selection(self):
+        return self._selection
+
+    def tournament_size(self):
+        return self._tournament_size
+
+    def offspring_dir(self):
+        return self._offspring_dir
+
+    def elite_dir(self):
+        return self._elite_dir

@@ -1,0 +1,180 @@
+"""What the NES and ES training loops share (``NESMaster``, ``ESMaster``):
+the experiment's parse and refusals, the task, the host RNG and its batch
+sampler, a resume from a z_info file, the podium's deferred slot files and
+the cadence of a block of chained generations.
+
+The snapshot's loader sidecar carries the seed stream's position
+(``seed_rng_state``) beside the sampler's, so a resumed run continues the
+seeds as well as the batches. The JAX package's sidecar holds only the
+sampler, and its resumed run draws the seeds of generation 1 again.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+
+import numpy as np
+
+from .iteration import Iteration
+from .snapshot import load_loader_state
+from .statistics import Statistics
+from ..data.core import build_sampler
+from ..ops.mutation import MutationKind
+from ..utils.config import parse_config, parse_tpu_config
+from ..utils.files import mkdir_p
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["MasterBase", "setup_log_dir"]
+
+
+def setup_log_dir(exp: dict) -> str:
+    """logs/{algo}_{dataset}_{net}_{pid} unless the experiment names one
+    (reference: tools/setup.py:22-25)."""
+    log_dir = exp.get("log_dir") or "logs/{}_{}_{}_{}".format(
+        exp["algorithm"], exp["dataset"], exp["policy_options"]["net"],
+        os.getpid())
+    mkdir_p(log_dir)
+    exp["log_dir"] = log_dir
+    return log_dir
+
+
+class MasterBase:
+    """One process on one card. Refused when set: a device mesh
+    (``tpu.mesh_shape``), ``tpu.profile`` and the mutations that need a
+    sensitivity. A subclass sets ``self.experiment`` before a resume and
+    keeps the podium's device rows in ``self._elites_dev``."""
+
+    def __init__(self, exp: dict, device=None, data=None):
+        """``device``: the card unless ``"cpu"`` is passed; ``data``: an
+        in-memory CocoData instead of the files of ``caption_options``."""
+        from ..tasks import make_task
+
+        self.exp = exp
+        self.config = parse_config(exp)
+        self.tpu_cfg = tpu = parse_tpu_config(exp)
+        for knob, value in (("mesh_shape", tpu.mesh_shape is not None),
+                            ("profile", tpu.profile)):
+            if value:
+                raise NotImplementedError(
+                    f"tpu.{knob} is not ported yet; leave it at its default")
+        popts = exp.get("policy_options", {})
+        mopts = popts.get("model_options", {})
+        self.mutation = MutationKind(mopts.get("safe_mutations", "") or "")
+        if self.mutation.is_safe:
+            raise NotImplementedError(
+                f"{self.mutation.value} needs a sensitivity, not ported yet")
+        setup_log_dir(exp)
+
+        self.task = make_task(exp, self.config, tpu, device=device,
+                              data=data)
+        self.device = self.task.device
+        self.it = Iteration(self.config, exp)
+        self.stats = Statistics()
+        self._rng = np.random.default_rng(tpu.seed)
+        self._sampler = None  # built lazily; rebuilt on annealing
+        self._pending_loader_state = None  # set by a from_infos resume
+        self._elites_dev = None  # the device podium's rows
+        self._podium_dirty = False  # slot files behind the adopted scores
+        self._block_warned = False
+        self._last_snapshot_iter = None
+
+    def _resume(self, infos_path: str) -> dict:
+        """Load a z_info file into the statistics, the iteration and the
+        experiment; the sampler resumes at the first batch draw and the
+        seed stream at once. Returns the infos."""
+        with open(infos_path) as f:
+            infos = json.load(f)
+        self.stats.init_from_infos(infos)
+        self.it.init_from_infos(infos)
+        self.experiment.init_from_infos(infos)
+        self._pending_loader_state = load_loader_state(infos_path)
+        if self._pending_loader_state and \
+                "seed_rng_state" in self._pending_loader_state:
+            self._rng.bit_generator.state = \
+                self._pending_loader_state["seed_rng_state"]
+        return infos
+
+    def _batch_sampler(self):
+        """The epoch sampler, built at the first draw (from the resumed
+        position, if any)."""
+        if self._sampler is None:
+            self._sampler = build_sampler(self.task.train_n, self._rng,
+                                          self._pending_loader_state)
+            self._pending_loader_state = None  # anneal rebuilds start fresh
+        return self._sampler
+
+    def loader_state(self) -> dict | None:
+        """The batch sampler's and the seed stream's positions for the
+        snapshot sidecar (None before the first batch draw). The JAX
+        package reads the sampler's keys and ignores the other."""
+        if self._sampler is None:
+            return None
+        return {**self._sampler.state_dict(),
+                "seed_rng_state": self._rng.bit_generator.state}
+
+    def _materialize_podium(self):
+        """Write the slot files of the scores adopted from a device merge:
+        pull the podium's rows once and install them. Runs before anything
+        reads the slot files (a snapshot, a host step)."""
+        if not self._podium_dirty:
+            return
+        scores = [s for _, s in self.it.best_elites() if np.isfinite(s)]
+        rows = self._elites_dev.cpu()
+        self.it.install_merged_podium(
+            scores, rows, lambda row, path: self.task.spec.save_pth(row, path))
+        self._podium_dirty = False
+
+    # ---- the cadence of a block (tpu.gens_per_dispatch) ---------------------
+
+    @staticmethod
+    def _gap_to_next(cur_plus1: int, freq: int, start: int = 0) -> int:
+        """Iterations from cur_plus1 (exclusive of events AT cur_plus1) to
+        the next multiple-of-freq event after it."""
+        if not freq:
+            return 1 << 30
+        j = max(cur_plus1 + 1, start)
+        rem = (j - start) % freq
+        return (j + (freq - rem) % freq) - cur_plus1
+
+    def _chain_gap(self, nxt: int) -> int:
+        """The most generations from iteration ``nxt`` on that the
+        algorithm's own state lets one block hold (1: run it alone)."""
+        return 1 << 30
+
+    def _block_budget(self, gens_left: int, limit: int | None) -> int:
+        """Generations chained into the next block. A block never contains
+        an interior schedule firing or snapshot, nor whatever ``_chain_gap``
+        keeps out of it; its size is rounded down to a power of two, as in
+        the JAX package, so both packages run the same blocks."""
+        b = max(self.tpu_cfg.gens_per_dispatch, 1)
+        if b == 1:
+            return 1
+        if self.config.patience:
+            if not self._block_warned:
+                self._block_warned = True  # once, not every iteration
+                logger.warning(
+                    "gens_per_dispatch>1 requires patience=0 (patience may "
+                    "anneal sigma mid-block); driving per-generation")
+            return 1
+        nxt = self.it.iteration() + 1  # the block's first iteration
+        cap = self._chain_gap(nxt)
+        if cap <= 1:
+            return 1
+        gap, start = self._gap_to_next, self.config.schedule_start or 0
+        if self.config.schedule_limit and gap(
+                nxt - 1, self.config.schedule_limit, start) == 1:
+            return 1  # this iteration fires the schedule: run it alone
+        b = min(b, gens_left, cap)
+        if limit:
+            b = min(b, limit - self.it.iteration())
+        if self.config.schedule_limit:
+            b = min(b, gap(nxt, self.config.schedule_limit, start))
+        if self.config.snapshot_freq:
+            # a snapshot writes the state after its generation: end the
+            # block exactly on the snapshot iteration
+            b = min(b, gap(nxt - 1, self.config.snapshot_freq))
+        b = max(b, 1)
+        return 1 << (b.bit_length() - 1)

@@ -41,7 +41,6 @@ Reference math: src/algorithm/nic_nes/nic_nes_master.py:123-133,170-182.
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import time
@@ -52,14 +51,11 @@ import torch
 from .engine_base import PopulationEngine
 from .es import podium_merge
 from .experiment import NESExperiment
-from .iteration import Iteration
-from .snapshot import load_loader_state, save_snapshot
-from .statistics import Statistics
-from ..data.core import build_sampler
+from .master_base import MasterBase, setup_log_dir
+from .snapshot import save_snapshot
 from ..ops.mutation import MutationKind, normal_from_seed, shape_noise
 from ..ops.noise import lane_seeds
 from ..ops.ranks import compute_centered_ranks
-from ..utils.config import parse_config, parse_tpu_config
 from ..utils.files import mkdir_p, remove_all_files_from_dir
 
 logger = logging.getLogger(__name__)
@@ -291,28 +287,15 @@ class NESEngine(PopulationEngine):
         return fits, arr[..., -2], arr[..., -1]
 
 
-def setup_log_dir(exp: dict) -> str:
-    """logs/{algo}_{dataset}_{net}_{pid} unless the experiment names one
-    (reference: tools/setup.py:22-25)."""
-    log_dir = exp.get("log_dir") or "logs/{}_{}_{}_{}".format(
-        exp["algorithm"], exp["dataset"], exp["policy_options"]["net"],
-        os.getpid())
-    mkdir_p(log_dir)
-    exp["log_dir"] = log_dir
-    return log_dir
-
-
-class NESMaster:
+class NESMaster(MasterBase):
     """The training loop (port of ``NESMaster`` in
     ``nes_img_captioning_tpu/algorithms/nes.py``): owns theta and the
     optimizer state on the device and all host-side bookkeeping (iteration,
     statistics, podium, snapshots). One process on one card.
 
-    The snapshot's loader sidecar also carries the position of the seed
-    stream (``seed_rng_state``), so a resumed run continues the seeds as
-    well as the batches: N generations, or N/2 then a resume and N/2 more,
-    give the same theta. The JAX package's sidecar holds only the batch
-    sampler, and its resumed run draws the seeds of generation 1 again.
+    A resumed run continues the seeds as well as the batches
+    (``MasterBase``): N generations, or N/2 then a resume and N/2 more,
+    give the same theta.
 
     With ``tpu.fused_validation`` (on under "auto" when the run can fuse it
     and ``gens_per_dispatch`` > 1, as in the JAX package) every generation of
@@ -327,29 +310,8 @@ class NESMaster:
     def __init__(self, exp: dict, device=None, data=None):
         """``device``: the card unless ``"cpu"`` is passed; ``data``: an
         in-memory CocoData instead of the files of ``caption_options``."""
-        from ..tasks import make_task
-
-        self.exp = exp
-        self.config = parse_config(exp)
-        self.tpu_cfg = tpu = parse_tpu_config(exp)
-        for knob, value in (("mesh_shape", tpu.mesh_shape is not None),
-                            ("profile", tpu.profile)):
-            if value:
-                raise NotImplementedError(
-                    f"tpu.{knob} is not ported yet; leave it at its default")
-        popts = exp.get("policy_options", {})
-        mopts = popts.get("model_options", {})
-        self.mutation = MutationKind(mopts.get("safe_mutations", "") or "")
-        if self.mutation.is_safe:
-            raise NotImplementedError(
-                f"{self.mutation.value} needs a sensitivity, not ported yet")
-        setup_log_dir(exp)
-
-        self.task = make_task(exp, self.config, tpu, device=device,
-                              data=data)
-        self.device = self.task.device
-        self.it = Iteration(self.config, exp)
-        self.stats = Statistics()
+        super().__init__(exp, device=device, data=data)
+        tpu = self.tpu_cfg
         self.experiment = NESExperiment(exp, self.config, self.task)
         self.optimizer = self.experiment.optimizer
         self.engine = NESEngine(
@@ -361,14 +323,9 @@ class NESMaster:
             os.path.join(self.it.models_dir(), "current"))
         self._current_path = os.path.join(self._current_dir,
                                           "0_current_params.pth")
-        self._rng = np.random.default_rng(tpu.seed)
         self._last_eval = None
         self._val_fused = False  # resolved by run_master
-        self._elites_dev = None  # the device podium's (E, dim) rows
-        self._podium_dirty = False  # slot files behind the adopted scores
-        self._pending_loader_state = None  # set by a from_infos resume
         self._init_theta(exp)
-        self._sampler = None  # built lazily; rebuilt on annealing
         self.opt_state = (self.experiment.opt_state
                           or self.optimizer.init(self.engine.dim, self.device))
         self.experiment.opt_state = self.opt_state
@@ -380,16 +337,7 @@ class NESMaster:
     def _init_theta(self, exp):
         spec = self.task.spec
         if exp.get("from_infos"):
-            with open(exp["from_infos"]) as f:
-                infos = json.load(f)
-            self.stats.init_from_infos(infos)
-            self.it.init_from_infos(infos)
-            self.experiment.init_from_infos(infos)
-            self._pending_loader_state = load_loader_state(exp["from_infos"])
-            if self._pending_loader_state and \
-                    "seed_rng_state" in self._pending_loader_state:
-                self._rng.bit_generator.state = \
-                    self._pending_loader_state["seed_rng_state"]
+            infos = self._resume(exp["from_infos"])
             theta = spec.load_pth(infos["current_model"])
         elif exp.get("from_single"):
             theta = spec.load_pth(exp["from_single"])
@@ -423,23 +371,11 @@ class NESMaster:
         tools/iteration.py:110-112)."""
         return max(self.exp["nb_offspring"], 1)
 
-    def loader_state(self) -> dict | None:
-        """EpochSampler stream position and the seed stream's position, for
-        the snapshot sidecar (None before the first batch draw). The JAX
-        package reads the sampler's keys and ignores the other."""
-        if self._sampler is None:
-            return None
-        return {**self._sampler.state_dict(),
-                "seed_rng_state": self._rng.bit_generator.state}
-
     def _draw_batches(self, F: int, bs: int) -> np.ndarray:
-        if self._sampler is None:
-            self._sampler = build_sampler(self.task.train_n, self._rng,
-                                          self._pending_loader_state)
-            self._pending_loader_state = None  # anneal rebuilds start fresh
+        sampler = self._batch_sampler()
         if self.config.single_batch:
-            return np.tile(self._sampler.batch(bs), (F, 1))
-        return self._sampler.member_batches(F, bs)
+            return np.tile(sampler.batch(bs), (F, 1))
+        return sampler.member_batches(F, bs)
 
     # ---- tpu.fused_validation: validation and podium on the card ------------
 
@@ -485,18 +421,6 @@ class NESMaster:
         return np.asarray([float(np.float32(s)) if p else -np.inf
                            for p, s in self.it.best_elites()], np.float32)
 
-    def _materialize_podium(self):
-        """Write the slot files of the scores adopted from the device merge:
-        pull the podium's rows once and install them. Runs before anything
-        reads the slot files (a snapshot, the final one)."""
-        if not self._podium_dirty:
-            return
-        scores = [s for _, s in self.it.best_elites() if np.isfinite(s)]
-        rows = self._elites_dev.cpu()
-        self.it.install_merged_podium(
-            scores, rows, lambda row, path: self.task.spec.save_pth(row, path))
-        self._podium_dirty = False
-
     def _val_fused_step(self, b: int, t_block: float, sigma, seeds, idx,
                         F: int, plot: bool):
         """``b`` generations with validation and podium merge on the card,
@@ -535,57 +459,14 @@ class NESMaster:
 
     # ---- main loop ----------------------------------------------------------
 
-    @staticmethod
-    def _gap_to_next(cur_plus1: int, freq: int, start: int = 0) -> int:
-        """Iterations from cur_plus1 (exclusive of events AT cur_plus1) to
-        the next multiple-of-freq event after it."""
-        if not freq:
-            return 1 << 30
-        j = max(cur_plus1 + 1, start)
-        rem = (j - start) % freq
-        return (j + (freq - rem) % freq) - cur_plus1
-
-    def _block_budget(self, gens_left: int, limit: int | None) -> int:
-        """Generations chained into the next block (tpu.gens_per_dispatch).
-        A block never contains an interior schedule firing or snapshot, nor
-        an interior host validation (fused validation runs inside it), so
-        the event cadence is the per-generation one; the size
-        is rounded down to a power of two, as in the JAX package, so both
-        packages run the same blocks."""
-        b = max(self.tpu_cfg.gens_per_dispatch, 1)
-        if b == 1:
-            return 1
-        if self.config.patience:
-            if not getattr(self, "_block_warned", False):
-                self._block_warned = True  # once, not every iteration
-                logger.warning(
-                    "gens_per_dispatch>1 requires patience=0 (patience may "
-                    "anneal sigma mid-block); driving per-generation")
-            return 1
-        nxt = self.it.iteration() + 1  # the block's first iteration
-        if self.config.schedule_limit and self._gap_to_next(
-                nxt - 1, self.config.schedule_limit,
-                self.config.schedule_start or 0) == 1:
-            return 1  # this iteration fires the schedule: run it alone
-        b = min(b, gens_left)
-        if limit:
-            b = min(b, limit - self.it.iteration())
-        vf = max(self.tpu_cfg.val_freq, 1)
+    def _chain_gap(self, nxt: int) -> int:
+        """Fused validation runs inside a block; host validation ends one at
+        each validating iteration, so with val_freq 1 every generation runs
+        alone."""
         if self._val_fused:
-            pass  # every generation validates inside the block
-        elif vf == 1:
-            return 1  # per-generation validation = per-generation blocks
-        else:
-            b = min(b, self._gap_to_next(nxt, vf))
-        if self.config.schedule_limit:
-            b = min(b, self._gap_to_next(nxt, self.config.schedule_limit,
-                                         self.config.schedule_start or 0))
-        if self.config.snapshot_freq:
-            # a snapshot writes the post-update theta of its generation:
-            # end the block exactly on the snapshot iteration
-            b = min(b, self._gap_to_next(nxt - 1, self.config.snapshot_freq))
-        b = max(b, 1)
-        return 1 << (b.bit_length() - 1)
+            return 1 << 30
+        vf = max(self.tpu_cfg.val_freq, 1)
+        return 1 if vf == 1 else self._gap_to_next(nxt, vf)
 
     def _record_eval(self, eval_score, fresh: bool = True):
         """Eval-result + podium bookkeeping, while self.theta is still the
@@ -715,7 +596,7 @@ class NESMaster:
 
         # skip the final snapshot when the loop's freq snapshot just wrote
         # this exact iteration
-        if getattr(self, "_last_snapshot_iter", None) != it.iteration():
+        if self._last_snapshot_iter != it.iteration():
             self._materialize_podium()
             self._write_current_model()
             save_snapshot(stats, it, self.experiment,

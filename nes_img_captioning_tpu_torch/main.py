@@ -7,7 +7,7 @@ is one process on one card, so ``master`` runs the experiment outright and
 
 Usage:
     python -m nes_img_captioning_tpu_torch.main master \\
-        --exp_file experiments/mscoco_nes.json
+        --exp_file experiments/mscoco_nes.json   # or mscoco_es.json
     python -m nes_img_captioning_tpu_torch.main master --device cpu \\
         --exp_file <experiment.json> --max_iterations 3
 """
@@ -25,8 +25,8 @@ def run(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("who", type=str, choices=["master", "workers"])
     parser.add_argument("--algo", type=str, default=None,
-                        help="nic_nes (default: from the experiment json); "
-                        "nic_es is not ported yet")
+                        help="nic_nes or nic_es (default: from the "
+                        "experiment json)")
     parser.add_argument("--exp_file", type=str,
                         default="experiments/mscoco_nes.json")
     parser.add_argument("--plot", action="store_true", default=False)
@@ -58,15 +58,20 @@ def run(argv=None):
     algo = args.algo or exp["algorithm"]
     exp["algorithm"] = algo
     if algo == "nic_es":
-        raise NotImplementedError("NIC-ES is not ported yet")
-    if algo != "nic_nes":
+        from .algorithms.es import ESMaster
+
+        logging.info("RUNNING NIC-ES")
+        master = ESMaster(exp, device=args.device)
+    elif algo == "nic_nes":
+        from .algorithms.nes import NESMaster
+
+        logging.info("RUNNING NIC-NES")
+        master = NESMaster(exp, device=args.device)
+    else:
         raise ValueError(f"unknown algorithm {algo!r}")
 
-    from .algorithms.nes import NESMaster
     from .algorithms.snapshot import save_snapshot
 
-    logging.info("RUNNING NIC-NES")
-    master = NESMaster(exp, device=args.device)
     try:
         master.run_master(plot=args.plot, max_iterations=args.max_iterations)
     except KeyboardInterrupt:

@@ -59,23 +59,30 @@ class DecodeLayout:
 
     def to_dec(self, flat: torch.Tensor, pad_scale: float = 1.0
                ) -> torch.Tensor:
-        """Flat torch-order vector -> flat decode-ordered padded f32.
-        ``pad_scale`` scales each tensor's pad value (1 for theta, so the
-        padded logit bias is NEG; 0 for noise-scale vectors)."""
-        p = self.spec.unravel(flat)
+        """Flat torch-order vector(s) (..., dim) -> flat decode-ordered
+        padded f32 (..., dim_dec), with the same leading axes (the ES sweep
+        lays out a chunk of children at once; every step is a copy, so a
+        row's bits do not depend on the rows beside it). ``pad_scale``
+        scales each tensor's pad value (1 for theta, so the padded logit
+        bias is NEG; 0 for noise-scale vectors)."""
+        lead = flat.shape[:-1]
+        leaves = {l.name: l for l in self.spec.leaves}
         parts = []
         for _, leaf, shape, transposed, pad_val, pad_axis in self.tensors:
-            t = p[leaf]
+            off, spec_leaf = self.spec.offset(leaf), leaves[leaf]
+            t = flat[..., off:off + spec_leaf.size].reshape(
+                *lead, *spec_leaf.shape)
             if transposed:
-                t = t.t()
+                t = t.transpose(-1, -2)
             if pad_axis is not None:
-                t = t.reshape(shape[0] if pad_axis == 1 else self.V1, -1)
+                t = t.reshape(*lead, shape[0] if pad_axis == 1 else self.V1,
+                              -1)
                 width = (0, self.Vpad - self.V1)
                 t = torch.nn.functional.pad(
                     t, width + (0, 0) if pad_axis == 1 else (0, 0) + width,
                     value=pad_val * pad_scale)
-            parts.append(t.reshape(-1).to(torch.float32))
-        return torch.cat(parts)
+            parts.append(t.reshape(*lead, -1).to(torch.float32))
+        return torch.cat(parts, -1)
 
     def from_dec(self, flat_dec: torch.Tensor) -> torch.Tensor:
         """Flat decode-ordered vector -> flat torch order (pads dropped,

@@ -18,7 +18,8 @@ import enum
 
 import torch
 
-__all__ = ["MutationKind", "normal_from_seed", "shape_noise"]
+__all__ = ["MutationKind", "build_children", "normal_from_seed",
+           "proportional_factor", "shape_noise"]
 
 
 class MutationKind(enum.Enum):
@@ -50,16 +51,39 @@ def normal_from_seed(seed: int, n: int, device) -> torch.Tensor:
                        device=device)
 
 
+def proportional_factor(theta: torch.Tensor) -> torch.Tensor:
+    """SM-PROPORTIONAL's noise factor of one flat theta: |theta| with exact
+    zeros replaced by mean|theta| (the mean taken before the replacement)."""
+    mean = theta.abs().mean()
+    return torch.where(theta == 0.0, mean, theta.abs())
+
+
 def shape_noise(noise: torch.Tensor, theta: torch.Tensor,
                 sensitivity: torch.Tensor | None = None,
                 proportional: bool = False) -> torch.Tensor:
     """Safe / proportional shaping of raw noise (reference evolve(),
     src/algorithm/nets.py:102-113): safe divides by the sensitivity;
-    proportional multiplies by |theta|, exact zeros replaced by mean|theta|
-    (the mean taken before the replacement)."""
+    proportional multiplies by ``proportional_factor(theta)``."""
     if sensitivity is not None:
         noise = noise / sensitivity
     if proportional:
-        mean = theta.abs().mean()
-        noise = noise * torch.where(theta == 0.0, mean, theta.abs())
+        noise = noise * proportional_factor(theta)
     return noise
+
+
+def build_children(parents: torch.Tensor, pidx: torch.Tensor,
+                   noise: torch.Tensor, sigma: float,
+                   factors: torch.Tensor | None = None) -> torch.Tensor:
+    """NIC-ES's children: row i is ``parent + shape_noise(sigma * noise_i,
+    parent, proportional=factors is not None)`` with parent =
+    ``parents[pidx[i]]``. parents (P, dim); pidx (M,) int64 on their device;
+    noise (M, dim) N(0, 1); factors (P, dim), ``proportional_factor`` of
+    each parent row, or None. Every operation after the factors is
+    elementwise, so a child's bits do not depend on which other children
+    are built with it: the sweep and the rebuild of its winners give the
+    same bits. Rows are picked with ``index_select``, which copies them
+    exactly (JAX: es.py:134-143, a one-hot product there)."""
+    delta = sigma * noise
+    if factors is not None:
+        delta = delta * factors.index_select(0, pidx)
+    return parents.index_select(0, pidx) + delta

@@ -12,7 +12,9 @@ CIDEr-D:
 
 The rollouts decode with the kernels of ops/decode_cuda.py: K1 per member
 (K4 with ``tpu.decode_vocab_tile``), K2 per antithetic pair, K5 per pair
-with the noise drawn in the kernel, and K3 for the sampling kinds. Greedy
+with the noise drawn in the kernel, and K3 for the sampling kinds. NIC-ES
+hands ``rollout`` its children in torch order; they are laid out in decode
+order (``to_dec``) and decoded per member like NES's. Greedy
 batches are image-level: greedy decoding of the reference's 5 identical
 rows per image gives 5 identical captions, so each image is decoded once.
 The sampling kinds draw ``seq_per_img`` (default 5) independent samples per
@@ -348,6 +350,30 @@ class CocoTask(Task):
                 base = self._greedy(params, feats)[0]
         return self._device_fitness(seq, idx, consts.get("cider"), lp=lp,
                                     base_seq=base)
+
+    def rollout(self, thetas, idx_row, consts=None, lanes=None) -> dict:
+        """Rollouts of torch-order members, the NIC-ES sweep (JAX:
+        captioning.py:291-325): thetas (M, dim) flat f32, idx_row (B,) the
+        generation's batch, shared by every member. The members are laid out
+        in decode order by the exact ``decode_layout.to_dec`` and decoded by
+        ``rollout_dec`` (K1, K4 when tiled, K3 with ``lanes`` for the
+        sampling kinds; row blocks of 128). Returns ``{"fitness": (M,)}``,
+        the device scorer's artifact."""
+        idx_row = torch.as_tensor(idx_row, device=self.device)
+        idx = idx_row.reshape(1, -1).expand(thetas.shape[0], -1)
+        return {"fitness": self.rollout_dec(self.decode_layout.to_dec(thetas),
+                                            idx, consts=consts, lanes=lanes)}
+
+    def host_fitness(self, artifacts, idx) -> np.ndarray:
+        """The fitness array of a sweep's artifacts. The device scorer's
+        ``{"fitness": ...}`` passes through; host scoring of token artifacts
+        is not ported yet (JAX: captioning.py:528-533)."""
+        if isinstance(artifacts, dict) and "fitness" in artifacts:
+            f = artifacts["fitness"]
+            f = f.detach().cpu().numpy() if torch.is_tensor(f) else f
+            return np.asarray(f, np.float32)
+        raise NotImplementedError(
+            "host-scored fitness (token artifacts) is not ported yet")
 
     def _device_fitness(self, seq, idx, dev=None, lp=None, base_seq=None):
         """seq (N, R, T) tokens of N members (R = B rows, or B * spi

@@ -650,14 +650,15 @@ def card_task():
         n_train=64, n_val=8, n_test=8, vocab_size=300, fc_feat_size=256,
         cap_len=9, seed=0))
 
-    def make(kind):
+    def make(kind, precision="f32"):
         exp = {"dataset": "mscoco", "policy_options": {
             "fitness": kind, "vbn": False, "model_options": {
                 "input_encoding_size": 128, "rnn_size": 128,
                 "fc_feat_size": 256}}}
         return CocoTask(exp, Config(batch_size=256),
-                        TpuConfig(seed=0, precision="f32"), device="cuda",
-                        data=data)
+                        TpuConfig(seed=0, precision=precision),
+                        device="cuda", data=data)
+    make.data = data
     return make
 
 
@@ -794,3 +795,129 @@ def test_validate_device_on_the_card_makes_no_sync(card_task):
     np.testing.assert_allclose(float(val), host, rtol=2e-5, atol=2e-6)
     k = 0 if float(val) > 0.5 else 1
     assert torch.equal(rows[k], theta)
+
+
+# the bound on |lp - plain| of bf16 decodes whose tokens agree (as
+# chip_smoke.LP_BF16_TOL): kernel and twin round the same bf16 values and
+# differ only in the order of their f32 sums
+LP_BF16_TOL = 1e-2
+
+
+def _es_parents(task, n=3):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    theta = task.spec.init_theta(g) * 3
+    return torch.stack([theta * (1 - 0.2 * i) for i in range(n)]), g
+
+
+@pytest.mark.cuda
+def test_es_rollout_of_16_children_at_256_rows(card_task):
+    """The ES sweep's launch shape: 16 bf16 children in torch order at
+    B = 256, laid out by to_dec and decoded by K1 in two launches of 128
+    rows; tokens equal the plain twin's over all 256 rows but where the
+    first difference is a near-tie (top-2 gap < 1e-2), lp within 1e-2 on
+    the members whose tokens all agree; the fitnesses are those of the
+    plain decode's tokens."""
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+
+    task = card_task("greedy", precision="bf16")
+    eng = ESEngine(task, MutationKind.SAFE_PROPORTIONAL, pop_chunk=16)
+    parents, g = _es_parents(task)
+    seeds = np.arange(100, 116, dtype=np.uint32)
+    pidx = np.arange(16) % 3
+    kids = eng.materialize(parents, 0.005, seeds, pidx)
+    idx_row = torch.randint(0, 64, (256,), generator=g, device="cuda")
+    lay = task.decode_layout
+    params = lay.prep(lay.to_dec(kids), torch.bfloat16)
+    feats = task.train_fc[idx_row].expand(16, -1, -1)
+    before = tdc.decode_fused.launches
+    fits = task.rollout(kids, idx_row)["fitness"]
+    seq, lp = task._greedy(params, feats, True)
+    assert tdc.decode_fused.launches == before + 4
+    seq_p, lp_p, gap_p = tdc.decode_fused_plain(params, feats,
+                                                need_logprobs=True,
+                                                top2_gap=True)
+    torch.cuda.synchronize()
+    assert _first_diffs_at_near_ties(seq, seq_p, gap_p, limit=1e-2) <= 16
+    agree = (seq == seq_p).all(-1).all(-1)
+    assert bool(agree.any())
+    assert float((lp - lp_p)[agree].abs().max()) < LP_BF16_TOL
+    want = task._device_fitness(seq_p, idx_row.expand(16, -1),
+                                task.device_consts()["cider"])
+    assert torch.equal(fits[agree], want[agree])
+
+
+def _es_master(card_task, tmp_path, **tpu):
+    from nes_img_captioning_tpu_torch.algorithms.es import ESMaster
+
+    exp = {"algorithm": "nic_es", "dataset": "mscoco",
+           "config": {"noise_stdev": 0.005, "batch_size": 16,
+                      "num_val_items": 8, "snapshot_freq": 0,
+                      "patience": 0},
+           "policy_options": {"net": "fc_caption", "fitness": "greedy",
+                              "vbn": False, "model_options": {
+                                  "safe_mutations": "SM-PROPORTIONAL",
+                                  "input_encoding_size": 128,
+                                  "rnn_size": 128, "fc_feat_size": 256}},
+           "nb_offspring": 20, "population_size": 6, "num_elites": 2,
+           "num_elite_cands": 2, "selection": "uniform",
+           "log_dir": str(tmp_path),
+           "tpu": {"seed": 0, "precision": "bf16", "pop_chunk": 4, **tpu}}
+    return ESMaster(exp, device="cuda", data=card_task.data)
+
+
+@pytest.mark.cuda
+def test_es_fused_block_makes_no_sync(card_task, tmp_path):
+    """gens_per_dispatch 2 over 4 generations (plain, fused, a block of
+    2): the fused generation and the block run under
+    torch.cuda.set_sync_debug_mode("error"), so neither syncs the host
+    before its one pull."""
+    m = _es_master(card_task, tmp_path, gens_per_dispatch=2)
+    calls = []
+    for name in ("fused_generation", "fused_block"):
+        fn = getattr(m.engine, name)
+
+        def run(*a, _fn=fn, _name=name, **k):
+            calls.append(_name)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        setattr(m.engine, name, run)
+    m.run_master(max_iterations=4)
+    assert calls == ["fused_generation", "fused_block"]
+    assert np.isfinite(m.stats.to_dict()["score_stats"]).all()
+
+
+@pytest.mark.cuda
+def test_es_sweep_fitness_equals_rebuilt_child(card_task, tmp_path):
+    """Sweep, then materialize the best child and decode it alone on the
+    sweep's batch: its fitness is its sweep fitness bit for bit; chunks of
+    4 and 16 give the same fitness vector; the fused generation keeps
+    materialize's children."""
+    m = _es_master(card_task, tmp_path)
+    eng, task = m.engine, m.task
+    parents, g = _es_parents(task, 6)
+    rng = np.random.default_rng(2)
+    seeds = rng.integers(0, 2**32, size=20, dtype=np.uint32)
+    pidx = rng.integers(0, 6, size=20)
+    idx_row = rng.integers(0, 64, size=16)
+    fit = eng.eval_generation(parents, 0.005, seeds, pidx, idx_row)["fitness"]
+    order = np.argsort(-fit.cpu().numpy(), kind="stable")
+    best = eng.materialize(parents, 0.005, seeds[order[:1]],
+                           pidx[order[:1]])
+    alone = task.rollout(best, torch.as_tensor(idx_row, device="cuda"))
+    assert torch.equal(alone["fitness"][0], fit[int(order[0])])
+    eng.pop_chunk = 16
+    assert torch.equal(eng.eval_generation(parents, 0.005, seeds, pidx,
+                                           idx_row)["fitness"], fit)
+    fit2, selected, _, _ = eng._gen_core(
+        parents, 0.005, seeds, pidx, idx_row, task.device_consts(),
+        task.device_val_consts(), 4, 2)
+    assert torch.equal(fit2, fit)
+    assert torch.equal(selected, eng.materialize(parents, 0.005,
+                                                 seeds[order[:4]],
+                                                 pidx[order[:4]]))
