@@ -108,7 +108,22 @@ Phases, each printed as it ends (any failure exits non-zero):
     rebuilt from its seed and decoded alone, keeps its fitness bit for bit;
     the sweep at pop_chunk 48 beside 16; one fused generation under
     torch.profiler (idle share, K1's share); K1 at the ES launch shape (16
-    members x 128 rows) against its plain twin, cuBLAS and its bound.
+    members x 128 rows) against its plain twin, cuBLAS and its bound;
+20. ESMaster on experiments/mscoco_es_smg_fast.json uncut but for depth
+    (SM-G-SUM over the first 64 rows of each batch at split 400, bf16
+    sensitivities; 1000 offspring, 50 parents) on the plain, fused and
+    blocked paths, 5 generations each (the config's snapshot_freq: a block
+    of 2, then a fused generation): fitness vectors, kept children and
+    podium rows bit for bit, one sweep of the 50 parents per generation, K1
+    126 times per generation, no host sync inside a fused generation or a
+    block; the sensitivity matrix of one parent set twice, bit for bit, its
+    time at split 400 and 100; one parent's f32 sensitivities against the
+    CPU's (rtol 2e-4, atol 1e-6); bf16 against f32 (printed); one fused
+    generation and one sweep under torch.profiler;
+21. NESMaster as in 10 with SM-G-SUM (64 rows, underflow 0.01): blocks of 2
+    with inline sensitivities bit for bit the single generations; on one
+    generation's SM-G scale, K5 bitwise K2 fed K7's dump and K6 the ordered
+    sum of K7's dumps.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -1028,6 +1043,93 @@ ES_SETTINGS = (1000, 50, 3, 2, "uniform", 256, 5000, 0.005,
                "SM-PROPORTIONAL", "bf16", 16, 8)
 
 
+ES_COUNTERS = ("decode_fused", "decode_rows", "decode_tiled", "decode_sample",
+               "decode_pair_perturb", "decode_pair_rng")
+
+
+def no_sync(fn, calls):
+    """fn under set_sync_debug_mode("error"): a host sync raises. Each call
+    appends fn's name to ``calls``."""
+    import torch
+
+    def run(*a, **k):
+        calls.append(fn.__name__)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
+
+
+def drive_es(exp: dict, dev, data, iters: int):
+    """An ESMaster of ``exp`` on ``data`` run for ``iters`` generations, its
+    fused generations and blocks under ``no_sync``, with the launch counts
+    of ES_COUNTERS (K1, row-block K1, K4, K3, K2, K5) set to 0 just before
+    and read just after. Returns (master, fitness vectors, engine calls,
+    block sizes, counts); the master's ``setup_s`` and ``run_s`` are its
+    construction's and its run's seconds on the host clock."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine, ESMaster
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    counters = [getattr(dc, name) for name in ES_COUNTERS]
+    t0 = time.perf_counter()
+    m = ESMaster(exp, device=dev, data=data)
+    m.task.val_scorer  # the scorers are built before the timed run
+    m.task.device_val_consts()
+    m.setup_s = time.perf_counter() - t0
+    eng, fits, calls, blocks = m.engine, [], [], []
+    host_fitness, unpack_fused = m.task.host_fitness, eng.unpack_fused
+    unpack_block = ESEngine.unpack_block
+
+    def hf(art, idx):
+        fits.append(host_fitness(art, idx))
+        return fits[-1]
+
+    def uf(packed, n, c):
+        out = unpack_fused(packed, n, c)
+        fits.append(out[0])
+        return out
+
+    def ub(packed, k, n, c, e):
+        out = unpack_block(packed, k, n, c, e)
+        fits.extend(out[0])
+        blocks.append(k)
+        return out
+
+    m.task.host_fitness, eng.unpack_fused = hf, uf
+    eng.fused_generation = no_sync(eng.fused_generation, calls)
+    eng.fused_block = no_sync(eng.fused_block, calls)
+    ESEngine.unpack_block = staticmethod(ub)
+    try:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        m.run_master(max_iterations=iters)
+        torch.cuda.synchronize()
+        m.run_s = time.perf_counter() - t0
+        counts = [c.launches for c in counters]
+    finally:
+        ESEngine.unpack_block = staticmethod(unpack_block)
+    return m, fits, calls, blocks, counts
+
+
+def es_state(m):
+    """(children rows on the host, podium [(score, row)]) of an ESMaster."""
+    spec = m.task.spec
+    if m.parents_mat is None:
+        children = m._selected_dev[:m._n_selected]
+    else:
+        n_el = sum(p is not None for p in m._parent_paths)
+        children = m.parents_mat[n_el:m._n_parents]
+    podium = [(s, spec.load_pth(p)) for p, s in m.it.best_elites() if p]
+    return children.cpu(), podium
+
+
 def es_phase(card: str, data) -> list:
     """Phase 19: ESMaster on experiments/mscoco_es.json at full width (1000
     offspring in chunks of 16, 50 parents, 3 elites, 2 candidates, batch
@@ -1047,7 +1149,7 @@ def es_phase(card: str, data) -> list:
 
     import torch
 
-    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine, ESMaster
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
     from nes_img_captioning_tpu_torch.utils.config import (
         load_experiment,
@@ -1074,56 +1176,10 @@ def es_phase(card: str, data) -> list:
 
     L, chunk, B = ES_SETTINGS[0], ES_SETTINGS[10], ES_SETTINGS[5]
     k1_per_gen = -(-L // chunk) * -(-B // 128)
-    counters = (dc.decode_fused, dc.decode_rows, dc.decode_tiled,
-                dc.decode_sample, dc.decode_pair_perturb, dc.decode_pair_rng)
-
-    def no_sync(fn, calls):
-        """fn under set_sync_debug_mode("error"): a host sync raises."""
-        def run(*a, **k):
-            calls.append(fn.__name__)
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return run
 
     def drive(name: str, **tpu):
-        m = ESMaster(experiment(name, **tpu), device=dev, data=data)
-        m.task.val_scorer  # the scorers are built before the timed run
-        m.task.device_val_consts()
-        eng, fits, calls = m.engine, [], []
-        host_fitness, unpack_fused = m.task.host_fitness, eng.unpack_fused
-        unpack_block = ESEngine.unpack_block
-
-        def hf(art, idx):
-            fits.append(host_fitness(art, idx))
-            return fits[-1]
-
-        def uf(packed, n, c):
-            out = unpack_fused(packed, n, c)
-            fits.append(out[0])
-            return out
-
-        def ub(packed, k, n, c, e):
-            out = unpack_block(packed, k, n, c, e)
-            fits.extend(out[0])
-            return out
-
-        m.task.host_fitness, eng.unpack_fused = hf, uf
-        eng.fused_generation = no_sync(eng.fused_generation, calls)
-        eng.fused_block = no_sync(eng.fused_block, calls)
-        ESEngine.unpack_block = staticmethod(ub)
-        try:
-            torch.cuda.synchronize()
-            for c in counters:
-                c.launches = 0
-            m.run_master(max_iterations=ES_ITERS)
-            torch.cuda.synchronize()
-            counts = [c.launches for c in counters]
-        finally:
-            ESEngine.unpack_block = staticmethod(unpack_block)
+        m, fits, calls, _, counts = drive_es(
+            experiment(name, **tpu), dev, data, ES_ITERS)
         rows_want = 2 * ES_ITERS + (2 if name != "plain" else 0)
         if counts != [ES_ITERS * k1_per_gen, rows_want, 0, 0, 0, 0]:
             raise AssertionError(f"[19] {name}: launches (K1, row-block K1, "
@@ -1135,21 +1191,17 @@ def es_phase(card: str, data) -> list:
                                  f"{len(fits)} fitness vectors")
         if not all(np.isfinite(f).all() for f in fits):
             raise AssertionError(f"[19] {name}: non-finite fitness")
-        spec = m.task.spec
-        if m.parents_mat is None:
-            children = m._selected_dev[:m._n_selected]
-        else:
-            n_el = sum(p is not None for p in m._parent_paths)
-            children = m.parents_mat[n_el:m._n_parents]
-        podium = [(s, spec.load_pth(p)) for p, s in m.it.best_elites() if p]
+        children, podium = es_state(m)
         ms = [round(t * 1e3, 3) for t in m.stats.time_stats()]
         log(f"[19] ESMaster {name} (experiments/mscoco_es.json: {L} "
             f"offspring, pop_chunk {chunk}, batch {B}, {ES_SETTINGS[6]} val "
-            f"images, bf16): ms per generation {ms}; K1 launches {counts[0]} "
+            f"images, bf16; set-up {m.setup_s:.1f} s, run {m.run_s:.1f} s "
+            f"with its snapshot): ms per generation {ms}; K1 launches "
+            f"{counts[0]} "
             f"({k1_per_gen} per generation), row-block K1 {counts[1]}; "
             f"engine calls {calls} under set_sync_debug_mode('error') "
             f"({card})")
-        return m, fits, children.cpu(), podium, counts, ms
+        return m, fits, children, podium, counts, ms
 
     runs = {name: drive(name, **tpu) for name, tpu in (
         ("plain", {"fused_es": False}), ("fused", {"gens_per_dispatch": 1}),
@@ -1332,6 +1384,459 @@ def es_phase(card: str, data) -> list:
         "fused_generation_idle_share": 1 - busy / wall_ms,
         "k1_share_of_busy": k1_dev / busy,
     }]
+
+
+# [20]: experiments/mscoco_es_smg_fast.json's settings that phase 20 runs
+# (nb_offspring, population_size, num_elites, num_elite_cands, selection,
+# batch_size, num_val_items, noise_stdev, safe_mutations,
+# safe_mutation_underflow, precision, pop_chunk, gens_per_dispatch,
+# snapshot_freq, sensitivity_batch, sensitivity_split,
+# sensitivity_precision)
+SMG_SETTINGS = (1000, 50, 3, 2, "uniform", 256, 5000, 0.005, "SM-G-SUM",
+                0.01, "bf16", 16, 8, 5, 64, 400, "bfloat16")
+# generations per path: the config's snapshot_freq, so the blocked path runs
+# generation 1 plain, 2 fused, 3-4 as one block and 5 fused
+SMG_ITERS = 5
+# the bar of the f32 sensitivities on the card against the CPU's
+SENS_RTOL, SENS_ATOL = 2e-4, 1e-6
+
+
+def events_ms(fn):
+    """(fn(), its device time in ms between CUDA events), one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def es_smg_phase(card: str, data, k1_row: dict) -> list:
+    """Phase 20: ESMaster on experiments/mscoco_es_smg_fast.json, uncut but
+    for depth (SMG_SETTINGS: 1000 offspring in chunks of 16, 50 parents,
+    SM-G-SUM over the first 64 rows of each batch at split 400, bf16
+    sensitivities and decode), from one tpu.seed on the plain, fused and
+    blocked paths as phase 19 runs them (``drive_es``), SMG_ITERS
+    generations each: fitness vectors, children and podium rows bit for
+    bit, K1 launched ceil(1000 / 16) x 2 times per generation, one sweep of
+    the 50 parents per generation after the first, no host sync inside a
+    fused generation or a block. Then on one parent set: its sensitivity
+    matrix twice, bit for bit, and the sweep's time (CUDA events) at split
+    400 and once at the reference's 100; one parent's f32 sensitivities on
+    the card against the CPU's (SENS_RTOL, SENS_ATOL); the bf16
+    sensitivities' relative error against f32 (printed, not gated); one
+    fused generation and one sweep under torch.profiler. Returns K1's row
+    of the kernels line for this path, its times those of phase 19's
+    ``k1_row`` (the same launch shape, in this run)."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine
+    from nes_img_captioning_tpu_torch.ops import sensitivity as S
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_smg_{os.getpid()}")
+    t_phase = time.perf_counter()
+
+    def experiment(name: str, **tpu) -> dict:
+        exp = load_experiment("experiments/mscoco_es_smg_fast.json")
+        cfg, mo = exp["config"], exp["policy_options"]["model_options"]
+        t = exp["tpu"]
+        got = (exp["nb_offspring"], exp["population_size"],
+               exp["num_elites"], exp["num_elite_cands"], exp["selection"],
+               cfg["batch_size"], cfg["num_val_items"], cfg["noise_stdev"],
+               mo["safe_mutations"], mo["safe_mutation_underflow"],
+               t["precision"], t["pop_chunk"], t["gens_per_dispatch"],
+               cfg["snapshot_freq"], t["sensitivity_batch"],
+               t["sensitivity_split"], t["sensitivity_precision"])
+        if got != SMG_SETTINGS:
+            raise AssertionError(f"[20] mscoco_es_smg_fast.json changed: "
+                                 f"{got}")
+        exp["tpu"].update(tpu)
+        exp["log_dir"] = os.path.join(runs_dir, name)
+        return exp
+
+    L, P, B = SMG_SETTINGS[0], SMG_SETTINGS[1], SMG_SETTINGS[5]
+    chunk = SMG_SETTINGS[11]
+    k1_per_gen = -(-L // chunk) * -(-B // 128)
+    sweep = ESEngine.sensitivities
+    runs = {}
+    for name, tpu in (("plain", {"fused_es": False}),
+                      ("fused", {"gens_per_dispatch": 1}), ("blocked", {})):
+        sweeps = []
+
+        def counted(self, parents, sens_idx, seed0, sweeps=sweeps):
+            sweeps.append((parents.shape[0], len(sens_idx)))
+            return sweep(self, parents, sens_idx, seed0)
+
+        ESEngine.sensitivities = counted
+        try:
+            m, fits, calls, blocks, counts = drive_es(
+                experiment(name, **tpu), dev, data, SMG_ITERS)
+        finally:
+            ESEngine.sensitivities = sweep
+        rows_want = 2 * SMG_ITERS + (2 if name != "plain" else 0)
+        if counts != [SMG_ITERS * k1_per_gen, rows_want, 0, 0, 0, 0]:
+            raise AssertionError(f"[20] {name}: launches (K1, row-block K1, "
+                                 f"K4, K3, K2, K5) {counts}")
+        want = {"plain": ([], []),
+                "fused": (["fused_generation"] * (SMG_ITERS - 1), []),
+                "blocked": (["fused_generation", "fused_block",
+                             "fused_generation"], [2])}[name]
+        if (calls, blocks) != want or len(fits) != SMG_ITERS:
+            raise AssertionError(f"[20] {name}: engine calls {calls}, blocks "
+                                 f"{blocks}, {len(fits)} fitness vectors")
+        if sweeps != [(P, SMG_SETTINGS[14])] * (SMG_ITERS - 1):
+            raise AssertionError(f"[20] {name}: sensitivity sweeps {sweeps}")
+        if not all(np.isfinite(f).all() for f in fits):
+            raise AssertionError(f"[20] {name}: non-finite fitness")
+        children, podium = es_state(m)
+        ms = [round(t * 1e3, 3) for t in m.stats.time_stats()]
+        log(f"[20] ESMaster {name} (experiments/mscoco_es_smg_fast.json: {L} "
+            f"offspring, pop_chunk {chunk}, batch {B}, SM-G-SUM over "
+            f"{SMG_SETTINGS[14]} rows at split {SMG_SETTINGS[15]}, "
+            f"{SMG_SETTINGS[16]} sensitivities, bf16 decode; set-up "
+            f"{m.setup_s:.1f} s, run {m.run_s:.1f} s with its snapshot): ms "
+            f"per "
+            f"generation {ms}; K1 launches {counts[0]} ({k1_per_gen} per "
+            f"generation), row-block K1 {counts[1]}; sweeps of {P} parents "
+            f"{len(sweeps)}; engine calls {calls}, blocks of {blocks} "
+            f"generations, under set_sync_debug_mode('error') ({card})")
+        runs[name] = (m, fits, children, podium, counts, ms)
+
+    pm, pfits, pchildren, ppodium, _, _ = runs["plain"]
+    for name in ("fused", "blocked"):
+        m, fits, children, podium, _, _ = runs[name]
+        if not all(np.array_equal(a, b) for a, b in zip(pfits, fits)):
+            raise AssertionError(f"[20] {name}: fitness vectors differ from "
+                                 "the plain path's")
+        if not torch.equal(children, pchildren) or len(podium) != len(
+                ppodium) or not all(torch.equal(a[1], b[1])
+                                    for a, b in zip(podium, ppodium)):
+            raise AssertionError(f"[20] {name}: kept children or podium "
+                                 "rows differ from the plain path's")
+        if m.stats.to_dict()["norm_stats"] != pm.stats.to_dict()[
+                "norm_stats"]:
+            raise AssertionError(f"[20] {name}: mean|policy| differs")
+        if not np.allclose(m.stats.acc_stats(), pm.stats.acc_stats(),
+                           rtol=1e-4, atol=1e-6) or not np.allclose(
+                [s for s, _ in podium], [s for s, _ in ppodium], rtol=1e-4,
+                atol=1e-6):
+            raise AssertionError(f"[20] {name}: candidate or podium scores "
+                                 "beyond 1e-4 of the plain path's")
+    fm, bm = runs["fused"][0], runs["blocked"][0]
+    if fm.stats.acc_stats() != bm.stats.acc_stats():
+        raise AssertionError("[20] fused and blocked candidate scores differ")
+    es_ms = {name: r[5] for name, r in runs.items()}
+    launches = runs["blocked"][4][0]
+    log(f"[20] plain, fused and blocked paths: {SMG_ITERS} fitness vectors "
+        f"of {L}, {pchildren.shape[0]} kept children and {len(ppodium)} "
+        f"podium rows bit for bit; acc "
+        f"{[round(a, 6) for a in fm.stats.acc_stats()]} ({card})")
+    del runs, pm, fm
+
+    # one parent set: the sweep twice, its time at split 400 and 100
+    m = bm
+    eng, task = m.engine, m.task
+    elites = m._device_elite_rows([p for p, _ in m.it.best_elites() if p])
+    parents = torch.cat([elites, m._selected_dev])
+    rng = np.random.default_rng(2)
+    seeds = rng.integers(0, 2**32, size=L, dtype=np.uint32)
+    pidx = rng.integers(0, P, size=L).astype(np.int32)
+    idx_row = rng.choice(task.train_n, size=B, replace=False)
+    sens_idx = m._sens_batch_rows(idx_row)
+    seed0 = int(seeds[0])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        first = eng.sensitivities(parents, sens_idx, seed0)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    again, sweep_ms = events_ms(
+        lambda: eng.sensitivities(parents, sens_idx, seed0))
+    sweep_mem = torch.cuda.max_memory_allocated() - base_mem
+    if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("[20] the sensitivity matrix differs between "
+                             "two sweeps of one parent set")
+    # the same sweep one parent at a time (no outer vmap), for its time
+    idx_d = torch.as_tensor(sens_idx, dtype=torch.long, device=dev)
+    uf = eng._sens_underflow
+    single, single_ms = events_ms(lambda: torch.stack([S.calc_sensitivity(
+        task, th.clone(), idx_d, eng.mutation, uf, eng._sens_precision)
+        for th in parents]))
+    same_single = torch.equal(single.view(torch.int32),
+                              first.view(torch.int32))
+    del single
+    split = task._sens_split
+    task._sens_split = 100
+    try:
+        s100, sweep100_ms = events_ms(
+            lambda: eng.sensitivities(parents, sens_idx, seed0))
+        groups100 = task.sensitivity_groups
+    finally:
+        task._sens_split = split
+    del s100
+    log(f"[20] SM-G-SUM sweep of {P} parents over {len(sens_idx)} rows, "
+        f"{eng._sens_precision} products, vmap groups of {S.SENS_GROUP}: "
+        f"{sweep_ms:.3f} ms at split {split} "
+        f"({task.sensitivity_groups} groups; {sweep_ms / P:.3f} ms per "
+        f"parent; one parent at a time {single_ms:.3f} ms, "
+        f"{'the same bits' if same_single else 'other bits'}; "
+        f"{sweep_mem / 2**30:.2f} GiB peak above the "
+        f"{P} x {eng.dim:,} result), {sweep100_ms:.3f} ms at the reference's "
+        f"split 100 ({groups100} groups) (CUDA events); the {P} x "
+        f"{eng.dim:,} matrix bit for bit the same on a second sweep; "
+        f"{(first > 1).float().mean():.4%} of entries above the clamp; "
+        f"warnings during the sweep: "
+        f"{sorted({str(w.message)[:120] for w in caught}) or 'none'} "
+        f"({card})")
+
+    # one parent's f32 sensitivities on the card against the CPU's, and the
+    # bf16 products' relative error against f32
+    theta0 = parents[0].clone()
+    raw32, raw16 = (S.sum_sens(task.sensitivity_forward, theta0, idx_d,
+                               task.device_consts(), prec)
+                    for prec in ("float32", "bfloat16"))
+    card32, card16 = S.postprocess(raw32, uf), S.postprocess(raw16, uf)
+    feats_cpu = task.train_fc[idx_d].cpu()
+
+    def forward_cpu(th, idx, consts):
+        return task.model.forward_for_sensitivity(th, feats_cpu[idx], 5,
+                                                  split)
+
+    t0 = time.perf_counter()
+    cpu32 = S.postprocess(S.sum_sens(forward_cpu, theta0.cpu(),
+                                     torch.arange(len(sens_idx)), None,
+                                     "float32"), uf)
+    cpu_s = time.perf_counter() - t0
+    c32 = card32.cpu()
+    err = (c32 - cpu32).abs()
+    rel_cpu = float((err / cpu32).max())
+    if not bool((err <= SENS_ATOL + SENS_RTOL * cpu32.abs()).all()):
+        raise AssertionError(f"[20] f32 sensitivities on the card beyond "
+                             f"rtol {SENS_RTOL} / atol {SENS_ATOL} of the "
+                             f"CPU's (max relative error {rel_cpu:.3g})")
+    rel16 = ((card16 - card32).abs() / card32).cpu()
+    live = raw32 > 0
+    raw_rel = ((raw16 - raw32).abs()[live] / raw32[live]).cpu()
+    above = (card32 > 1).cpu()
+    rel_above = rel16[above] if bool(above.any()) else torch.zeros(1)
+    log(f"[20] one parent's f32 sensitivities (TF32 off) on the card against "
+        f"the CPU's: max relative error {rel_cpu:.3g} (<= rtol {SENS_RTOL}, "
+        f"atol {SENS_ATOL}; the CPU took {cpu_s:.1f} s); bf16 products "
+        f"against f32 (not gated), relative error after the clamp: median "
+        f"{float(rel16.median()):.3g}, max {float(rel16.max()):.3g}; on the "
+        f"{int(above.sum())} entries above the clamp: median "
+        f"{float(rel_above.median()):.3g}, max {float(rel_above.max()):.3g}; "
+        f"before the clamp, over the {int(live.sum())} nonzero entries: "
+        f"median {float(raw_rel.median()):.3g}, max "
+        f"{float(raw_rel.max()):.3g} ({card})")
+
+    # one fused generation and one sweep under the profiler
+    policy = m.policy_theta
+    wall_ms, busy, rows = profile_call(lambda: eng.unpack_fused(
+        ESEngine.fused_generation(eng, elites, elites.shape[0],
+                                  m._selected_dev, m.it.noise_stdev(), seeds,
+                                  pidx, idx_row, policy, 2,
+                                  sens_idx=sens_idx)[0], L, 2))
+    wall_s, busy_s, rows_s = profile_call(
+        lambda: eng.sensitivities(parents, sens_idx, seed0))
+    log(f"[20] one fused SM-G ES generation under torch.profiler: wall "
+        f"{wall_ms:.3f} ms, card busy {busy:.3f} ms (idle "
+        f"{1 - busy / wall_ms:.2%}); the sweep alone: wall {wall_s:.3f} ms, "
+        f"card busy {busy_s:.3f} ms (idle {1 - busy_s / wall_s:.2%}), "
+        f"{busy_s / busy:.2%} of the generation's card-busy time ({card})")
+    for ms_k, count, key in rows[:8]:
+        log(f"    {ms_k:10.3f} ms  x{count:<5d} {key[:90]}")
+    log("[20] the sweep's kernels:")
+    for ms_k, count, key in rows_s[:10]:
+        log(f"    {ms_k:10.3f} ms  x{count:<5d} {key[:90]}")
+    shutil.rmtree(runs_dir)
+    log(f"[20] phase: {time.perf_counter() - t_phase:.1f} s")
+    row = {k: k1_row[k] for k in ("route", "source", "replaces",
+                                   "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+    row.update({
+        "name": "decode_fused_es_smg_chunk16", "launches": launches,
+        "k1_launches_per_generation": launches // SMG_ITERS,
+        "times_from": k1_row["name"], "es_generation_ms": es_ms,
+        "sweep_ms_split400": sweep_ms, "sweep_ms_split100": sweep100_ms,
+        "sweep_ms_split400_one_parent_at_a_time": single_ms,
+        "sweep_peak_gib": sweep_mem / 2**30,
+        "sens_f32_max_rel_err_vs_cpu": rel_cpu,
+        "sens_bf16_rel_err_median": float(rel16.median()),
+        "sens_bf16_rel_err_max": float(rel16.max()),
+        "sens_bf16_raw_rel_err_median": float(raw_rel.median()),
+        "sens_bf16_raw_rel_err_max": float(raw_rel.max()),
+        "fused_generation_idle_share": 1 - busy / wall_ms,
+        "sweep_share_of_busy": busy_s / busy,
+    })
+    return [row]
+
+
+def nes_smg_phase(card: str, task, seeds, batches, rows_11: list) -> list:
+    """Phase 21: NESMaster on phase 10's cut of experiments/mscoco_nes.json
+    (144 pairs, batch 128, pop_chunk 24, bf16, 256 validation images,
+    kernel noise) with SM-G-SUM over the first 64 rows of member 0's batch
+    at underflow 0.01:
+    4 iterations in blocks of 2 (inline sensitivities, validation on the
+    card) against 4 single generations, theta bit for bit, K5 and K6
+    launched and K1, K2 and K7 not. Then on one generation's SM-G scale
+    sigma / sens: K5 bitwise K2 fed K7's dump, and K6 bitwise the ordered
+    f32 sum of K7's dumps. Returns K5's and K6's rows of the kernels line
+    for this path, their times those of phase 11's ``rows_11``."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import (
+        NESEngine,
+        NESMaster,
+    )
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_nes_smg_{os.getpid()}")
+    t_phase = time.perf_counter()
+    P, B, F = BENCH["pop_chunk"], BENCH["batch"], BENCH["pairs"]
+    lay, T = task.decode_layout, task.model.options.seq_length
+    counters = (dc.decode_fused, dc.decode_pair_perturb, dc.decode_pair_rng,
+                dc.pair_grad_rng, dc.pair_delta_dump, dc.decode_rows)
+
+    def experiment(name: str, gens_per_dispatch: int) -> dict:
+        exp = load_experiment("experiments/mscoco_nes.json")
+        exp["config"].update(batch_size=B, val_batch_size=256,
+                             num_val_items=256, snapshot_freq=4)
+        mo = exp["policy_options"]["model_options"]
+        # underflow 0.01, mscoco_es_smg_fast.json's: a scale that varies
+        mo.update(safe_mutations="SM-G-SUM", safe_mutation_underflow=0.01,
+                  fc_feat_size=task.model.options.fc_feat_size)
+        exp["nb_offspring"] = F
+        exp["tpu"].update(pop_chunk=P, precision="bf16", delta_dtype="bf16",
+                          gens_per_dispatch=gens_per_dispatch,
+                          kernel_noise=True, sensitivity_batch=64)
+        exp["log_dir"] = os.path.join(runs_dir, name)
+        return exp
+
+    sweep = NESEngine.sensitivity
+    masters = {}
+    for name, gpd in (("block", 2), ("single", 1)):
+        sweeps = []
+
+        def counted(self, theta, idx_row, seed0, sweeps=sweeps):
+            sweeps.append(min(len(idx_row), self._sens_batch))
+            return sweep(self, theta, idx_row, seed0)
+
+        m = NESMaster(experiment(name, gpd), device=dev, data=task.data)
+        m.task.device_val_consts()
+        NESEngine.sensitivity = counted
+        try:
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            m.run_master(max_iterations=4)
+            torch.cuda.synchronize()
+        finally:
+            NESEngine.sensitivity = sweep
+        counts = [c.launches for c in counters]
+        n_chunks = -(-F // P)
+        rows_want = 4 if gpd > 1 else 0  # fused validation's row blocks
+        if counts[:5] != [0, 0, 4 * n_chunks, 4, 0] or \
+                counts[5] < rows_want or not m.engine.inline_sens:
+            raise AssertionError(f"[21] {name}: launches (K1, K2, K5, K6, "
+                                 f"K7, row-block K1) {counts}")
+        if sweeps != [min(B, 64)] * 4 or m._val_fused != (gpd > 1):
+            raise AssertionError(f"[21] {name}: sweeps {sweeps}, fused "
+                                 f"validation {m._val_fused}")
+        if not np.isfinite(m.stats.score_stats()[1]).all():
+            raise AssertionError(f"[21] {name}: non-finite fitness")
+        masters[name] = (m, counts)
+        log(f"[21] NESMaster {name} (experiments/mscoco_nes.json at {F} "
+            f"pairs, batch {B}, pop_chunk {P}, bf16, kernel noise, SM-G-SUM "
+            f"over {min(B, 64)} rows at split {m.task._sens_split}, underflow "
+            f"0.01, gens_per_dispatch "
+            f"{gpd}): ms per iteration "
+            f"{[round(t * 1e3, 3) for t in m.stats.time_stats()]}; "
+            f"launches (K1, K2, K5, K6, K7, row-block K1) {counts}; "
+            f"{len(sweeps)} sweeps ({card})")
+    mb, ms_ = masters["block"][0], masters["single"][0]
+    if not torch.equal(mb.theta, ms_.theta):
+        raise AssertionError("[21] the SM-G block's theta differs from "
+                             "per-generation steps")
+    log("[21] theta after 4 SM-G generations: blocks of 2 with inline "
+        "sensitivities bit for bit the 4 single generations")
+
+    # the gates on one generation's SM-G scale
+    eng, theta = mb.engine, mb.theta
+    sens, sens_ms = events_ms(
+        lambda: eng.sensitivity(theta, batches[0][0], int(seeds[0][0])))
+    scale_dec = lay.to_dec(eng._scale_vec(theta, sens, BENCH["sigma"]),
+                           pad_scale=0.0)
+    scale_params = lay.prep(scale_dec, torch.float32)
+    base = mb.task.pair_base_params(lay.to_dec(theta))
+    seeds24 = seeds[0][:P]
+    feats = mb.task.train_fc[torch.as_tensor(batches[0][:P], device=dev)]
+    dump = dc.pair_delta_dump(scale_params, seeds24)
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    for dt in (torch.float32, torch.bfloat16):
+        seq5, lp5 = dc.decode_pair_rng(base, scale_params, seeds24, feats, T,
+                                       dt, True)
+        seq2, lp2 = dc.decode_pair_perturb(base, dump, feats, T, dt, True)
+        if not (torch.equal(seq5, seq2) and torch.equal(bits(lp5),
+                                                        bits(lp2))):
+            raise AssertionError(f"[21] K5 {dt} on the SM-G scale: not "
+                                 "bitwise K2 fed K7's dump")
+    n_chunks = -(-F // P)
+    seeds_all = np.concatenate([seeds[0], seeds[0][-1:].repeat(
+        n_chunks * P - F)])
+    w_all = torch.as_tensor(np.random.default_rng(3).uniform(
+        -1, 1, size=n_chunks * P).astype(np.float32), device=dev)
+    w_all[F:] = 0.0
+    grad6 = lay.flat_dec(dc.pair_grad_rng(scale_params, seeds_all, w_all))
+    dumps = dc.pair_delta_dump_flat(lay.flat_dec(scale_params), seeds_all)
+    ordered = torch.zeros_like(grad6)
+    for i in range(seeds_all.shape[0]):
+        ordered = ordered + w_all[i] * dumps[i]
+    del dumps
+    if not torch.equal(bits(grad6), bits(ordered)):
+        raise AssertionError("[21] K6 on the SM-G scale: not bitwise the "
+                             "ordered sum of K7's dumps")
+    flat = lay.flat_dec(scale_params)
+    live = flat[flat > 0]
+    if not bool(live.max() > live.min()):
+        raise AssertionError("[21] the SM-G scale is uniform: every "
+                             "sensitivity is at the clamp")
+    log(f"[21] on one generation's SM-G scale (sigma / sens; its sweep of "
+        f"one theta {sens_ms:.3f} ms by CUDA events; scale from "
+        f"{float(live.min()):.4g} to {float(live.max()):.4g}, "
+        f"{(sens > 1).float().mean():.2%} of entries above the clamp): K5 "
+        f"f32 and bf16 tokens and lp bitwise K2 fed K7's dump; K6 over "
+        f"{seeds_all.shape[0]} lanes bitwise the ordered f32 sum of K7's "
+        f"dumps ({card})")
+    shutil.rmtree(runs_dir)
+    log(f"[21] phase: {time.perf_counter() - t_phase:.1f} s")
+    counts = masters["block"][1]
+    out = []
+    for name, launches in (("decode_pair_rng", counts[2]),
+                           ("pair_grad_rng", counts[3])):
+        (src,) = [r for r in rows_11 if r["name"] == name]
+        row = {k: src[k] for k in ("route", "source", "replaces", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}
+        row.update({"name": f"{name}_smg", "launches": launches,
+                    "times_from": name, "sweep_ms_one_theta": sens_ms,
+                    "nes_iteration_ms": {
+                        k: [t * 1e3 for t in v[0].stats.time_stats()]
+                        for k, v in masters.items()}})
+        out.append(row)
+    return out
 
 
 def main() -> int:
@@ -1999,6 +2504,8 @@ def main() -> int:
     data = val_fixture()
     kernels += validation_phase(card, data)
     kernels += es_phase(card, data)
+    kernels += es_smg_phase(card, data, kernels[-1])
+    kernels += nes_smg_phase(card, task, seeds, batches, kernels)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

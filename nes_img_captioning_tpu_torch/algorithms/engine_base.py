@@ -5,20 +5,62 @@ n_chunks launches in sequence bounding live memory to chunk x dim. The
 population is padded up to n_chunks * chunk by repeating the final member;
 results are sliced back to the true count and callers give pad lanes
 gradient weight 0. One card: the chunk is not rounded to a mesh multiple.
+
+Both engines also share the SM-G sensitivity settings and their host
+operands: the batch rows and the probe estimator's matrix (``probes_of``,
+the tests' seam), sent to the card without a host sync.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["PopulationEngine"]
+from ..ops.sensitivity import probe_matrix, resolve_probes
+
+__all__ = ["PopulationEngine", "to_device"]
+
+
+def to_device(arr, device) -> torch.Tensor:
+    """A host array on ``device`` without a host sync: on the card through
+    pinned memory and a non-blocking copy."""
+    t = torch.as_tensor(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class PopulationEngine:
-    def __init__(self, task, pop_chunk: int = 0):
+    def __init__(self, task, pop_chunk: int = 0, mutation=None,
+                 sens_underflow: float = 0.01,
+                 sens_precision: str = "float32", sens_probes: int = 0):
+        """``sens_*``: the SM-G sweep's underflow, product precision
+        (``tpu.sensitivity_precision``) and probe count
+        (``tpu.sensitivity_probes``, SM-G-SUM only) for ``mutation``."""
         self.task = task
         self.pop_chunk = pop_chunk
         self.dim = task.spec.num_params
+        self.mutation = mutation
+        self._sens_underflow = float(sens_underflow)
+        self._sens_precision = sens_precision
+        self._sens_probes = (resolve_probes(mutation, sens_probes)
+                             if mutation is not None else 0)
+
+    def probes_of(self, seed0: int, probes: int, groups: int):
+        """The (probes, groups) Rademacher matrix of the generation whose
+        member-0 seed is ``seed0`` (``ops/sensitivity.probe_matrix``, on
+        the host). Tests replace this with the JAX package's matrix."""
+        return probe_matrix(seed0, probes, groups)
+
+    def _sens_operands(self, sens_idx, seed0: int, device):
+        """(the batch rows ``sens_idx`` as a long tensor, the probe matrix
+        of ``seed0`` or None) on ``device``."""
+        idx_d = to_device(np.asarray(sens_idx, np.int64), device)
+        if not self._sens_probes:
+            return idx_d, None
+        return idx_d, to_device(np.array(self.probes_of(
+            seed0, self._sens_probes, self.task.sensitivity_groups),
+            np.float32), device)
 
     def _plan(self, n: int) -> tuple[int, int]:
         """(n_waves, chunk) for an n-member sweep: the chunk defaults to the

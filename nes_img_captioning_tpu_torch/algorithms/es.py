@@ -34,9 +34,17 @@ Three ways to run a generation, as in the JAX package:
   generations in a row with the podium merged on the card
   (``podium_merge``) and one pull for the block.
 
-Not ported, and refused: SM-G-* and SM-VECTOR mutations (their
-sensitivities), ``tpu.es_decode_layout: true``, host-scored fitness, a
-device mesh and ``tpu.profile``.
+Safe mutations divide a child's noise by a sensitivity: SM-VECTOR by its
+one precomputed vector, SM-G-SUM and SM-G-ABS by the row of its parent,
+computed each generation from the parent set over the first
+``tpu.sensitivity_batch`` rows of the generation's batch
+(``ops/sensitivity.calc_sensitivities``): on the plain path by
+``ESMaster._update_sensitivities`` before the sweep, on the fused paths on
+the card inside the generation from the assembled parents, with no host
+sync (JAX: es.py:288-321). A row is the same bits on every path.
+
+Not ported, and refused: ``tpu.es_decode_layout: true``, host-scored
+fitness, a device mesh and ``tpu.profile``.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-from .engine_base import PopulationEngine
+from .engine_base import PopulationEngine, to_device
 from .experiment import ESExperiment
 from .master_base import MasterBase
 from .snapshot import save_snapshot
@@ -59,6 +67,7 @@ from ..ops.mutation import (
     proportional_factor,
 )
 from ..ops.noise import lane_seeds
+from ..ops.sensitivity import calc_sensitivities
 from ..utils.files import remove_all_files_but
 
 logger = logging.getLogger(__name__)
@@ -83,24 +92,14 @@ def podium_merge(e_rows: torch.Tensor, e_scores: torch.Tensor,
     return pool.index_select(0, top), scores.index_select(0, top)
 
 
-def _to_device(arr, device) -> torch.Tensor:
-    """A host array on ``device`` without a host sync: on the card through
-    pinned memory and a non-blocking copy."""
-    t = torch.as_tensor(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 class ESEngine(PopulationEngine):
     """Device-side math for NIC-ES generations on one card."""
 
     def __init__(self, task, mutation: MutationKind, pop_chunk: int = 0,
-                 use_layout: object = "auto"):
-        super().__init__(task, pop_chunk=pop_chunk)
-        if mutation.is_safe:
-            raise NotImplementedError(
-                f"{mutation.value} needs a sensitivity, not ported yet")
+                 use_layout: object = "auto", **sens):
+        """``sens``: the SM-G settings of ``PopulationEngine``."""
+        super().__init__(task, pop_chunk=pop_chunk, mutation=mutation,
+                         **sens)
         if use_layout is True:
             raise NotImplementedError(
                 "tpu.es_decode_layout=true (children built in decode order) "
@@ -109,7 +108,6 @@ class ESEngine(PopulationEngine):
             raise NotImplementedError(
                 "only the fused decode with device CIDEr-D fitness is "
                 "ported yet (host-scored fitness is not)")
-        self.mutation = mutation
         self.device = task.device
 
     # ---- the test seams: what a child's randomness is -------------------------
@@ -131,7 +129,17 @@ class ESEngine(PopulationEngine):
         return lane_seeds(seeds, np.ones(len(seeds), np.int64),
                           self.task.seq_per_img)
 
-    # ---- children and their rollouts ------------------------------------------
+    # ---- sensitivities, children and their rollouts -----------------------
+
+    def sensitivities(self, parents, sens_idx, seed0: int) -> torch.Tensor:
+        """The post-processed SM-G rows (P, dim) of the parents over the
+        batch rows ``sens_idx`` (host), in groups of ``SENS_GROUP``; the probe
+        estimator's matrix comes from ``probes_of(seed0, ...)``. Host
+        operands reach the card through pinned memory: no host sync."""
+        idx_d, probes = self._sens_operands(sens_idx, seed0, self.device)
+        return calc_sensitivities(self.task, parents, idx_d, self.mutation,
+                                  self._sens_underflow, self._sens_precision,
+                                  probes)
 
     def _factors(self, parents):
         """Each parent row's SM-PROPORTIONAL factor, one row at a time (the
@@ -140,12 +148,13 @@ class ESEngine(PopulationEngine):
             return None
         return torch.stack([proportional_factor(p) for p in parents])
 
-    def _children(self, parents, factors, sigma, seeds, pidx_d):
+    def _children(self, parents, factors, sigma, seeds, pidx_d, sens=None):
         """(len(seeds), dim) children; ``parents`` None: fresh inits."""
         if parents is None:
             return torch.stack([self.fresh_of(s) for s in seeds])
         noise = torch.stack([self.normal_of(int(s)) for s in seeds])
-        return build_children(parents, pidx_d, noise, float(sigma), factors)
+        return build_children(parents, pidx_d, noise, float(sigma), factors,
+                              sens)
 
     def _fitness(self, children, seeds, idx_d, consts):
         lanes = self.lanes_of(seeds) if self.task.samples else None
@@ -159,21 +168,26 @@ class ESEngine(PopulationEngine):
         seeds_l = self._lay_out(np.asarray(seeds, np.uint32), n_chunks, chunk)
         pidx_l = None
         if pidx is not None:
-            pidx_l = _to_device(
+            pidx_l = to_device(
                 self._lay_out(np.asarray(pidx, np.int64), n_chunks, chunk),
                 self.device)
         return n_chunks, chunk, seeds_l, pidx_l
 
     def _gen_core(self, parents, sigma, seeds, pidx, idx_row, consts, vconsts,
-                  n_keep: int, n_cands: int):
+                  n_keep: int, n_cands: int, sens=None, sens_idx=None):
         """One generation on the card given the assembled (P, dim) parents:
-        sweep, truncation selection, the kept children and the candidates'
-        validation (JAX: es.py:279-353). Returns (fitness (L,), selected
+        for SM-G their sensitivities over the batch rows ``sens_idx``, then
+        the sweep, truncation selection, the kept children and the
+        candidates' validation (JAX: es.py:279-353). ``sens``: SM-VECTOR's
+        vector (SM-G computes its own; other kinds ignore ``sens_idx``).
+        Returns (fitness (L,), selected
         (n_keep, dim) best first, candidates (n_cands, dim) = its prefix,
         candidate scores (n_cands,)), with no host sync."""
         L = len(seeds)
+        if self.mutation.is_gradient:
+            sens = self.sensitivities(parents, sens_idx, seeds[0])
         n_chunks, chunk, seeds_l, pidx_l = self._chunks(seeds, pidx)
-        idx_d = _to_device(np.asarray(idx_row, np.int64), self.device)
+        idx_d = to_device(np.asarray(idx_row, np.int64), self.device)
         factors = self._factors(parents)
         S = n_keep + chunk
         pool = torch.empty((S, self.dim), dtype=torch.float32,
@@ -185,7 +199,7 @@ class ESEngine(PopulationEngine):
         for c in range(n_chunks):
             n = min(chunk, L - c * chunk)  # real members of the chunk
             children = self._children(parents, factors, sigma, seeds_l[c],
-                                      pidx_l[c])
+                                      pidx_l[c], sens)
             fit = self._fitness(children, seeds_l[c], idx_d, consts)
             fits.append(fit[:n])
             slots = free[:n]
@@ -211,50 +225,55 @@ class ESEngine(PopulationEngine):
 
     def eval_generation(self, parents, sigma, seeds: np.ndarray,
                         pidx: np.ndarray | None, idx_row: np.ndarray,
-                        fresh: bool = False) -> dict:
+                        fresh: bool = False, sens=None) -> dict:
         """The plain path's sweep: seeds (L,) uint32, pidx (L,) parent rows
-        (ignored when ``fresh``), idx_row (B,) -> ``{"fitness": (L,)}`` on
-        the device (JAX: es.py:423-441)."""
+        (ignored when ``fresh``), idx_row (B,), ``sens`` the safe kinds'
+        sensitivity (``build_children``) -> ``{"fitness": (L,)}`` on the
+        device (JAX: es.py:423-441)."""
         L = len(seeds)
         n_chunks, _, seeds_l, pidx_l = self._chunks(
             seeds, None if fresh else pidx)
-        idx_d = _to_device(np.asarray(idx_row, np.int64), self.device)
+        idx_d = to_device(np.asarray(idx_row, np.int64), self.device)
         consts = self.task.device_consts()
         parents = None if fresh else parents
         factors = self._factors(parents)
         fits = [self._fitness(self._children(
                     parents, factors, sigma, seeds_l[c],
-                    None if pidx_l is None else pidx_l[c]),
+                    None if pidx_l is None else pidx_l[c], sens),
                     seeds_l[c], idx_d, consts)
                 for c in range(n_chunks)]
         return {"fitness": torch.cat(fits)[:L]}
 
-    def materialize(self, parents, sigma, seeds, pidx, fresh: bool = False
-                    ) -> torch.Tensor:
+    def materialize(self, parents, sigma, seeds, pidx, fresh: bool = False,
+                    sens=None) -> torch.Tensor:
         """Rebuild the children of (seeds, pidx) from their lineage: the
         same builder as the sweep, so the same bits (JAX: es.py:544-555)."""
         seeds = np.asarray(seeds, np.uint32)
         if fresh:
             return self._children(None, None, sigma, seeds, None)
         return self._children(parents, self._factors(parents), sigma, seeds,
-                              _to_device(np.asarray(pidx, np.int64),
-                                         self.device))
+                              to_device(np.asarray(pidx, np.int64),
+                                         self.device), sens)
 
     def fused_generation(self, elite_rows, n_valid: int, selected_prev, sigma,
                          seeds: np.ndarray, pidx: np.ndarray,
-                         idx_row: np.ndarray, policy, n_cands: int):
+                         idx_row: np.ndarray, policy, n_cands: int,
+                         sens=None, sens_idx=None):
         """One generation with no host sync (JAX: es.py:240-277,443-475).
         Parents: row i = elite_rows[i] for i < n_valid, then the previous
         selected children, rows past the true count repeating the last
-        child (never drawn: pidx < n_parents). Returns (packed, selected,
-        cands), packed = [fitness (L) | cand scores (C) | mean|policy|]
-        read by ``unpack_fused`` in the generation's one sync."""
+        child (never drawn: pidx < n_parents). ``sens``: SM-VECTOR's
+        vector; ``sens_idx``: SM-G's batch rows (``_gen_core``). Returns
+        (packed, selected, cands), packed = [fitness (L) | cand scores (C) |
+        mean|policy|] read by ``unpack_fused`` in the generation's one
+        sync."""
         E = elite_rows.shape[0]
         parents = torch.cat([elite_rows[:n_valid], selected_prev,
                              selected_prev[-1:].expand(E - n_valid, -1)])
         fitness, selected, cands, cand_scores = self._gen_core(
             parents, sigma, seeds, pidx, idx_row, self.task.device_consts(),
-            self.task.device_val_consts(), selected_prev.shape[0], n_cands)
+            self.task.device_val_consts(), selected_prev.shape[0], n_cands,
+            sens, sens_idx)
         packed = torch.cat([fitness, cand_scores,
                             policy.abs().mean().reshape(1)])
         return packed, selected, cands
@@ -267,21 +286,24 @@ class ESEngine(PopulationEngine):
 
     def fused_block(self, elite_rows, elite_scores, selected_prev, cand_rows,
                     cand_scores, sigma, seeds: np.ndarray, pidx: np.ndarray,
-                    idx_rows: np.ndarray, n_cands: int):
+                    idx_rows: np.ndarray, n_cands: int, sens=None,
+                    sens_idx=None):
         """K generations in a row on the card (JAX: es.py:355-421,483-533):
         each assembles its parents from the podium as it stood BEFORE
         merging the previous generation's candidates, merges them
         (``podium_merge``), takes the best previous candidate (first
         argmax) as the policy and runs the generation. seeds, pidx (K, L),
-        idx_rows (K, B). Returns (packed (K, L + C + 1 + E), elite_rows,
-        elite_scores, selected, cand_rows, policy); packed rows are
+        idx_rows (K, B); ``sens`` as in fused_generation, ``sens_idx`` (K,
+        B_s) the SM-G batch rows of each generation. Returns (packed (K, L
+        + C + 1 + E), elite_rows, elite_scores, selected, cand_rows,
+        policy); packed rows are
         [fitness | cand scores | mean|policy| | elite scores after the
         merge], read by ``unpack_block`` in the block's one sync."""
         E = elite_rows.shape[0]
         e_rows, selected, c_rows = elite_rows, selected_prev, cand_rows
-        e_scores = _to_device(np.asarray(elite_scores, np.float32),
+        e_scores = to_device(np.asarray(elite_scores, np.float32),
                               self.device)
-        c_scores = _to_device(np.asarray(cand_scores, np.float32),
+        c_scores = to_device(np.asarray(cand_scores, np.float32),
                               self.device)
         consts = self.task.device_consts()
         vconsts = self.task.device_val_consts()
@@ -294,7 +316,8 @@ class ESEngine(PopulationEngine):
             policy = c_rows.index_select(0, c_scores.argmax().reshape(1))[0]
             fitness, selected, c_rows, c_scores = self._gen_core(
                 parents, sigma, seeds[k], pidx[k], idx_rows[k], consts,
-                vconsts, selected_prev.shape[0], n_cands)
+                vconsts, selected_prev.shape[0], n_cands, sens,
+                None if sens_idx is None else sens_idx[k])
             rows.append(torch.cat([fitness, c_scores,
                                    policy.abs().mean().reshape(1),
                                    e_scores]))
@@ -323,9 +346,10 @@ class ESMaster(MasterBase):
     differs. A resumed run continues the seeds (``MasterBase``); the JAX
     package's ESMaster starts them again from ``tpu.seed``.
 
-    Not ported yet, and refused: a device mesh, ``tpu.profile``, safe
-    mutations other than SM-PROPORTIONAL and ``tpu.es_decode_layout:
-    true``."""
+    Every mutation kind runs: SM-G-SUM and SM-G-ABS with their per-parent
+    sensitivities (``tpu.sensitivity_*``), SM-VECTOR with the vector of
+    ``safe_mutation_vector``. Not ported yet, and refused: a device mesh,
+    ``tpu.profile`` and ``tpu.es_decode_layout: true``."""
 
     def __init__(self, exp: dict, device=None, data=None):
         """``device``: the card unless ``"cpu"`` is passed; ``data``: an
@@ -336,7 +360,10 @@ class ESMaster(MasterBase):
         # "auto" resolves off, as in the JAX package (es.py:587-591)
         self.engine = ESEngine(self.task, self.mutation,
                                pop_chunk=tpu.pop_chunk,
-                               use_layout=tpu.es_decode_layout)
+                               use_layout=tpu.es_decode_layout,
+                               sens_underflow=self._underflow,
+                               sens_precision=tpu.sensitivity_precision,
+                               sens_probes=tpu.sensitivity_probes)
 
         self._elite_path_tpl = os.path.join(
             self.experiment.elite_dir(), "0_{i}_elite_params.pth")
@@ -487,6 +514,17 @@ class ESMaster(MasterBase):
             return subset.min(axis=1).astype(np.int32)
         return self._rng.integers(0, n_parents, size=L).astype(np.int32)
 
+    def _update_sensitivities(self, idx_row, seed0):
+        """The plain path's sensitivity operand of the sweep (JAX: es.py:
+        805-834): SM-G's rows of the whole padded parent matrix over the
+        generation's subsampled batch, the probes drawn from its member-0
+        seed ``seed0``, as the fused paths compute them; SM-VECTOR's
+        vector; None for the other kinds."""
+        if self.mutation.is_gradient:
+            return self.engine.sensitivities(
+                self.parents_mat, self._sens_batch_rows(idx_row), seed0)
+        return self._sens_vector
+
     # ---- main loop ------------------------------------------------------------------
 
     def _fused_capable(self) -> bool:
@@ -543,10 +581,15 @@ class ESMaster(MasterBase):
         # 2. the offspring sweep
         fresh = self.parents_mat is None
         seeds = self._rng.integers(0, 2**32, size=L, dtype=np.uint32)
-        pidx = (np.zeros(L, np.int32) if fresh
-                else self._select_parent_indices(L, self._n_parents))
+        sens = None
+        if fresh:
+            pidx = np.zeros(L, np.int32)
+        else:
+            sens = self._update_sensitivities(idx_row, seeds[0])
+            pidx = self._select_parent_indices(L, self._n_parents)
         artifacts = self.engine.eval_generation(
-            self.parents_mat, sigma, seeds, pidx, idx_row, fresh=fresh)
+            self.parents_mat, sigma, seeds, pidx, idx_row, fresh=fresh,
+            sens=sens)
         fitness = np.asarray(
             self.task.host_fitness(artifacts, idx_row)).reshape(L)
 
@@ -559,7 +602,7 @@ class ESMaster(MasterBase):
         cand_ids = order[:n_cands]
         cand_thetas = self.engine.materialize(
             self.parents_mat, sigma, seeds[cand_ids], pidx[cand_ids],
-            fresh=fresh)
+            fresh=fresh, sens=sens)
         cand_host = cand_thetas.cpu()
         new_cands, cand_files, new_cand_thetas = [], [], {}
         for i in range(len(cand_ids)):
@@ -575,7 +618,9 @@ class ESMaster(MasterBase):
         # 5. the next parents: podium elites, then the selected children
         #    (reference: record_parents + _add_elites_to_parents)
         selected = self.engine.materialize(
-            self.parents_mat, sigma, seeds[keep], pidx[keep], fresh=fresh)
+            self.parents_mat, sigma, seeds[keep], pidx[keep], fresh=fresh,
+            sens=sens)
+        del sens
         elite_paths = [path for path, _ in it.best_elites()
                        if path and os.path.isfile(path)]
         dev_elites = self._device_elite_rows(elite_paths)
@@ -644,7 +689,8 @@ class ESMaster(MasterBase):
         pidx = self._select_parent_indices(L, self._n_parents)
         packed, new_selected, new_cands = self.engine.fused_generation(
             dev_elites, n_valid, self._selected_dev, sigma, seeds, pidx,
-            idx_row, self.policy_theta, n_cands)
+            idx_row, self.policy_theta, n_cands, sens=self._sens_vector,
+            sens_idx=self._sens_batch_rows(idx_row))
         fitness, cand_scores, norm = self.engine.unpack_fused(
             packed, L, n_cands)  # the generation's one host sync
         order = np.argsort(-fitness, kind="stable")
@@ -707,11 +753,12 @@ class ESMaster(MasterBase):
             idx_rows[k] = self._sampler.batch(bs)
             seeds[k] = self._rng.integers(0, 2**32, size=L, dtype=np.uint32)
             pidx[k] = self._select_parent_indices(L, num_elites + S)
+        sens_idx = np.stack([self._sens_batch_rows(r) for r in idx_rows])
 
         packed, e_rows, _, selected, c_rows, policy = self.engine.fused_block(
             self._elites_dev, pre_scores, self._selected_dev,
             self._cands_dev, self._cand_scores_pending, sigma, seeds, pidx,
-            idx_rows, n_cands)
+            idx_rows, n_cands, sens=self._sens_vector, sens_idx=sens_idx)
         fit_all, cand_all, norms, etops = ESEngine.unpack_block(
             packed, b, L, n_cands, num_elites)  # the block's one sync
         block_dt = time.time() - t_block

@@ -16,12 +16,18 @@ import logging
 import os
 
 import numpy as np
+import torch
 
 from .iteration import Iteration
 from .snapshot import load_loader_state
 from .statistics import Statistics
 from ..data.core import build_sampler
 from ..ops.mutation import MutationKind
+from ..ops.sensitivity import (
+    load_sensitivity_file,
+    sm_vector_normalize,
+    subsample_batch_rows,
+)
 from ..utils.config import parse_config, parse_tpu_config
 from ..utils.files import mkdir_p
 
@@ -43,9 +49,9 @@ def setup_log_dir(exp: dict) -> str:
 
 class MasterBase:
     """One process on one card. Refused when set: a device mesh
-    (``tpu.mesh_shape``), ``tpu.profile`` and the mutations that need a
-    sensitivity. A subclass sets ``self.experiment`` before a resume and
-    keeps the podium's device rows in ``self._elites_dev``."""
+    (``tpu.mesh_shape``) and ``tpu.profile``. A subclass sets
+    ``self.experiment`` before a resume and keeps the podium's device rows
+    in ``self._elites_dev``."""
 
     def __init__(self, exp: dict, device=None, data=None):
         """``device``: the card unless ``"cpu"`` is passed; ``data``: an
@@ -63,9 +69,8 @@ class MasterBase:
         popts = exp.get("policy_options", {})
         mopts = popts.get("model_options", {})
         self.mutation = MutationKind(mopts.get("safe_mutations", "") or "")
-        if self.mutation.is_safe:
-            raise NotImplementedError(
-                f"{self.mutation.value} needs a sensitivity, not ported yet")
+        # the safe kinds' clamp (reference: safe_mutations.py:28-32,62-63)
+        self._underflow = float(mopts.get("safe_mutation_underflow", 0.01))
         setup_log_dir(exp)
 
         self.task = make_task(exp, self.config, tpu, device=device,
@@ -80,6 +85,23 @@ class MasterBase:
         self._podium_dirty = False  # slot files behind the adopted scores
         self._block_warned = False
         self._last_snapshot_iter = None
+        # SM-VECTOR's precomputed sensitivity, normalized, on the device
+        self._sens_vector = None
+        if self.mutation is MutationKind.SAFE_VECTOR:
+            self._sens_vector = self._place_sens(load_sensitivity_file(
+                mopts["safe_mutation_vector"]), self._underflow)
+
+    def _place_sens(self, vector, underflow: float) -> torch.Tensor:
+        """An SM-VECTOR vector clamped at ``underflow`` and divided by its
+        min (``sm_vector_normalize``), as a (dim,) f32 tensor on the
+        device."""
+        return torch.as_tensor(sm_vector_normalize(vector, underflow)
+                               ).to(self.device)
+
+    def _sens_batch_rows(self, idx_row) -> np.ndarray:
+        """SM-G's batch rows: the first ``tpu.sensitivity_batch`` of a
+        generation's batch (all for 0)."""
+        return subsample_batch_rows(idx_row, self.tpu_cfg.sensitivity_batch)
 
     def _resume(self, infos_path: str) -> dict:
         """Load a z_info file into the statistics, the iteration and the

@@ -27,6 +27,15 @@ pair's f32 delta in the kernel from its seed, once per chunk, and K6
 deltas again and sums the weighted gradient, once per generation (JAX:
 ``nes.py:356-403``).
 
+Safe mutations scale the noise by ``sigma / sens``: SM-VECTOR's vector, or
+for SM-G-SUM and SM-G-ABS the sensitivity of the generation's own theta
+over the first ``tpu.sensitivity_batch`` rows of member 0's batch
+(``ops/sensitivity.calc_sensitivity``). With ``inline_sens`` (on for SM-G)
+each generation computes it from its theta, so a block of generations stays
+exact (JAX: ``nes.py:277-300``); otherwise the master computes it once per
+dispatch (``NESMaster._maybe_sensitivity``) and SM-G runs one generation
+per dispatch.
+
 ``generation_val_block`` (``tpu.fused_validation``) runs K generations
 with the validation on the card: each first validates its pre-update theta
 (``CocoTask.validate_device``) and merges it into the device podium
@@ -56,6 +65,7 @@ from .snapshot import save_snapshot
 from ..ops.mutation import MutationKind, normal_from_seed, shape_noise
 from ..ops.noise import lane_seeds
 from ..ops.ranks import compute_centered_ranks
+from ..ops.sensitivity import calc_sensitivity, subsample_batch_rows
 from ..utils.files import mkdir_p, remove_all_files_from_dir
 
 logger = logging.getLogger(__name__)
@@ -68,13 +78,24 @@ class NESEngine(PopulationEngine):
 
     def __init__(self, task, optimizer, mutation: MutationKind,
                  pop_chunk: int = 0, kernel_perturb: object = "auto",
-                 kernel_noise: object = "auto", delta_dtype: str = "f32"):
-        super().__init__(task, pop_chunk=pop_chunk)
+                 kernel_noise: object = "auto", delta_dtype: str = "f32",
+                 sens_batch: int = 0, inline_sens: bool | None = None,
+                 **sens):
+        """``sens``: the SM-G settings of ``PopulationEngine``;
+        ``sens_batch``: the sweep's batch rows (``tpu.sensitivity_batch``).
+        ``inline_sens``: each generation computes its SM-G sensitivity from
+        its own theta; None (auto) turns it on for SM-G, as the JAX package
+        does for a device-scored task (nes.py:76-104)."""
+        super().__init__(task, pop_chunk=pop_chunk, mutation=mutation,
+                         **sens)
         self.optimizer = optimizer
-        if mutation in (MutationKind.SAFE_GRAD_SUM, MutationKind.SAFE_GRAD_ABS):
-            raise NotImplementedError(
-                "SM-G-* mutations need the sensitivity sweep, not ported yet")
-        self.mutation = mutation
+        self.inline_sens = (mutation.is_gradient if inline_sens is None
+                            else bool(inline_sens))
+        if self.inline_sens and not mutation.is_gradient:
+            raise ValueError(
+                f"inline_sens=True requires an SM-G-* mutation, not "
+                f"{mutation.value or 'the default'}")
+        self._sens_batch = int(sens_batch)
         self._layout = (getattr(task, "decode_layout", None)
                         if task.fitness_on_device else None)
         if self._layout is None:
@@ -100,6 +121,19 @@ class NESEngine(PopulationEngine):
                 "using delta operands")
 
     # ---- math ----------------------------------------------------------------------
+
+    def sensitivity(self, theta, idx_row, seed0: int) -> torch.Tensor:
+        """The post-processed SM-G sensitivity (dim,) of ``theta`` over the
+        first ``sens_batch`` rows of the host batch ``idx_row``, with the
+        probes of ``probes_of(seed0, ...)`` when ``sens_probes`` is set
+        (JAX: _traced_sens). Host operands reach the card through pinned
+        memory: no host sync."""
+        idx_d, probes = self._sens_operands(
+            subsample_batch_rows(idx_row, self._sens_batch), seed0,
+            theta.device)
+        return calc_sensitivity(self.task, theta, idx_d, self.mutation,
+                                self._sens_underflow, self._sens_precision,
+                                probes)
 
     def _scale_vec(self, theta, sens, sigma):
         """Member-independent noise scale: delta == scale_vec * N(0, 1) for
@@ -167,9 +201,13 @@ class NESEngine(PopulationEngine):
     def generation(self, theta, opt_state, sens, sigma, seeds: np.ndarray,
                    idx: np.ndarray, stepsize: float, l2coeff: float):
         """One generation. seeds (F,) uint32, idx (F, B) int rows of the
-        training set. Returns (theta, opt_state, packed) with packed =
-        [fitnesses (2F) | ratio | mean|theta|] on theta's device."""
+        training set; ``sens`` the safe kinds' (dim,) sensitivity, replaced
+        with ``inline_sens`` by that of theta over member 0's batch.
+        Returns (theta, opt_state, packed) with packed = [fitnesses (2F) |
+        ratio | mean|theta|] on theta's device."""
         task, lay = self.task, self._layout
+        if self.inline_sens:
+            sens = self.sensitivity(theta, idx[0], seeds[0])
         dev = theta.device
         F = seeds.shape[0]
         n_chunks, chunk = self._plan(F)
@@ -303,9 +341,13 @@ class NESMaster(MasterBase):
     block's rows are read once at its end, and the slot files are written
     when something reads them (``_materialize_podium``).
 
+    Safe mutations: SM-VECTOR loads its vector at start; SM-G computes its
+    sensitivity in each generation (the engine's ``inline_sens``), or with
+    it off once per dispatch here (``_maybe_sensitivity``), one generation
+    per dispatch then.
+
     Not ported yet, and refused when set: a device mesh
-    (``tpu.mesh_shape``), safe mutations (their sensitivities) and
-    ``tpu.profile``."""
+    (``tpu.mesh_shape``) and ``tpu.profile``."""
 
     def __init__(self, exp: dict, device=None, data=None):
         """``device``: the card unless ``"cpu"`` is passed; ``data``: an
@@ -317,7 +359,11 @@ class NESMaster(MasterBase):
         self.engine = NESEngine(
             self.task, self.optimizer, self.mutation,
             pop_chunk=tpu.pop_chunk, kernel_perturb=tpu.kernel_perturb,
-            kernel_noise=tpu.kernel_noise, delta_dtype=tpu.delta_dtype)
+            kernel_noise=tpu.kernel_noise, delta_dtype=tpu.delta_dtype,
+            sens_underflow=self._underflow,
+            sens_precision=tpu.sensitivity_precision,
+            sens_batch=tpu.sensitivity_batch,
+            sens_probes=tpu.sensitivity_probes)
 
         self._current_dir = mkdir_p(
             os.path.join(self.it.models_dir(), "current"))
@@ -329,8 +375,11 @@ class NESMaster(MasterBase):
         self.opt_state = (self.experiment.opt_state
                           or self.optimizer.init(self.engine.dim, self.device))
         self.experiment.opt_state = self.opt_state
-        self._sens = torch.ones(self.engine.dim, dtype=torch.float32,
-                                device=self.device)
+        # the safe kinds' sensitivity: SM-VECTOR's vector; SM-G's of the
+        # last host-computed generation (inline, each generation's own)
+        self._sens = (self._sens_vector if self._sens_vector is not None
+                      else torch.ones(self.engine.dim, dtype=torch.float32,
+                                      device=self.device))
 
     # ---- init modes (reference: tools/setup.py:33-44) -----------------------
 
@@ -370,6 +419,22 @@ class NESMaster(MasterBase):
         generation (reference: nic_nes_worker.py:142-161,
         tools/iteration.py:110-112)."""
         return max(self.exp["nb_offspring"], 1)
+
+    def _maybe_sensitivity(self, idx_row: np.ndarray, seed0) -> torch.Tensor:
+        """The ``sens`` operand of the next dispatch (JAX: nes.py:855-889):
+        SM-G without ``inline_sens`` computes it here from the current
+        theta over member 0's batch ``idx_row``, probes from the member-0
+        seed ``seed0``, with the engine's own function (so both paths give
+        the same bits); with ``inline_sens`` the generations compute their
+        own and this operand is unused."""
+        if self.mutation.is_gradient and not self.engine.inline_sens:
+            self._sens = self.engine.sensitivity(self.theta, idx_row, seed0)
+        return self._sens
+
+    def set_sensitivity_vector(self, vector, underflow: float):
+        """SM-VECTOR: a precomputed sensitivity, clamped then min-normalized
+        (reference: src/algorithm/safe_mutations.py:28-32)."""
+        self._sens = self._place_sens(vector, underflow)
 
     def _draw_batches(self, F: int, bs: int) -> np.ndarray:
         sampler = self._batch_sampler()
@@ -422,7 +487,7 @@ class NESMaster(MasterBase):
                            for p, s in self.it.best_elites()], np.float32)
 
     def _val_fused_step(self, b: int, t_block: float, sigma, seeds, idx,
-                        F: int, plot: bool):
+                        sens, F: int, plot: bool):
         """``b`` generations with validation and podium merge on the card,
         then the host bookkeeping of each from the block's rows, read in one
         sync. The merged scores are adopted at once; the rows stay on the
@@ -431,7 +496,7 @@ class NESMaster(MasterBase):
         E = len(it.best_elites())
         new_theta, new_opt_state, e_rows, rows = \
             self.engine.generation_val_block(
-                self.theta, self.opt_state, self._sens, sigma, seeds, idx,
+                self.theta, self.opt_state, sens, sigma, seeds, idx,
                 self.optimizer.stepsize, self.config.l2coeff or 0.0,
                 self._elite_rows_dev(), self._elite_scores_f32())
         fits_all, ratios, norms, vals, etops = self.engine.unpack_val(
@@ -462,7 +527,17 @@ class NESMaster(MasterBase):
     def _chain_gap(self, nxt: int) -> int:
         """Fused validation runs inside a block; host validation ends one at
         each validating iteration, so with val_freq 1 every generation runs
-        alone."""
+        alone. SM-G with its sensitivity computed on the host (fixed for
+        the whole dispatch) runs every generation alone (JAX: nes.py:
+        1066-1077)."""
+        if self.mutation.is_gradient and not self.engine.inline_sens:
+            if not self._block_warned:
+                self._block_warned = True
+                logger.warning(
+                    "gens_per_dispatch>1 is incompatible with SM-G-* when "
+                    "the sensitivity is host-computed (fixed at block "
+                    "entry); driving per-generation")
+            return 1
         if self._val_fused:
             return 1 << 30
         vf = max(self.tpu_cfg.val_freq, 1)
@@ -548,10 +623,11 @@ class NESMaster(MasterBase):
                     if idx is None:
                         idx = np.empty((b, *row.shape), row.dtype)
                     idx[k] = row
+                sens = self._maybe_sensitivity(idx[0, 0], seeds[0, 0])
 
                 if self._val_fused:
-                    self._val_fused_step(b, t_block, sigma, seeds, idx, F,
-                                         plot)
+                    self._val_fused_step(b, t_block, sigma, seeds, idx, sens,
+                                         F, plot)
                     if it.patience_reached() or it.schedule_reached():
                         if config.stepsize_divisor:
                             self.optimizer.stepsize /= config.stepsize_divisor
@@ -561,7 +637,7 @@ class NESMaster(MasterBase):
 
                 new_theta, new_opt_state, packs = \
                     self.engine.generation_block(
-                        self.theta, self.opt_state, self._sens, sigma, seeds,
+                        self.theta, self.opt_state, sens, sigma, seeds,
                         idx, self.optimizer.stepsize, config.l2coeff or 0.0)
 
                 # one validation per generation on the pre-update model

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .params import Leaf, ParamSpec, managed_linear, norm_leaves
@@ -72,6 +73,17 @@ def build_spec(o: FCModelOptions) -> ParamSpec:
         leaves += norm_leaves("core.h2h_ln", 5 * R, o.layer_n_affine)
         leaves += norm_leaves("core.c_ln", R, o.layer_n_affine)
     return ParamSpec(tuple(leaves))
+
+
+def _maxout_cell(a, c, R: int):
+    """The maxout-LSTM cell on the 5R pre-activations ``a``: three sigmoid
+    gates and the candidate max(chunk4, chunk5). Returns (h', c')."""
+    gates = torch.sigmoid(a[..., : 3 * R])
+    in_gate, forget_gate, out_gate = (gates[..., :R], gates[..., R:2 * R],
+                                      gates[..., 2 * R:3 * R])
+    in_transform = torch.maximum(a[..., 3 * R:4 * R], a[..., 4 * R:5 * R])
+    next_c = forget_gate * c + in_gate * in_transform
+    return out_gate * torch.tanh(next_c), next_c
 
 
 class _LSTMCore(nn.Module):
@@ -130,14 +142,8 @@ class FCCaptionModel(nn.Module):
 
     def lstm_core(self, xt, h, c):
         """One fused maxout-LSTM step. Returns (output, h', c')."""
-        R = self.options.rnn_size
-        a = self.core.i2h(xt) + self.core.h2h(h)
-        gates = torch.sigmoid(a[..., : 3 * R])
-        in_gate, forget_gate, out_gate = (gates[..., :R], gates[..., R:2 * R],
-                                          gates[..., 2 * R:3 * R])
-        in_transform = torch.maximum(a[..., 3 * R:4 * R], a[..., 4 * R:5 * R])
-        next_c = forget_gate * c + in_gate * in_transform
-        next_h = out_gate * torch.tanh(next_c)
+        next_h, next_c = _maxout_cell(self.core.i2h(xt) + self.core.h2h(h),
+                                      c, self.options.rnn_size)
         return next_h, next_h, next_c
 
     # ---- rollout ---------------------------------------------------------------
@@ -171,3 +177,52 @@ class FCCaptionModel(nn.Module):
             seq_lp.append(torch.where(active, lp, 0.0))
             active = active & unfinished.any()
         return torch.stack(seq, 1), torch.stack(seq_lp, 1)
+
+    # ---- sensitivity forward ----------------------------------------------
+
+    def forward_for_sensitivity(self, theta: torch.Tensor, fc_feats,
+                                length: int = 5, split: int = 100):
+        """Grouped-logprob output (B, K) for the SM-G sensitivities, a
+        differentiable function of the flat theta (JAX: fc_caption.py:
+        228-255; reference: src/captioning/nets.py:22-70): the image step,
+        then ``length`` greedy steps from <bos>, the argmax fed back as data
+        (detached); the last step's logprobs padded and grouped into L2
+        norms of ``split`` columns. The pad is always ``split - (V+1) %
+        split``, so a vocab that divides evenly gets a whole extra zero group
+        (the reference's quirk): K = (V+1) // split + 1.
+
+        The embedding is read as a one-hot product, in f32 outside any
+        autocast, so the row is exact. Its backward is a product too,
+        whose sums do not depend on where the tokens sit among those of
+        other parents in an outer ``vmap``; the embedding's own backward
+        sums a row's gradient in warp-sized batches of token positions, and
+        ``weight[it]`` scatters it with atomics."""
+        p = self.spec.unravel(theta)
+        R = self.options.rnn_size
+        B = fc_feats.shape[0]
+        vocab = torch.arange(p["embed.weight"].shape[0], device=theta.device)
+
+        def embed(it):
+            with torch.autocast(theta.device.type, enabled=False):
+                onehot = (it[:, None] == vocab).to(theta.dtype)
+                return onehot @ p["embed.weight"]
+
+        def core(xt, h, c):
+            a = (F.linear(xt, p["core.i2h.weight"], p["core.i2h.bias"])
+                 + F.linear(h, p["core.h2h.weight"], p["core.h2h.bias"]))
+            return _maxout_cell(a, c, R)
+
+        h = c = theta.new_zeros((B, R))
+        h, c = core(F.linear(fc_feats, p["img_embed.weight"],
+                             p["img_embed.bias"]), h, c)
+        it = torch.zeros((B,), dtype=torch.long, device=theta.device)
+        for _ in range(length):
+            h, c = core(embed(it), h, c)
+            logprobs = torch.log_softmax(
+                F.linear(h, p["logit.weight"], p["logit.bias"]), dim=-1)
+            it = logprobs.detach().argmax(dim=-1)
+        n = logprobs.shape[-1]
+        pad = split - n % split
+        groups = F.pad(logprobs, (0, pad)).reshape(B, (n + pad) // split,
+                                                   split)
+        return torch.sqrt((groups ** 2).sum(-1))

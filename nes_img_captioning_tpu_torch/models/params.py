@@ -114,10 +114,11 @@ class ParamSpec:
     # ---- flat <-> shaped ----------------------------------------------------
 
     def unravel(self, theta: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Views of ``theta`` (no copy), one per leaf."""
-        return {l.name: theta[self._offsets[l.name]:
-                              self._offsets[l.name] + l.size].view(l.shape)
-                for l in self.leaves}
+        """Views of ``theta`` (no copy), one per leaf. One ``split``, whose
+        backward joins the leaves' gradients in one ``cat`` (a slice per
+        leaf would scatter each into a zero vector of theta's size)."""
+        pieces = theta.split([l.size for l in self.leaves])
+        return {l.name: t.view(l.shape) for l, t in zip(self.leaves, pieces)}
 
     def ravel(self, params: dict) -> torch.Tensor:
         return torch.cat([params[l.name].reshape(-1) for l in self.leaves])

@@ -39,6 +39,12 @@ class MutationKind(enum.Enum):
                         MutationKind.SAFE_VECTOR)
 
     @property
+    def is_gradient(self) -> bool:
+        """SM-G-SUM and SM-G-ABS: the sensitivity is the gradient's, computed
+        each generation (``ops/sensitivity.py``)."""
+        return self in (MutationKind.SAFE_GRAD_SUM, MutationKind.SAFE_GRAD_ABS)
+
+    @property
     def is_proportional(self) -> bool:
         return self is MutationKind.SAFE_PROPORTIONAL
 
@@ -73,17 +79,23 @@ def shape_noise(noise: torch.Tensor, theta: torch.Tensor,
 
 def build_children(parents: torch.Tensor, pidx: torch.Tensor,
                    noise: torch.Tensor, sigma: float,
-                   factors: torch.Tensor | None = None) -> torch.Tensor:
+                   factors: torch.Tensor | None = None,
+                   sens: torch.Tensor | None = None) -> torch.Tensor:
     """NIC-ES's children: row i is ``parent + shape_noise(sigma * noise_i,
-    parent, proportional=factors is not None)`` with parent =
+    parent, sensitivity, proportional=factors is not None)`` with parent =
     ``parents[pidx[i]]``. parents (P, dim); pidx (M,) int64 on their device;
     noise (M, dim) N(0, 1); factors (P, dim), ``proportional_factor`` of
-    each parent row, or None. Every operation after the factors is
-    elementwise, so a child's bits do not depend on which other children
-    are built with it: the sweep and the rebuild of its winners give the
-    same bits. Rows are picked with ``index_select``, which copies them
-    exactly (JAX: es.py:134-143, a one-hot product there)."""
+    each parent row, or None; sens: the SM-G rows (P, dim), one per parent,
+    SM-VECTOR's shared (dim,) vector, or None. Every operation after the
+    row picks is elementwise, so a child's bits do not depend on which
+    other children are built with it: the sweep and the rebuild of its
+    winners give the same bits. Rows are picked with ``index_select``,
+    which copies them exactly (JAX: es.py:134-143, a one-hot product
+    there)."""
     delta = sigma * noise
+    if sens is not None:
+        delta = delta / (sens if sens.dim() == 1
+                         else sens.index_select(0, pidx))
     if factors is not None:
         delta = delta * factors.index_select(0, pidx)
     return parents.index_select(0, pidx) + delta

@@ -114,6 +114,8 @@ class CocoTask(Task):
         self._fused = tpu_cfg.fused_decode is not False
         self._decode_dtype = (torch.bfloat16 if tpu_cfg.precision == "bf16"
                               else torch.float32)
+        # SM-G's vocab grouping of the sensitivity forward (reference: 100)
+        self._sens_split = int(tpu_cfg.sensitivity_split or 100)
         # the vocab-tiled greedy decode (K4) for every greedy decode
         self._vocab_tile = int(tpu_cfg.decode_vocab_tile or 0)
         Vpad = pad_vocab(self.data.vocab_size + 1)
@@ -401,6 +403,22 @@ class CocoTask(Task):
             return criterion_device(self.fitness_kind, lp, seq,
                                     scores[..., None])
         return scores.mean(-1) * 100.0
+
+    # ---- sensitivity -------------------------------------------------------
+
+    @property
+    def sensitivity_groups(self) -> int:
+        """K, the columns of ``sensitivity_forward``'s output."""
+        return (self.data.vocab_size + 1) // self._sens_split + 1
+
+    def sensitivity_forward(self, theta, idx, consts=None):
+        """(B, K) grouped logprobs of the flat theta after 5 greedy steps
+        on the train images ``idx`` (a long tensor on the task's device),
+        differentiable in theta; ``tpu.sensitivity_split`` sets the
+        grouping (JAX: captioning.py:740-749)."""
+        train_fc = self.train_fc if consts is None else consts["train_fc"]
+        return self.model.forward_for_sensitivity(
+            theta, train_fc[idx], length=5, split=self._sens_split)
 
     # ---- validation ------------------------------------------------------------------
 

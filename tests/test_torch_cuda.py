@@ -847,7 +847,7 @@ def test_es_rollout_of_16_children_at_256_rows(card_task):
     assert torch.equal(fits[agree], want[agree])
 
 
-def _es_master(card_task, tmp_path, **tpu):
+def _es_master(card_task, tmp_path, mutation="SM-PROPORTIONAL", **tpu):
     from nes_img_captioning_tpu_torch.algorithms.es import ESMaster
 
     exp = {"algorithm": "nic_es", "dataset": "mscoco",
@@ -856,7 +856,8 @@ def _es_master(card_task, tmp_path, **tpu):
                       "patience": 0},
            "policy_options": {"net": "fc_caption", "fitness": "greedy",
                               "vbn": False, "model_options": {
-                                  "safe_mutations": "SM-PROPORTIONAL",
+                                  "safe_mutations": mutation,
+                                  "safe_mutation_underflow": 0.01,
                                   "input_encoding_size": 128,
                                   "rnn_size": 128, "fc_feat_size": 256}},
            "nb_offspring": 20, "population_size": 6, "num_elites": 2,
@@ -921,3 +922,104 @@ def test_es_sweep_fitness_equals_rebuilt_child(card_task, tmp_path):
     assert torch.equal(selected, eng.materialize(parents, 0.005,
                                                  seeds[order[:4]],
                                                  pidx[order[:4]]))
+
+
+def _sens_inputs(task, n_parents):
+    """(parents (n, dim) on the card, 12 batch rows) for the sweeps."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    parents = torch.stack([task.spec.init_theta(g) * 3
+                           for _ in range(n_parents)])
+    rows = np.random.default_rng(4).choice(64, size=12, replace=False)
+    return parents, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_sensitivity_rows_bitwise_repeatable(card_task, precision):
+    """The SM-G-SUM sweep on the card: the (P, dim) matrix of 3 parents is
+    the same bits on a second sweep, and each row is that parent's sweep
+    alone (P = 1) bit for bit, so a row does not depend on P."""
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.ops.sensitivity import (
+        calc_sensitivities,
+    )
+
+    task = card_task("greedy")
+    parents, rows = _sens_inputs(task, 3)
+    idx = torch.as_tensor(rows, device="cuda")
+    kind = MutationKind.SAFE_GRAD_SUM
+    first = calc_sensitivities(task, parents, idx, kind, 0.01, precision)
+    again = calc_sensitivities(task, parents, idx, kind, 0.01, precision)
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    for i in range(3):
+        alone = calc_sensitivities(task, parents[i:i + 1], idx, kind, 0.01,
+                                   precision)
+        assert torch.equal(alone[0].view(torch.int32),
+                           first[i].view(torch.int32))
+    assert torch.isfinite(first).all() and (first > 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["SM-G-SUM", "SM-G-ABS"])
+def test_sensitivity_f32_card_matches_cpu(card_task, kind):
+    """The f32 sensitivities (TF32 off) of one parent on the card against
+    the same function on the CPU: within rtol 2e-4, atol 1e-6."""
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.ops.sensitivity import (
+        calc_sensitivity,
+    )
+
+    task = card_task("greedy")
+    parents, rows = _sens_inputs(task, 1)
+    idx = torch.as_tensor(rows[:4], device="cuda")
+    card = calc_sensitivity(task, parents[0], idx, MutationKind(kind), 0.01)
+
+    class CpuTask:
+        def sensitivity_forward(self, th, i, consts):
+            return task.sensitivity_forward(th, i, consts)
+
+        def device_consts(self):
+            return {"train_fc": task.train_fc.cpu()}
+
+    cpu = calc_sensitivity(CpuTask(), parents[0].cpu(), idx.cpu(),
+                           MutationKind(kind), 0.01)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=2e-4, atol=1e-6)
+    assert (cpu > 1).float().mean() > 0.01
+
+
+@pytest.mark.cuda
+def test_es_smg_fused_block_makes_no_sync(card_task, tmp_path):
+    """SM-G-SUM NIC-ES, gens_per_dispatch 2 over 4 generations (plain,
+    fused, a block of 2): the sensitivity sweeps inside the fused
+    generation and the block run under set_sync_debug_mode("error"), and
+    the plain path (its sweep by the master) ends on the same children
+    bit for bit."""
+    runs = {}
+    for path, tpu in (("blocked", {"gens_per_dispatch": 2}),
+                      ("plain", {"fused_es": False})):
+        m = _es_master(card_task, tmp_path / path, "SM-G-SUM",
+                       sensitivity_batch=8, sensitivity_split=64, **tpu)
+        calls = []
+        for name in ("fused_generation", "fused_block"):
+            fn = getattr(m.engine, name)
+
+            def run(*a, _fn=fn, _name=name, **k):
+                calls.append(_name)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+
+            setattr(m.engine, name, run)
+        m.run_master(max_iterations=4)
+        assert calls == (["fused_generation", "fused_block"]
+                         if path == "blocked" else [])
+        assert np.isfinite(m.stats.to_dict()["score_stats"]).all()
+        if m.parents_mat is None:
+            runs[path] = m._selected_dev[:m._n_selected]
+        else:
+            n_el = sum(p is not None for p in m._parent_paths)
+            runs[path] = m.parents_mat[n_el:m._n_parents]
+    assert torch.equal(runs["blocked"], runs["plain"])

@@ -98,8 +98,9 @@ def test_es_resume_continues_the_run(coco, tmp_path):
         seen = []
         orig = m.engine.eval_generation
 
-        def spy(parents, sigma, seeds, pidx, idx_row, fresh=False):
-            art = orig(parents, sigma, seeds, pidx, idx_row, fresh)
+        def spy(parents, sigma, seeds, pidx, idx_row, fresh=False,
+                sens=None):
+            art = orig(parents, sigma, seeds, pidx, idx_row, fresh, sens)
             seen.append((seeds.copy(), art["fitness"].clone()))
             return art
 
@@ -162,8 +163,6 @@ def test_sampling_kind_runs_on_both_paths(coco, tmp_path):
 
 
 @pytest.mark.parametrize("case,error,match", [
-    ("sm_g_sum", NotImplementedError, "sensitivity"),
-    ("sm_vector", NotImplementedError, "sensitivity"),
     ("es_decode_layout", NotImplementedError, "es_decode_layout"),
     ("mesh_shape", NotImplementedError, "mesh_shape"),
     ("host_scored", NotImplementedError, "host-scored"),
@@ -171,21 +170,16 @@ def test_sampling_kind_runs_on_both_paths(coco, tmp_path):
 ])
 def test_es_master_refuses_what_is_not_ported(coco, tmp_path, case, error,
                                               match):
-    """SM-G-* and SM-VECTOR (their sensitivities), tpu.es_decode_layout
-    true, a mesh and host-scored fitness raise; without ``device="cpu"``
-    the master asks for the card, which this machine lacks."""
+    """tpu.es_decode_layout true, a mesh and host-scored fitness raise;
+    without ``device="cpu"`` the master asks for the card, which this
+    machine lacks."""
     from nes_img_captioning_tpu_torch.algorithms.es import ESMaster
 
     if case == "default_device" and torch.cuda.is_available():
         pytest.skip("this machine has a card")
     exp = es_exp(coco, tmp_path / case)
-    mopts = exp["policy_options"]["model_options"]
     device = "cpu"
-    if case == "sm_g_sum":
-        mopts["safe_mutations"] = "SM-G-SUM"
-    elif case == "sm_vector":
-        mopts["safe_mutations"] = "SM-VECTOR"
-    elif case == "es_decode_layout":
+    if case == "es_decode_layout":
         exp["tpu"]["es_decode_layout"] = True
     elif case == "mesh_shape":
         exp["tpu"]["mesh_shape"] = [1]
