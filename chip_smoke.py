@@ -123,7 +123,21 @@ Phases, each printed as it ends (any failure exits non-zero):
 21. NESMaster as in 10 with SM-G-SUM (64 rows, underflow 0.01): blocks of 2
     with inline sensitivities bit for bit the single generations; on one
     generation's SM-G scale, K5 bitwise K2 fed K7's dump and K6 the ordered
-    sum of K7's dumps.
+    sum of K7's dumps;
+22. MnistTask at real MNIST's split sizes (synthetic 60000 / 10000, 5000
+    val images), vbn off and on, with TF32 on in the process: 100 members
+    x 64 images on the card within 1e-5 of the CPU (logits, fitness),
+    validate_device equal to validate, a member's fitness the same bits in
+    chunks of 100 and of 3 at other places;
+23. experiments/mnist_nes.json through NESMaster (as it is; and with
+    patience 0 in blocks of 4 with validation on the card, bit for bit the
+    single generations) and experiments/mnist_es.json through ESMaster on
+    the plain, fused and blocked paths with SM-G-SUM (bit for bit, no host
+    sync inside a fused generation or a block, no decode kernel); ms per
+    NES iteration and ES generation and the SM-G sweeps' ms. No kernel of
+    the repo lies on this path: its products are cuDNN's convolutions and
+    a cuBLAS batched product, so the kernels line below is that of the
+    captioning paths.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -1078,7 +1092,9 @@ def drive_es(exp: dict, dev, data, iters: int):
     counters = [getattr(dc, name) for name in ES_COUNTERS]
     t0 = time.perf_counter()
     m = ESMaster(exp, device=dev, data=data)
-    m.task.val_scorer  # the scorers are built before the timed run
+    # the scorers (captioning: the host val scorer) are built before the
+    # timed run
+    getattr(m.task, "val_scorer", None)
     m.task.device_val_consts()
     m.setup_s = time.perf_counter() - t0
     eng, fits, calls, blocks = m.engine, [], [], []
@@ -1839,6 +1855,259 @@ def nes_smg_phase(card: str, task, seeds, batches, rows_11: list) -> list:
     return out
 
 
+# [22]/[23]: the data's (train, test) sizes, real MNIST's (5000 val images)
+MNIST_SIZES = (60000, 10000)
+# experiments/mnist_nes.json's and mnist_es.json's settings that [23] runs
+# (nb_offspring, batch_size, vbn, safe_mutations, safe_mutation_underflow;
+# ES: population_size, num_elites, num_elite_cands, snapshot_freq)
+MNIST_NES_SETTINGS = (50, 64, True, "SM-G-SUM", 0.2)
+MNIST_ES_SETTINGS = (50, 64, False, "SM-G-SUM", 0.2, 10, 3, 2, 5)
+# [23]: iterations of each NES run (patience 0, gens_per_dispatch 4: blocks
+# of 4, 1 (the snapshot's), 2 and 1); ES generations of each path (blocked:
+# gen 1 plain, 2 fused, 3-4 a block, 5 (the schedule's and the snapshot's)
+# and 6 fused)
+MNIST_NES_ITERS, MNIST_ES_ITERS = 8, 6
+
+
+def mnist_settings(exp: dict) -> tuple:
+    cfg, popts = exp["config"], exp["policy_options"]
+    mo = popts["model_options"]
+    got = (exp["nb_offspring"], cfg["batch_size"], popts["vbn"],
+           mo["safe_mutations"], mo["safe_mutation_underflow"])
+    if exp["algorithm"] == "nic_es":
+        got += (exp["population_size"], exp["num_elites"],
+                exp["num_elite_cands"], cfg["snapshot_freq"])
+    return got
+
+
+def mnist_task_phase(card: str) -> dict:
+    """Phase 22: MnistTask on the card at real MNIST's split sizes (the
+    loader's synthetic set at 60000 / 10000, 5000 val images), vbn off and
+    on, with the process's TF32 switches on so that only the task's own
+    numerics keep its products f32: 100 members (mnist_nes.json's 50 pairs)
+    on their own batches of 64, logits and fitnesses within 1e-5 of the
+    same call on the CPU; validate_device equal to validate; a member's
+    fitness the same bits in rollouts of 100 and of 3 members, at another
+    place, on its own and on a shared batch. Returns the data."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.data.mnist import load_mnist
+    from nes_img_captioning_tpu_torch.tasks.classification import MnistTask
+    from nes_img_captioning_tpu_torch.utils.config import Config, TpuConfig
+
+    t_phase = time.perf_counter()
+    data = load_mnist("data", synthetic_sizes=MNIST_SIZES, seed=0)
+    log(f"[22] MNIST arrays ({len(data['train_y'])} train, "
+        f"{len(data['val_y'])} val, {len(data['test_y'])} test) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    M, B = 2 * MNIST_NES_SETTINGS[0], MNIST_NES_SETTINGS[1]
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for vbn in (False, True):
+            exp = {"dataset": "mnist", "policy_options": {"vbn": vbn}}
+            card_t, cpu_t = (MnistTask(exp, Config(batch_size=B),
+                                       TpuConfig(seed=0), device=d,
+                                       data=data)
+                             for d in ("cuda", "cpu"))
+            g = torch.Generator().manual_seed(22)
+            thetas = torch.stack([cpu_t.spec.init_theta(g)
+                                  for _ in range(M)])
+            idx = torch.randint(0, MNIST_SIZES[0], (M, B), generator=g)
+            th_d, idx_d = thetas.cuda(), idx.cuda()
+            x = cpu_t.train_x[idx]
+            x_d = x.cuda()
+            card_t.rollout(th_d, idx_d)  # warm-up: cuDNN's first calls
+            lc, l_ms = events_ms(lambda: card_t.logits(th_d, x_d))
+            fc, f_ms = events_ms(lambda: card_t.rollout(th_d, idx_d))
+            err_l = float((lc.cpu() - cpu_t.logits(thetas, x)).abs().max())
+            err_f = float((fc["fitness"].cpu()
+                           - cpu_t.rollout(thetas, idx)["fitness"]).abs().max())
+            if not (err_l <= 1e-5 and err_f <= 1e-5):
+                raise AssertionError(f"[22] vbn {vbn}: card against CPU: "
+                                     f"logits {err_l:.3g}, fitness "
+                                     f"{err_f:.3g} > 1e-5")
+            vc = card_t.device_val_consts()
+            card_t.validate_device(th_d[0], vc)
+            val, v_ms = events_ms(lambda: card_t.validate_device(th_d[0], vc))
+            host = card_t.validate(th_d[0])
+            cpu_acc = cpu_t.validate(thetas[0])
+            if float(val) != host:
+                raise AssertionError(f"[22] vbn {vbn}: validate_device "
+                                     f"{float(val)} != validate {host}")
+            whole = fc["fitness"]
+            shared = card_t.rollout(th_d, idx_d[0])["fitness"]
+            for lo in (0, 37, 97):
+                part = card_t.rollout(th_d[lo:lo + 3], idx_d[lo:lo + 3])
+                part_s = card_t.rollout(th_d[lo:lo + 3], idx_d[0])
+                if not (torch.equal(part["fitness"], whole[lo:lo + 3])
+                        and torch.equal(part_s["fitness"],
+                                        shared[lo:lo + 3])):
+                    raise AssertionError(f"[22] vbn {vbn}: members {lo}.."
+                                         f"{lo + 2} change bits with the "
+                                         "chunk")
+            log(f"[22] MnistTask vbn {vbn}, TF32 on in the process: {M} "
+                f"members x {B} images on the card within {err_l:.3g} "
+                f"(logits) and {err_f:.3g} (fitness) of the CPU; rollout "
+                f"{f_ms:.3f} ms, logits alone {l_ms:.3f} ms by CUDA events; "
+                f"validate_device over {vc['xb'].shape[0]} batches of "
+                f"{vc['xb'].shape[1]} {v_ms:.3f} ms, = validate "
+                f"({host:.4f}; CPU {cpu_acc:.4f}); 3 members in chunks of 3 "
+                f"at 0, 37, 97 bitwise their rows among {M}, own and shared "
+                f"batches ({card})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+    log(f"[22] phase: {time.perf_counter() - t_phase:.1f} s")
+    return data
+
+
+def mnist_masters_phase(card: str, data):
+    """Phase 23: experiments/mnist_nes.json and mnist_es.json at their own
+    sizes on the card. NESMaster (50 pairs, batch 64, vbn, SM-G-SUM inline
+    at underflow 0.2, Adam): the configuration as it is for
+    MNIST_NES_ITERS iterations (patience 2: host validation per
+    generation), and with patience 0 in blocks of 4 (fused validation)
+    against single generations, theta and the accuracies bit for bit.
+    ESMaster (50 offspring, 10 parents, 3 elites, 2 candidates, SM-G-SUM)
+    on the plain, fused and blocked paths, MNIST_ES_ITERS generations each:
+    fitness vectors, kept children and podium rows bit for bit, no host
+    sync inside a fused generation or a block, no decode kernel launched.
+    ms per NES iteration and ES generation, and the SM-G sweeps' ms."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.ops.sensitivity import (
+        calc_sensitivities,
+        calc_sensitivity,
+    )
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_mnist_{os.getpid()}")
+    t_phase = time.perf_counter()
+
+    def experiment(algo: str, name: str, config=None, **tpu) -> dict:
+        exp = load_experiment(f"experiments/mnist_{algo}.json")
+        want = MNIST_NES_SETTINGS if algo == "nes" else MNIST_ES_SETTINGS
+        if mnist_settings(exp) != want:
+            raise AssertionError(f"[23] mnist_{algo}.json changed: "
+                                 f"{mnist_settings(exp)}")
+        exp["config"].update(config or {})
+        exp["tpu"].update(tpu)
+        exp["log_dir"] = os.path.join(runs_dir, name)
+        return exp
+
+    nes = {}
+    for name, config, gpd in (("config", {}, 1),
+                              ("block", {"patience": 0}, 4),
+                              ("single", {"patience": 0}, 1)):
+        t0 = time.perf_counter()
+        m = NESMaster(experiment("nes", name, config,
+                                 gens_per_dispatch=gpd),
+                      device=dev, data=data)
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run_master(max_iterations=MNIST_NES_ITERS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        fits = np.asarray(m.stats.score_stats()[1])
+        if m._val_fused != (name == "block") or not np.isfinite(fits).all():
+            raise AssertionError(f"[23] NES {name}: fused validation "
+                                 f"{m._val_fused}, mean fitness {fits}")
+        nes[name] = m
+        log(f"[23] NESMaster {name} (experiments/mnist_nes.json: 50 pairs, "
+            f"batch 64, vbn, SM-G-SUM inline, Adam, "
+            f"{len(data['val_y'])} val images, gens_per_dispatch {gpd}, "
+            f"patience {m.config.patience}; set-up {setup_s:.1f} s, run "
+            f"{run_s:.1f} s): ms per iteration "
+            f"{[round(t * 1e3, 3) for t in m.stats.time_stats()]}; mean "
+            f"fitness {[round(float(f), 4) for f in fits]}; val accuracy "
+            f"{[round(a, 4) for a in m.stats.acc_stats()]} ({card})")
+    mb, ms_ = nes["block"], nes["single"]
+    if not torch.equal(mb.theta, ms_.theta) or \
+            mb.stats.acc_stats() != ms_.stats.acc_stats():
+        raise AssertionError("[23] the NES block (fused validation) differs "
+                             "from single generations (host validation)")
+    log(f"[23] NES: {MNIST_NES_ITERS} generations in blocks of up to 4 with "
+        "validation on the card bit for bit the single generations with "
+        "host validation (theta, accuracies)")
+
+    runs = {}
+    for name, tpu in (("plain", {"fused_es": False}), ("fused", {}),
+                      ("blocked", {"gens_per_dispatch": 4})):
+        m, fits, calls, blocks, counts = drive_es(
+            experiment("es", name, **tpu), dev, data, MNIST_ES_ITERS)
+        want = {"plain": [], "fused": ["fused_generation"] * 5,
+                "blocked": ["fused_generation", "fused_block",
+                            "fused_generation", "fused_generation"]}[name]
+        if calls != want or len(fits) != MNIST_ES_ITERS or any(counts):
+            raise AssertionError(f"[23] ES {name}: engine calls {calls}, "
+                                 f"blocks {blocks}, {len(fits)} fitness "
+                                 f"vectors, decode launches {counts}")
+        if not all(np.isfinite(f).all() for f in fits):
+            raise AssertionError(f"[23] ES {name}: non-finite fitness")
+        children, podium = es_state(m)
+        runs[name] = (m, fits, children, podium)
+        log(f"[23] ESMaster {name} (experiments/mnist_es.json: 50 "
+            f"offspring, 10 parents, batch 64, SM-G-SUM; set-up "
+            f"{m.setup_s:.1f} s, run {m.run_s:.1f} s): ms per generation "
+            f"{[round(t * 1e3, 3) for t in m.stats.time_stats()]}; engine "
+            f"calls {calls} under set_sync_debug_mode('error'); val "
+            f"accuracy {[round(a, 4) for a in m.stats.acc_stats()]} ({card})")
+    pm, pfits, pchildren, ppodium = runs["plain"]
+    for name in ("fused", "blocked"):
+        m, fits, children, podium = runs[name]
+        if not all(np.array_equal(a, b) for a, b in zip(pfits, fits)) \
+                or not torch.equal(children, pchildren) \
+                or [s for s, _ in podium] != [s for s, _ in ppodium] \
+                or not all(torch.equal(a[1], b[1])
+                           for a, b in zip(podium, ppodium)):
+            raise AssertionError(f"[23] ES {name}: fitness, children or "
+                                 "podium differ from the plain path's")
+    log(f"[23] ES plain, fused and blocked paths: {MNIST_ES_ITERS} fitness "
+        f"vectors, {pchildren.shape[0]} kept children and {len(ppodium)} "
+        "podium rows bit for bit")
+
+    # the SM-G sweeps of the two configurations, by CUDA events
+    task = runs["fused"][0].task
+    parents = torch.cat([pchildren, pchildren[:3]]).to(dev)  # 10 parents
+    idx = torch.arange(MNIST_ES_SETTINGS[1], device=dev)
+    kind = MutationKind.SAFE_GRAD_SUM
+    calc_sensitivities(task, parents, idx, kind, 0.2)
+    _, es_sweep_ms = events_ms(
+        lambda: calc_sensitivities(task, parents, idx, kind, 0.2))
+    ntask, theta = mb.task, mb.theta
+    calc_sensitivity(ntask, theta, idx, kind, 0.2)
+    _, nes_sweep_ms = events_ms(
+        lambda: calc_sensitivity(ntask, theta, idx, kind, 0.2))
+    log(f"[23] SM-G-SUM sweeps over 64 rows: ES's 10 parents "
+        f"{es_sweep_ms:.3f} ms, NES's one theta (vbn) {nes_sweep_ms:.3f} ms "
+        f"by CUDA events ({card})")
+
+    # one NES generation under the profiler: the card's idle share
+    eng, F, B = ms_.engine, MNIST_NES_SETTINGS[0], MNIST_NES_SETTINGS[1]
+    rng = np.random.default_rng(23)
+    seeds = rng.integers(0, 2**32, size=F, dtype=np.uint32)
+    batches = rng.integers(0, MNIST_SIZES[0], size=(F, B))
+    state = eng.optimizer.init(eng.dim, dev)
+    wall_ms, busy, rows = profile_call(lambda: eng.unpack(eng.generation(
+        theta, state, None, 0.02, seeds, batches, 0.01, 0.001)[2], F))
+    top = "; ".join(f"{name[:48]} {ms:.3f} (x{n})"
+                    for ms, n, name in rows[:4])
+    log(f"[23] one mnist_nes.json generation under torch.profiler: wall "
+        f"{wall_ms:.3f} ms, card busy {busy:.3f} ms (idle "
+        f"{1 - busy / wall_ms:.2%}); top kernels {top} ({card})")
+    shutil.rmtree(runs_dir)
+    log(f"[23] phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2506,6 +2775,7 @@ def main() -> int:
     kernels += es_phase(card, data)
     kernels += es_smg_phase(card, data, kernels[-1])
     kernels += nes_smg_phase(card, task, seeds, batches, kernels)
+    mnist_masters_phase(card, mnist_task_phase(card))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,12 @@ becomes the policy (reference: src/algorithm/nic_es/).
 Offspring exist as (parent index, uint32 seed) pairs. A child is
 ``parent + shape_noise(sigma * N(0, 1), parent)`` with the noise drawn from
 its seed (``ops/mutation.build_children``), in torch parameter order; each
-chunk of ``tpu.pop_chunk`` children is laid out in decode order and decoded
-in one launch of K1 per block of 128 rows (``CocoTask.rollout``; K4 with
-``tpu.decode_vocab_tile``, K3 for the sampling kinds). Generation 0 is fresh
-random inits, one per seed.
+chunk of ``tpu.pop_chunk`` children is scored by one ``task.rollout``: the
+captioner lays them out in decode order and decodes them in one launch of
+K1 per block of 128 rows (``CocoTask.rollout``; K4 with
+``tpu.decode_vocab_tile``, K3 for the sampling kinds), MNIST evaluates them
+as they are (``MnistTask.rollout``). Generation 0 is fresh random inits, one
+per seed.
 
 Three ways to run a generation, as in the JAX package:
 
@@ -104,10 +106,11 @@ class ESEngine(PopulationEngine):
             raise NotImplementedError(
                 "tpu.es_decode_layout=true (children built in decode order) "
                 "is not ported yet; leave it at its default")
-        if getattr(task, "decode_layout", None) is None:
+        if getattr(task, "decode_layout", None) is None \
+                and not task.artifact_is_fitness:
             raise NotImplementedError(
-                "only the fused decode with device CIDEr-D fitness is "
-                "ported yet (host-scored fitness is not)")
+                "host-scored fitness (a task whose rollouts return tokens) "
+                "is not ported yet")
         self.device = task.device
 
     # ---- the test seams: what a child's randomness is -------------------------
@@ -352,8 +355,8 @@ class ESMaster(MasterBase):
     ``tpu.profile`` and ``tpu.es_decode_layout: true``."""
 
     def __init__(self, exp: dict, device=None, data=None):
-        """``device``: the card unless ``"cpu"`` is passed; ``data``: an
-        in-memory CocoData instead of the files of ``caption_options``."""
+        """``device``: the card unless ``"cpu"`` is passed; ``data``: the
+        task's in-memory data (``make_task``)."""
         super().__init__(exp, device=device, data=data)
         tpu = self.tpu_cfg
         self.experiment = ESExperiment(exp, self.config, self.task)

@@ -54,8 +54,9 @@ class MasterBase:
     in ``self._elites_dev``."""
 
     def __init__(self, exp: dict, device=None, data=None):
-        """``device``: the card unless ``"cpu"`` is passed; ``data``: an
-        in-memory CocoData instead of the files of ``caption_options``."""
+        """``device``: the card unless ``"cpu"`` is passed; ``data``: the
+        task's in-memory data instead of its files (``make_task``: a
+        CocoData, or ``load_mnist``'s arrays)."""
         from ..tasks import make_task
 
         self.exp = exp

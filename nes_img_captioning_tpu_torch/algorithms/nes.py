@@ -27,6 +27,14 @@ pair's f32 delta in the kernel from its seed, once per chunk, and K6
 deltas again and sums the weighted gradient, once per generation (JAX:
 ``nes.py:356-403``).
 
+A task without a decode layout that scores its own rollouts
+(``artifact_is_fitness``: ``MnistTask``) runs the same generation in torch
+order (JAX: ``nes.py:328-331``): each pair's delta ``scale * N(0, 1)`` over
+the flat theta in f32 (``normal_of``; ``tpu.delta_dtype`` is the layout
+path's), the chunk's pair-major members ``base ± delta`` scored by one
+``task.rollout``, and no ``from_dec``; the pair kernel and in-kernel noise
+resolve off.
+
 Safe mutations scale the noise by ``sigma / sens``: SM-VECTOR's vector, or
 for SM-G-SUM and SM-G-ABS the sensitivity of the generation's own theta
 over the first ``tpu.sensitivity_batch`` rows of member 0's batch
@@ -98,13 +106,18 @@ class NESEngine(PopulationEngine):
         self._sens_batch = int(sens_batch)
         self._layout = (getattr(task, "decode_layout", None)
                         if task.fitness_on_device else None)
-        if self._layout is None:
+        if self._layout is None and not task.artifact_is_fitness:
             raise NotImplementedError(
-                "only the decode-layout generation (fused decode + device "
-                "CIDEr-D) is ported yet")
+                "host-scored fitness (a task whose rollouts return tokens) "
+                "is not ported yet")
         # "auto" and True both take the pair kernel where the task has it
-        self._kernel_perturb = (kernel_perturb is not False
-                                and task.supports_pair_perturb)
+        pair_ok = getattr(task, "supports_pair_perturb", False)
+        self._kernel_perturb = kernel_perturb is not False and pair_ok
+        if kernel_perturb is True and not pair_ok:
+            logger.warning(
+                "tpu.kernel_perturb=true but the task does not support the "
+                "pair kernel (needs fused decode, device scoring, a greedy "
+                "fitness kind and untiled logits); using the per-member path")
         if delta_dtype not in ("f32", "bf16"):
             raise ValueError(
                 f"delta_dtype={delta_dtype!r}: expected 'f32' or 'bf16'")
@@ -112,7 +125,8 @@ class NESEngine(PopulationEngine):
                              else torch.float32)
         # in-kernel noise: "auto" resolves off, as in the JAX package
         # (nes.py:163-164); true needs the pair kernel active
-        noise_ok = self._kernel_perturb and task.supports_kernel_noise
+        noise_ok = (self._kernel_perturb
+                    and getattr(task, "supports_kernel_noise", False))
         self._kernel_noise = kernel_noise is True and noise_ok
         if kernel_noise is True and not noise_ok:
             logger.warning(
@@ -143,11 +157,21 @@ class NESEngine(PopulationEngine):
             sensitivity=sens if self.mutation.is_safe else None,
             proportional=self.mutation.is_proportional)
 
+    def normal_of(self, seed: int) -> torch.Tensor:
+        """The N(0, 1) noise of pair ``seed``, f32 on the task's device:
+        (dim_dec,) in decode order on the layout path, (dim,) in torch order
+        without one. Tests replace this with the JAX package's realized
+        noise."""
+        n = self.dim if self._layout is None else self._layout.dim_dec
+        return normal_from_seed(seed, n, self.task.device)
+
     def delta_of(self, scale_dec: torch.Tensor, seed: int) -> torch.Tensor:
-        """The pair's decode-ordered delta, rounded once to the storage
-        dtype: eval and gradient both consume this value."""
-        noise = normal_from_seed(seed, scale_dec.shape[0], scale_dec.device)
-        return (scale_dec * noise).to(self._delta_dtype)
+        """The pair's delta ``scale * N(0, 1)``; on the layout path in
+        decode order and rounded once to the storage dtype
+        (``tpu.delta_dtype``), in torch order f32. Eval and gradient both
+        consume this value."""
+        delta = scale_dec * self.normal_of(seed)
+        return delta if self._layout is None else delta.to(self._delta_dtype)
 
     def _deltas(self, scale_dec, seeds_c) -> torch.Tensor:
         return torch.stack([self.delta_of(scale_dec, int(s)) for s in seeds_c])
@@ -217,9 +241,14 @@ class NESEngine(PopulationEngine):
             device=dev)
         consts = task.device_consts()
 
-        base_vec = lay.to_dec(theta)
-        scale_dec = lay.to_dec(self._scale_vec(theta, sens, sigma),
-                               pad_scale=0.0)
+        scale = self._scale_vec(theta, sens, sigma)
+        if lay is None:
+            # torch order (JAX: nes.py:328-331): the members are flat
+            # thetas and the task scores them itself
+            base_vec, scale_dec, from_dec = theta, scale, (lambda g: g)
+        else:
+            base_vec, from_dec = lay.to_dec(theta), lay.from_dec
+            scale_dec = lay.to_dec(scale, pad_scale=0.0)
         if self._kernel_perturb:
             base_params = task.pair_base_params(base_vec)
         if self._kernel_noise:
@@ -239,10 +268,15 @@ class NESEngine(PopulationEngine):
                 # pair-major members: row 2i is +delta_i, row 2i+1 -delta_i
                 members = torch.stack([base_vec + deltas, base_vec - deltas],
                                       1).reshape(2 * chunk, -1)
+                idx2 = idx_l[c].repeat_interleave(2, 0)
+                if lay is None:
+                    fit = task.rollout(members, idx2, consts=consts)
+                    fits.append(fit["fitness"].reshape(chunk, 2))
+                    continue
                 lanes = self._lanes(seeds_l[c]) if task.samples else None
                 fits.append(task.rollout_dec(
-                    members, idx_l[c].repeat_interleave(2, 0),
-                    consts=consts, lanes=lanes).reshape(chunk, 2))
+                    members, idx2, consts=consts,
+                    lanes=lanes).reshape(chunk, 2))
         fitnesses = torch.cat(fits).reshape(-1, 2)[:F]
 
         weights = self._pair_weights(fitnesses, seeds_l.shape)
@@ -257,7 +291,7 @@ class NESEngine(PopulationEngine):
                 grad = self._accumulate(grad, weights[c],
                                         self._deltas(scale_dec, seeds_l[c]))
         opt_state, theta, ratio = self._apply_grad(
-            theta, opt_state, lay.from_dec(grad), fitnesses.numel(), stepsize,
+            theta, opt_state, from_dec(grad), fitnesses.numel(), stepsize,
             l2coeff)
         packed = torch.cat([fitnesses.reshape(-1), ratio.reshape(1),
                             theta.abs().mean().reshape(1)])
@@ -350,8 +384,8 @@ class NESMaster(MasterBase):
     (``tpu.mesh_shape``) and ``tpu.profile``."""
 
     def __init__(self, exp: dict, device=None, data=None):
-        """``device``: the card unless ``"cpu"`` is passed; ``data``: an
-        in-memory CocoData instead of the files of ``caption_options``."""
+        """``device``: the card unless ``"cpu"`` is passed; ``data``: the
+        task's in-memory data (``make_task``)."""
         super().__init__(exp, device=device, data=data)
         tpu = self.tpu_cfg
         self.experiment = NESExperiment(exp, self.config, self.task)

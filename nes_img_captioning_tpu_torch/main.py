@@ -7,7 +7,8 @@ is one process on one card, so ``master`` runs the experiment outright and
 
 Usage:
     python -m nes_img_captioning_tpu_torch.main master \\
-        --exp_file experiments/mscoco_nes.json   # or mscoco_es.json
+        --exp_file experiments/mscoco_nes.json   # or mscoco_es.json,
+                                                 # mnist_nes.json, mnist_es.json
     python -m nes_img_captioning_tpu_torch.main master --device cpu \\
         --exp_file <experiment.json> --max_iterations 3
 """

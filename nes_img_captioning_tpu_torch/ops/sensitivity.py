@@ -171,14 +171,17 @@ def abs_sens(forward, theta, idx, consts) -> torch.Tensor:
 
 
 def _raw(task, theta, idx, kind, precision, probes):
+    """The sweep of one theta by kind, its forward and pullbacks in
+    ``task.numerics()``."""
     forward, consts = task.sensitivity_forward, task.device_consts()
-    if kind is MutationKind.SAFE_GRAD_SUM:
-        if probes is not None:
-            return sum_sens_probes(forward, theta, idx, consts, probes,
-                                   precision)
-        return sum_sens(forward, theta, idx, consts, precision)
-    if kind is MutationKind.SAFE_GRAD_ABS:
-        return abs_sens(forward, theta, idx, consts)
+    with task.numerics():
+        if kind is MutationKind.SAFE_GRAD_SUM:
+            if probes is not None:
+                return sum_sens_probes(forward, theta, idx, consts, probes,
+                                       precision)
+            return sum_sens(forward, theta, idx, consts, precision)
+        if kind is MutationKind.SAFE_GRAD_ABS:
+            return abs_sens(forward, theta, idx, consts)
     raise ValueError(f"no gradient sensitivity for {kind}")
 
 

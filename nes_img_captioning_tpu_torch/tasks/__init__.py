@@ -10,10 +10,13 @@ __all__ = ["Task", "make_task"]
 def make_task(exp: dict, config, tpu_cfg, device=None, data=None) -> Task:
     """The task of ``exp["dataset"]`` on ``device`` (default: the card).
     ``data`` hands an in-memory dataset to the task instead of the files its
-    options name."""
+    options name: a CocoData for mscoco, ``load_mnist``'s arrays for
+    mnist."""
     dataset = exp["dataset"]
     if dataset == "mnist":
-        raise NotImplementedError("the MNIST task is not ported yet")
+        from .classification import MnistTask
+
+        return MnistTask(exp, config, tpu_cfg, device=device, data=data)
     if dataset == "mscoco":
         from .captioning import CocoTask
 

@@ -8,6 +8,10 @@ Policy/Experiment plugins (src/algorithm/policies.py:44-172).
 from __future__ import annotations
 
 import abc
+import contextlib
+
+import numpy as np
+import torch
 
 __all__ = ["Task"]
 
@@ -41,3 +45,20 @@ class Task(abc.ABC):
         """Random individual, reference init rules, on the generator's
         device."""
         return self.spec.init_theta(generator)
+
+    def numerics(self):
+        """The context the task's products run in, entered by the rollouts
+        and by the sensitivity sweeps (forward and pullbacks): by default
+        the process's own settings."""
+        return contextlib.nullcontext()
+
+    def host_fitness(self, artifacts, idx) -> np.ndarray:
+        """The fitness array of a sweep's artifacts. The device scorer's
+        ``{"fitness": ...}`` passes through; host scoring of token artifacts
+        is not ported yet (JAX: captioning.py:528-533)."""
+        if isinstance(artifacts, dict) and "fitness" in artifacts:
+            f = artifacts["fitness"]
+            f = f.detach().cpu().numpy() if torch.is_tensor(f) else f
+            return np.asarray(f, np.float32)
+        raise NotImplementedError(
+            "host-scored fitness (token artifacts) is not ported yet")

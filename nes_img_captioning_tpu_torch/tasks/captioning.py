@@ -366,17 +366,6 @@ class CocoTask(Task):
         return {"fitness": self.rollout_dec(self.decode_layout.to_dec(thetas),
                                             idx, consts=consts, lanes=lanes)}
 
-    def host_fitness(self, artifacts, idx) -> np.ndarray:
-        """The fitness array of a sweep's artifacts. The device scorer's
-        ``{"fitness": ...}`` passes through; host scoring of token artifacts
-        is not ported yet (JAX: captioning.py:528-533)."""
-        if isinstance(artifacts, dict) and "fitness" in artifacts:
-            f = artifacts["fitness"]
-            f = f.detach().cpu().numpy() if torch.is_tensor(f) else f
-            return np.asarray(f, np.float32)
-        raise NotImplementedError(
-            "host-scored fitness (token artifacts) is not ported yet")
-
     def _device_fitness(self, seq, idx, dev=None, lp=None, base_seq=None):
         """seq (N, R, T) tokens of N members (R = B rows, or B * spi
         image-major sampled rows), idx (N, B) their images -> (N,)

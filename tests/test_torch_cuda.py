@@ -10,6 +10,8 @@ to their twins at full width; these tests cover a small vocab, a short
 feature width, partial batches and the cluster kernels' edges.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -975,6 +977,8 @@ def test_sensitivity_f32_card_matches_cpu(card_task, kind):
     card = calc_sensitivity(task, parents[0], idx, MutationKind(kind), 0.01)
 
     class CpuTask:
+        numerics = staticmethod(contextlib.nullcontext)
+
         def sensitivity_forward(self, th, i, consts):
             return task.sensitivity_forward(th, i, consts)
 
@@ -1023,3 +1027,102 @@ def test_es_smg_fused_block_makes_no_sync(card_task, tmp_path):
             n_el = sum(p is not None for p in m._parent_paths)
             runs[path] = m.parents_mat[n_el:m._n_parents]
     assert torch.equal(runs["blocked"], runs["plain"])
+
+
+@pytest.fixture
+def mnist_tasks():
+    """make(vbn, device): MnistTask on synthetic sizes (256, 128), batch 16;
+    the process's TF32 switches left on (their default for cuDNN), so the
+    task's own numerics must turn TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nes_img_captioning_tpu_torch.data.mnist import load_mnist
+    from nes_img_captioning_tpu_torch.tasks.classification import MnistTask
+    from nes_img_captioning_tpu_torch.utils.config import Config, TpuConfig
+
+    data = load_mnist("/nonexistent", synthetic_sizes=(256, 128), seed=0)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+    def make(vbn, device="cuda"):
+        exp = {"dataset": "mnist", "policy_options": {"vbn": vbn}}
+        return MnistTask(exp, Config(batch_size=16), TpuConfig(seed=0),
+                         device=device, data=data)
+    yield make
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = flags
+
+
+def _mnist_members(task, n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    thetas = torch.stack([task.spec.init_theta(g) * 2 for _ in range(n)])
+    idx = torch.randint(0, 256, (n, 16), generator=g)
+    return thetas, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vbn", [False, True], ids=["plain", "vbn"])
+def test_mnist_rollout_card_matches_cpu(mnist_tasks, vbn):
+    """30 members (two groups of MEMBER_GROUP) on the card against the
+    CPU, with TF32 on in the process: logits and fitnesses within 1e-5,
+    validate_device equal to validate and to the CPU's accuracy."""
+    card, cpu = mnist_tasks(vbn), mnist_tasks(vbn, "cpu")
+    thetas, idx = _mnist_members(cpu, 30)
+    x = cpu.train_x[idx]
+    lc = card.logits(thetas.cuda(), x.cuda()).cpu()
+    torch.testing.assert_close(lc, cpu.logits(thetas, x), rtol=0, atol=1e-5)
+    fc = card.rollout(thetas.cuda(), idx.cuda())["fitness"].cpu()
+    torch.testing.assert_close(fc, cpu.rollout(thetas, idx)["fitness"],
+                               rtol=0, atol=1e-5)
+    dev = card.validate_device(thetas[0].cuda(), card.device_val_consts())
+    assert float(dev) == card.validate(thetas[0].cuda()) == \
+        cpu.validate(thetas[0])
+
+
+@pytest.mark.cuda
+def test_mnist_member_bits_do_not_depend_on_chunk(mnist_tasks):
+    """A member's fitness on the card has the same bits in rollouts of 3,
+    30 and 60 members, at places 0, 2, 27 and 52, on its own batch and on
+    a shared one."""
+    task = mnist_tasks(True)
+    thetas, idx = _mnist_members(task, 60, seed=1)
+    thetas, idx = thetas.cuda(), idx.cuda()
+    for rows in (idx, idx[0]):
+        whole = task.rollout(thetas, rows)["fitness"]
+        for lo, n in ((0, 3), (2, 3), (25, 30), (27, 30), (50, 3)):
+            part = task.rollout(thetas[lo:lo + n],
+                                rows if rows.dim() == 1 else rows[lo:lo + n])
+            assert torch.equal(part["fitness"], whole[lo:lo + n]), (lo, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_mnist_sensitivity_rows_bitwise_repeatable(mnist_tasks, precision):
+    """SM-G-SUM through the MNIST forward (vbn) on the card: the rows of 3
+    parents are the same bits on a second sweep and each is that parent's
+    sweep alone; f32 rows within rtol 2e-4 of the CPU's."""
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.ops.sensitivity import (
+        calc_sensitivities,
+    )
+
+    task, cpu = mnist_tasks(True), mnist_tasks(True, "cpu")
+    thetas, _ = _mnist_members(task, 3, seed=2)
+    idx = torch.arange(12)
+    kind = MutationKind.SAFE_GRAD_SUM
+    first = calc_sensitivities(task, thetas.cuda(), idx.cuda(), kind, 0.2,
+                               precision)
+    again = calc_sensitivities(task, thetas.cuda(), idx.cuda(), kind, 0.2,
+                               precision)
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    for i in range(3):
+        alone = calc_sensitivities(task, thetas[i:i + 1].cuda(), idx.cuda(),
+                                   kind, 0.2, precision)
+        assert torch.equal(alone[0].view(torch.int32),
+                           first[i].view(torch.int32))
+    assert torch.isfinite(first).all() and (first > 1).any()
+    if precision == "float32":
+        want = calc_sensitivities(cpu, thetas, idx, kind, 0.2)
+        torch.testing.assert_close(first.cpu(), want, rtol=2e-4, atol=1e-6)
