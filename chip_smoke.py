@@ -137,7 +137,30 @@ Phases, each printed as it ends (any failure exits non-zero):
     NES iteration and ES generation and the SM-G sweeps' ms. No kernel of
     the repo lies on this path: its products are cuDNN's convolutions and
     a cuBLAS batched product, so the kernels line below is that of the
-    captioning paths.
+    captioning paths;
+24. experiments/mscoco_nes.json with tpu.device_cider false (host-scored),
+    cut as in 10 (bf16): NESMaster 3 iterations greedy and 2
+    self_critical, K1 launched once per chunk of 48 torch-order members
+    (to_dec + prep; K3 and the K1 baselines for self_critical), host
+    validation; one generation taken apart (eval sweep, token pull, host
+    CIDEr-D and the share of rows _score_dedup scored, update) and under
+    torch.profiler; the update with the carried deltas bitwise the one
+    that draws them again; the sweep's first chunk K1's launch on
+    prepare_decode_params' layout, held to its plain twin up to
+    near-ties; host and device CIDEr-D within 1e-4 on the same tokens;
+25. experiments/mscoco_es.json with tpu.device_cider false at its own size
+    (1000 offspring, batch 256, 5000 val images): 2 generations on the
+    plain path (the fused path resolves off), ms per generation and the
+    host scoring's share;
+26. the vbn, vbn_e and layer_n captioners on the eager decoder
+    (mscoco_nes.json cut as in 10, f32): NESMaster 2 iterations each with
+    device scoring (validation on the card), one vbn iteration scored on
+    the host and one with SM-G-SUM over 64 rows, no decode kernel
+    launched; one chunk of 48 vbn members on the card against the CPU
+    (tokens equal but where a member first differs at a near-tie, lp
+    within 1e-4 on the members that agree); one vbn generation under
+    torch.profiler. These three phases add no kernel: K1, K3 and K4 run
+    on their existing rows' launch shapes, and their counts are logged.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -262,6 +285,56 @@ def check_near_ties(seq_k, seq_p, gap_p, what: str, limit: float = 1e-2):
                 f"{what}: row {idx} first differs at step {t0} where the "
                 f"plain top-2 gap is {gap:.3g} >= {limit}")
     return float(same.float().mean()), len(rows)
+
+
+def eager_top2_gaps(model, theta, feats, seq):
+    """The greedy eager decode of one member (theta (dim,), feats (R, F)),
+    replayed on its tokens ``seq`` (R, T): each step's gap between the two
+    largest logprobs, (R, T), the near-tie measure of another decode of
+    that member against this one."""
+    import torch
+
+    with torch.no_grad():
+        p = model.spec.unravel(theta[None].float())
+        R = feats.shape[0]
+        h = c = torch.zeros((1, R, model.options.rnn_size),
+                            device=feats.device)
+        _, h, c = model.lstm_core(p, model._img_embed(p, feats[None].float()),
+                                  h, c)
+        it = torch.zeros((1, R), dtype=torch.long, device=feats.device)
+        gaps = []
+        for t in range(seq.shape[-1]):
+            out, h, c = model.lstm_core(p, model._embed(p, it), h, c)
+            top = model._logprobs(p, out).topk(2, dim=-1).values
+            gaps.append(top[..., 0] - top[..., 1])
+            it = seq[None, :, t].long()
+    return torch.stack(gaps, -1)[0]
+
+
+def check_member_near_ties(model, thetas, feats, seq_k, seq_p, what: str,
+                           limit: float, max_members: int):
+    """Members decode their rows together (their batch statistics are
+    shared), so one flipped token moves every later step of its member.
+    Each member whose tokens differ from the plain decode ``seq_p`` (M, R,
+    T) must first differ at a near-tie of it (top-2 gap < limit, replayed
+    by eager_top2_gaps on thetas/feats), and at most ``max_members`` may
+    differ. Returns [(member, step, gap)] of the differing members and the
+    mask of the members whose tokens all agree."""
+    same = (seq_k == seq_p).all(-1).all(-1)
+    found = []
+    for mi in (~same).nonzero()[:, 0].tolist():
+        diff = seq_k[mi] != seq_p[mi]
+        t0 = int(diff.any(0).nonzero()[0])
+        gap = eager_top2_gaps(model, thetas[mi], feats[mi], seq_p[mi])
+        found.append((mi, t0, float(gap[diff[:, t0], t0].max())))
+    log(f"{what}: {len(found)} of {len(same)} members differ; (member, "
+        f"first differing step, plain top-2 gap there): {found}")
+    if len(found) > max_members or any(g >= limit for *_, g in found):
+        raise AssertionError(
+            f"{what}: {len(found)} members differ (at most {max_members}), "
+            f"largest top-2 gap at a first difference "
+            f"{max((g for *_, g in found), default=0.0):.3g} (< {limit})")
+    return found, same
 
 
 def executed_steps(seq, T: int):
@@ -1077,13 +1150,14 @@ def no_sync(fn, calls):
     return run
 
 
-def drive_es(exp: dict, dev, data, iters: int):
+def drive_es(exp: dict, dev, data, iters: int, score_s=None):
     """An ESMaster of ``exp`` on ``data`` run for ``iters`` generations, its
     fused generations and blocks under ``no_sync``, with the launch counts
     of ES_COUNTERS (K1, row-block K1, K4, K3, K2, K5) set to 0 just before
     and read just after. Returns (master, fitness vectors, engine calls,
     block sizes, counts); the master's ``setup_s`` and ``run_s`` are its
-    construction's and its run's seconds on the host clock."""
+    construction's and its run's seconds on the host clock. ``score_s``
+    gathers the seconds of each ``host_fitness`` call."""
     import torch
 
     from nes_img_captioning_tpu_torch.algorithms.es import ESEngine, ESMaster
@@ -1095,14 +1169,20 @@ def drive_es(exp: dict, dev, data, iters: int):
     # the scorers (captioning: the host val scorer) are built before the
     # timed run
     getattr(m.task, "val_scorer", None)
-    m.task.device_val_consts()
+    if m.task.fitness_on_device:
+        m.task.device_val_consts()
+    else:
+        m.task.train_scorer
     m.setup_s = time.perf_counter() - t0
     eng, fits, calls, blocks = m.engine, [], [], []
     host_fitness, unpack_fused = m.task.host_fitness, eng.unpack_fused
     unpack_block = ESEngine.unpack_block
 
     def hf(art, idx):
+        t0 = time.perf_counter()
         fits.append(host_fitness(art, idx))
+        if score_s is not None:
+            score_s.append(time.perf_counter() - t0)
         return fits[-1]
 
     def uf(packed, n, c):
@@ -2108,6 +2188,361 @@ def mnist_masters_phase(card: str, data):
     log(f"[23] phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# [24]-[26]: experiments/mscoco_nes.json cut as [10] is (BENCH's pairs,
+# batch and pop_chunk, 256 validation images); iterations per run
+HOST_NES_ITERS = {"greedy": 3, "self_critical": 2}
+NORM_ITERS = 2
+# [24]: |host_fitness - _device_fitness| on the same tokens
+HOST_DEVICE_TOL = 1e-4
+# [26]: |lp card - lp CPU| of the eager decoder (f32, TF32 off); a member
+# whose tokens differ must first differ where the CPU's top-2 gap is below
+# that same tolerance, and at most EAGER_MAX_FLIPPED of the 48 may differ
+# (an H100 run saw 1 member, first differing at a gap of 9.5e-7, with lp
+# within 2.9e-6 before it)
+EAGER_LP_TOL = 1e-4
+EAGER_TIE_GAP = EAGER_LP_TOL
+EAGER_MAX_FLIPPED = 2
+NORM_VARIANTS = (("vbn", {"vbn": True}, {}),
+                 ("vbn_e", {}, {"vbn_e": True}),
+                 ("layer_n", {}, {"layer_n": True}))
+DECODE_COUNTERS = ("decode_fused", "decode_sample", "decode_tiled",
+                   "decode_rows")
+
+
+def nes_experiment(runs_dir: str, name: str, precision: str, popts=None,
+                   mopts=None, **tpu) -> dict:
+    """experiments/mscoco_nes.json cut as [10] is: BENCH's 144 pairs,
+    batch 128 and pop_chunk 24, 256 validation images in one chunk;
+    ``popts``, ``mopts`` and ``tpu`` override its policy options, model
+    options and tpu knobs."""
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    exp = load_experiment("experiments/mscoco_nes.json")
+    exp["config"].update(batch_size=BENCH["batch"], val_batch_size=256,
+                         num_val_items=256, snapshot_freq=100)
+    exp["policy_options"].update(popts or {})
+    exp["policy_options"]["model_options"].update(
+        safe_mutation_underflow=0.01, **(mopts or {}))
+    exp["nb_offspring"] = BENCH["pairs"]
+    exp["tpu"].update(pop_chunk=BENCH["pop_chunk"], precision=precision,
+                      delta_dtype=precision, **tpu)
+    exp["log_dir"] = os.path.join(runs_dir, name)
+    return exp
+
+
+def drive_nes(exp: dict, dev, data, iters: int):
+    """An NESMaster of ``exp`` on ``data`` run for ``iters`` iterations,
+    the decode kernels' launch counts (DECODE_COUNTERS: K1, K3, K4,
+    row-block K1) set to 0 just before and read just after. The master's
+    ``score_s`` lists the host scoring's seconds per call and ``run_s`` is
+    its run's seconds on the host clock."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    m = NESMaster(exp, device=dev, data=data)
+    m.task.val_scorer  # the scorers are built before the timed run
+    if not m.task.fitness_on_device:
+        m.task.train_scorer
+    m.score_s, host_fitness = [], m.task.host_fitness
+
+    def hf(art, idx):
+        t0 = time.perf_counter()
+        out = host_fitness(art, idx)
+        m.score_s.append(time.perf_counter() - t0)
+        return out
+
+    m.task.host_fitness = hf
+    counters = [getattr(dc, name) for name in DECODE_COUNTERS]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    m.run_master(max_iterations=iters)
+    torch.cuda.synchronize()
+    m.run_s = time.perf_counter() - t0
+    counts = [c.launches for c in counters]
+    if m.it.iteration() != iters or \
+            not np.isfinite(m.stats.score_stats()[1]).all() or \
+            not np.isfinite(m.stats.acc_stats()).all():
+        raise AssertionError(f"{exp['log_dir']}: {iters} finite iterations "
+                             "expected")
+    return m, counts
+
+
+def host_nes_phase(card: str, dtask) -> None:
+    """Phase 24: host-scored NIC-NES (experiments/mscoco_nes.json with
+    tpu.device_cider false, cut as [10], bf16) through NESMaster: 3
+    iterations greedy, 2 self_critical, K1 (and K3) launched once per chunk
+    of 48 torch-order members laid out by to_dec + prep, host validation
+    (one row-block launch each); then one generation taken apart: eval
+    sweep (CUDA events), token pull, host scoring (the share of rows
+    _score_dedup scored), update, and the card's idle share under
+    torch.profiler; the sweep's first chunk is K1's launch
+    on prepare_decode_params' layout, held to the plain twin up to
+    near-ties; host_fitness equal to the device scorer's (``dtask``, the
+    bench task on the same data) within HOST_DEVICE_TOL; the update with
+    the carried deltas bitwise the one that draws them again."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_host_{os.getpid()}")
+    F, P, B = BENCH["pairs"], BENCH["pop_chunk"], BENCH["batch"]
+    n_chunks = -(-F // P)
+    masters = {}
+    for kind, iters in HOST_NES_ITERS.items():
+        exp = nes_experiment(runs_dir, kind, "bf16", {"fitness": kind},
+                             device_cider=False)
+        m, counts = drive_nes(exp, dev, dtask.data, iters)
+        task = m.task
+        if task.fitness_on_device or not task._fused or \
+                task.decode_layout is not None or m._val_fused:
+            raise AssertionError(f"[24] {kind}: the task did not resolve to "
+                                 "the kernels' decode scored on the host")
+        k3 = n_chunks * iters if kind == "self_critical" else 0
+        want = [n_chunks * iters, k3, 0, iters]
+        if counts != want:
+            raise AssertionError(f"[24] {kind}: launches (K1, K3, K4, "
+                                 f"row-block K1) {counts} != {want}")
+        masters[kind] = m
+        times = m.stats.time_stats()
+        log(f"[24] NESMaster host-scored {kind} (experiments/mscoco_nes.json"
+            f", tpu.device_cider false: {F} pairs, batch {B}, pop_chunk {P},"
+            f" bf16, 256 val images): {iters} iterations in {m.run_s:.1f} s, "
+            f"ms per iteration {[round(t * 1e3, 3) for t in times]}, host "
+            f"scoring ms {[round(t * 1e3, 3) for t in m.score_s]}; launches "
+            f"K1 {counts[0]} (the chunk's {2 * P} members per launch), K3 "
+            f"{counts[1]}, row-block K1 {counts[3]}; mean fitness "
+            f"{[round(f, 4) for f in m.stats.score_stats()[1]]}, val CIDEr "
+            f"{[round(a, 4) for a in m.stats.acc_stats()]} ({card})")
+
+    # one greedy generation, taken apart
+    m = masters["greedy"]
+    eng, task = m.engine, m.task
+    seeds, batches = generation_inputs(task, 1)
+    theta, sens, sigma = m.theta, torch.ones_like(m.theta), BENCH["sigma"]
+    step, l2 = BENCH["stepsize"], BENCH["l2coeff"]
+    eng.eval_generation(theta, sens, sigma, seeds[0], batches[0])  # warm-up
+    (art, deltas), eval_ms = events_ms(lambda: eng.eval_generation(
+        theta, sens, sigma, seeds[0], batches[0]))
+    if deltas is None or tuple(art["seq"].shape) != (F, 2, B, 16) or \
+            art["seq"].dtype != torch.int16:
+        raise AssertionError("[24] eval_generation: artifacts "
+                             f"{tuple(art['seq'].shape)} {art['seq'].dtype},"
+                             f" deltas carried {deltas is not None}")
+    t0 = time.perf_counter()
+    host = {k: v.cpu() for k, v in art.items()}
+    pull_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fit = task.host_fitness(host, batches[0])
+    score_ms = (time.perf_counter() - t0) * 1e3
+    scored, rows = task.dedup_rows
+    state = eng.optimizer.init(eng.dim, dev)
+    (_, th_c, ratio_c), upd_ms = events_ms(lambda: eng.update(
+        theta, state, sens, sigma, seeds[0], fit, step, l2, deltas=deltas))
+    (_, th_r, ratio_r), regen_ms = events_ms(lambda: eng.update(
+        theta, eng.optimizer.init(eng.dim, dev), sens, sigma, seeds[0], fit,
+        step, l2))
+    if not (torch.equal(th_c, th_r) and torch.equal(ratio_c, ratio_r)):
+        raise AssertionError("[24] update with the carried deltas differs "
+                             "from the update that draws them again")
+    log(f"[24] one host-scored greedy generation: eval sweep (deltas + "
+        f"{n_chunks} K1 launches) {eval_ms:.3f} ms (CUDA events), token pull "
+        f"{pull_ms:.3f} ms ({host['seq'].numel() * 2 / 1e6:.2f} MB int16), "
+        f"host scoring {score_ms:.3f} ms ({scored} of {rows} rows scored by "
+        f"_score_dedup, {scored / rows:.2%}), update with carried deltas "
+        f"{upd_ms:.3f} ms (drawing them again {regen_ms:.3f} ms; theta "
+        f"bitwise equal); sum {eval_ms + pull_ms + score_ms + upd_ms:.3f} ms "
+        f"({card})")
+
+    def host_generation():
+        a, d = eng.eval_generation(theta, sens, sigma, seeds[0], batches[0])
+        f = task.host_fitness({k: v.cpu() for k, v in a.items()}, batches[0])
+        return eng.update(theta, eng.optimizer.init(eng.dim, dev), sens,
+                          sigma, seeds[0], f, step, l2, deltas=d)
+
+    wall, busy, rows = profile_call(host_generation)
+    log(f"[24] one host-scored greedy generation under torch.profiler: wall "
+        f"{wall:.3f} ms, card busy {busy:.3f} ms ({busy / wall:.2%}; idle "
+        f"{1 - busy / wall:.2%}) ({card})")
+    for ms_, count, key in rows[:6]:
+        log(f"    {ms_:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    # the sweep's first chunk: K1 on to_dec + prep, = prepare_decode_params
+    lay, T = task._layout, task.model.options.seq_length
+    d0 = deltas[0]
+    members = torch.stack([theta + d0, theta - d0], 1).reshape(2 * P, -1)
+    params = lay.prep(lay.to_dec(members), torch.bfloat16)
+    for i in (0, 2 * P - 1):
+        one = dc.prepare_decode_params(task.spec, members[i],
+                                       task.model.options, torch.bfloat16)
+        if not all(torch.equal(params[k][i], one[k]) for k in one):
+            raise AssertionError(f"[24] member {i}: to_dec + prep differs "
+                                 "from prepare_decode_params")
+    idx2 = torch.as_tensor(batches[0][:P], device=dev).repeat_interleave(2, 0)
+    feats2 = task.train_fc[idx2]
+    seq_k, _ = dc.decode_fused(params, feats2, T, False)
+    if not torch.equal(seq_k.to(torch.int16),
+                       art["seq"][:P].reshape(2 * P, B, T)):
+        raise AssertionError("[24] the sweep's first chunk is not K1's "
+                             "launch on its members")
+    seq_p, _, gap_p = dc.decode_fused_plain(params, feats2, T, False,
+                                            top2_gap=True)
+    share, n_diff = check_near_ties(seq_k, seq_p, gap_p, "[24] K1 bf16")
+    # the same tokens through the device scorer
+    dev_fit = dtask._device_fitness(
+        art["seq"].reshape(2 * F, B, T),
+        torch.as_tensor(batches[0], device=dev).repeat_interleave(2, 0),
+        dtask._device_cider.dev).reshape(F, 2).cpu().numpy()
+    err = float(np.abs(dev_fit - fit).max())
+    if err > HOST_DEVICE_TOL:
+        raise AssertionError(f"[24] host_fitness against _device_fitness: "
+                             f"{err:.3g} > {HOST_DEVICE_TOL}")
+    log(f"[24] the sweep's first chunk is K1's launch on to_dec + prep "
+        f"(prepare_decode_params' tensors bit for bit); against the plain "
+        f"twin {share:.4%} of rows identical, {n_diff} differ at near-ties; "
+        f"host_fitness against the device scorer on the same tokens: max "
+        f"|diff| {err:.3g} (<= {HOST_DEVICE_TOL})")
+    shutil.rmtree(runs_dir)
+
+
+def host_es_phase(card: str, data) -> None:
+    """Phase 25: host-scored NIC-ES (experiments/mscoco_es.json with
+    tpu.device_cider false, at its own size: 1000 offspring in chunks of
+    16, batch 256, 5000 validation images, bf16): 2 plain generations, the
+    fused path resolved off, K1 ceil(1000 / 16) x 2 times per generation;
+    ms per generation and the host scoring's share."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_host_es_{os.getpid()}")
+    exp = load_experiment("experiments/mscoco_es.json")
+    exp["config"]["snapshot_freq"] = 100
+    exp["tpu"]["device_cider"] = False
+    exp["log_dir"] = runs_dir
+    L, chunk, B = ES_SETTINGS[0], ES_SETTINGS[10], ES_SETTINGS[5]
+    score_s = []
+    m, fits, calls, _, counts = drive_es(exp, dev, data, 2, score_s)
+    k1 = 2 * -(-L // chunk) * -(-B // 128)
+    if m._fused_capable() or calls or counts != [k1, 4, 0, 0, 0, 0]:
+        raise AssertionError(f"[25] fused {m._fused_capable()}, engine calls "
+                             f"{calls}, launches (K1, row-block K1, K4, K3, "
+                             f"K2, K5) {counts} != {[k1, 4, 0, 0, 0, 0]}")
+    if len(fits) != 2 or not all(np.isfinite(f).all() for f in fits):
+        raise AssertionError("[25] 2 finite fitness vectors expected")
+    times = m.stats.time_stats()
+    scored, rows = m.task.dedup_rows
+    log(f"[25] ESMaster host-scored (experiments/mscoco_es.json, "
+        f"tpu.device_cider false: {L} offspring in chunks of {chunk}, batch "
+        f"{B}, 5000 val images, bf16): plain path only; ms per generation "
+        f"{[round(t * 1e3, 3) for t in times]}, host scoring ms "
+        f"{[round(t * 1e3, 3) for t in score_s]} ("
+        f"{[round(s / t, 4) for s, t in zip(score_s, times)]} of each "
+        f"generation; last: {scored} of {rows} rows scored by _score_dedup); "
+        f"launches K1 {counts[0]}, row-block K1 {counts[1]}; best fitness "
+        f"{[round(float(f.max()), 4) for f in fits]} ({card})")
+    shutil.rmtree(runs_dir)
+
+
+def norm_phase(card: str, data) -> None:
+    """Phase 26: the vbn, vbn_e and layer_n captioners on the eager decoder
+    (experiments/mscoco_nes.json cut as [10], f32): NESMaster with device
+    scoring (the torch-order generation, validation on the card in blocks
+    of 2) for NORM_ITERS iterations each, no decode kernel launched; one
+    vbn iteration scored on the host; one chunk of 48 vbn members on the
+    card against the CPU (tokens equal but where a member first differs at
+    a near-tie, lp within EAGER_LP_TOL on the members that agree); one vbn
+    iteration with SM-G-SUM over 64 rows; one vbn generation under
+    torch.profiler."""
+    import shutil
+
+    import torch
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_norm_{os.getpid()}")
+    runs = [(name, popts, mopts, {}, NORM_ITERS)
+            for name, popts, mopts in NORM_VARIANTS]
+    runs += [("vbn_host", {"vbn": True}, {}, {"device_cider": False}, 1),
+             ("vbn_smg", {"vbn": True}, {"safe_mutations": "SM-G-SUM"},
+              {"sensitivity_batch": 64}, 1)]
+    masters = {}
+    for name, popts, mopts, tpu, iters in runs:
+        exp = nes_experiment(runs_dir, name, "f32", popts, mopts, **tpu)
+        m, counts = drive_nes(exp, dev, data, iters)
+        host = name == "vbn_host"
+        if m.task._fused or m.task.fitness_on_device is host or any(counts):
+            raise AssertionError(f"[26] {name}: fused {m.task._fused}, "
+                                 f"device-scored {m.task.fitness_on_device},"
+                                 f" decode launches {counts}")
+        masters[name] = m
+        log(f"[26] NESMaster {name} (experiments/mscoco_nes.json, "
+            f"{BENCH['pairs']} pairs, batch {BENCH['batch']}, pop_chunk "
+            f"{BENCH['pop_chunk']}, f32, eager decoder, "
+            f"{'host' if host else 'device'} scoring"
+            + (", SM-G-SUM over 64 rows" if name == "vbn_smg" else "")
+            + f"; validation {'on the card' if m._val_fused else 'host'}):"
+            f" {iters} iterations in {m.run_s:.1f} s, ms per iteration "
+            f"{[round(t * 1e3, 3) for t in m.stats.time_stats()]}, mean "
+            f"fitness {[round(f, 4) for f in m.stats.score_stats()[1]]}, val "
+            f"CIDEr {[round(a, 4) for a in m.stats.acc_stats()]}; decode "
+            f"kernels launched: none ({card})")
+
+    # one chunk of vbn members: the card against the CPU
+    m = masters["vbn"]
+    task, P, B = m.task, BENCH["pop_chunk"], BENCH["batch"]
+    seeds, batches = generation_inputs(task, 1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    members = m.theta + 0.01 * torch.randn((2 * P, m.engine.dim),
+                                           generator=gen, device=dev)
+    feats = task.train_fc[torch.as_tensor(batches[0][:P], device=dev)
+                          .repeat_interleave(2, 0)]
+    (seq_c, lp_c), ms = events_ms(lambda: task.model.sample_members(
+        members, feats))
+    seq_h, lp_h = task.model.sample_members(members.cpu(), feats.cpu())
+    seq_c, lp_c = seq_c.cpu(), lp_c.cpu()
+    rows_same = (seq_c == seq_h).all(-1)
+    found, member_same = check_member_near_ties(
+        task.model, members.cpu(), feats.cpu(), seq_c, seq_h,
+        "[26] vbn eager decode, card against CPU", EAGER_TIE_GAP,
+        EAGER_MAX_FLIPPED)
+    # lp on the members whose tokens all agree, and on each other member
+    # up to its first difference
+    err = float((lp_c - lp_h)[member_same].abs().max())
+    for mi, t0, _ in found:
+        if t0:
+            err = max(err, float((lp_c[mi, :, :t0] - lp_h[mi, :, :t0])
+                                 .abs().max()))
+    if err > EAGER_LP_TOL:
+        raise AssertionError(f"[26] vbn eager decode, card against CPU: lp "
+                             f"error {err:.3g} > {EAGER_LP_TOL}")
+    log(f"[26] vbn eager decode of {2 * P} members x {B} rows: card "
+        f"{ms:.3f} ms (CUDA events); against the CPU "
+        f"{float(rows_same.float().mean()):.4%} of rows and "
+        f"{int(member_same.sum())} of {2 * P} members identical, each other "
+        f"member first differing at a top-2 gap below {EAGER_TIE_GAP} (at "
+        f"most {EAGER_MAX_FLIPPED} members); max |lp - CPU| {err:.3g} before "
+        f"any difference (<= {EAGER_LP_TOL}) ({card})")
+    wall, busy, rows = profile_call(lambda: m.engine.generation(
+        m.theta, m.engine.optimizer.init(m.engine.dim, dev),
+        torch.ones_like(m.theta), BENCH["sigma"], seeds[0], batches[0],
+        BENCH["stepsize"], BENCH["l2coeff"]))
+    log(f"[26] one vbn generation under torch.profiler: wall {wall:.3f} ms, "
+        f"card busy {busy:.3f} ms ({busy / wall:.2%}; idle "
+        f"{1 - busy / wall:.2%}) ({card})")
+    for ms_, count, key in rows[:8]:
+        log(f"    {ms_:10.3f} ms  x{count:<5d} {key[:90]}")
+    shutil.rmtree(runs_dir)
+
+
 def main() -> int:
     import torch
 
@@ -2776,6 +3211,9 @@ def main() -> int:
     kernels += es_smg_phase(card, data, kernels[-1])
     kernels += nes_smg_phase(card, task, seeds, batches, kernels)
     mnist_masters_phase(card, mnist_task_phase(card))
+    host_nes_phase(card, task)
+    host_es_phase(card, data)
+    norm_phase(card, task.data)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

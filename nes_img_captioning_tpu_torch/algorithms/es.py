@@ -15,8 +15,9 @@ its seed (``ops/mutation.build_children``), in torch parameter order; each
 chunk of ``tpu.pop_chunk`` children is scored by one ``task.rollout``: the
 captioner lays them out in decode order and decodes them in one launch of
 K1 per block of 128 rows (``CocoTask.rollout``; K4 with
-``tpu.decode_vocab_tile``, K3 for the sampling kinds), MNIST evaluates them
-as they are (``MnistTask.rollout``). Generation 0 is fresh random inits, one
+``tpu.decode_vocab_tile``, K3 for the sampling kinds), or with its eager
+decoder (the norm variants), MNIST evaluates them as they are
+(``MnistTask.rollout``). Generation 0 is fresh random inits, one
 per seed.
 
 Three ways to run a generation, as in the JAX package:
@@ -45,8 +46,14 @@ computed each generation from the parent set over the first
 the card inside the generation from the assembled parents, with no host
 sync (JAX: es.py:288-321). A row is the same bits on every path.
 
-Not ported, and refused: ``tpu.es_decode_layout: true``, host-scored
-fitness, a device mesh and ``tpu.profile``.
+A host-scored task (the captioner with ``tpu.device_cider`` off, or a
+vocabulary too large for the device scorer) runs the plain path only: its
+sweep returns the children's tokens and the master scores them
+(``task.host_fitness``); the fused paths need the device scorer (JAX:
+es.py:856-870).
+
+Not ported, and refused: ``tpu.es_decode_layout: true``, a device mesh and
+``tpu.profile``.
 """
 
 from __future__ import annotations
@@ -106,11 +113,6 @@ class ESEngine(PopulationEngine):
             raise NotImplementedError(
                 "tpu.es_decode_layout=true (children built in decode order) "
                 "is not ported yet; leave it at its default")
-        if getattr(task, "decode_layout", None) is None \
-                and not task.artifact_is_fitness:
-            raise NotImplementedError(
-                "host-scored fitness (a task whose rollouts return tokens) "
-                "is not ported yet")
         self.device = task.device
 
     # ---- the test seams: what a child's randomness is -------------------------
@@ -159,10 +161,12 @@ class ESEngine(PopulationEngine):
         return build_children(parents, pidx_d, noise, float(sigma), factors,
                               sens)
 
-    def _fitness(self, children, seeds, idx_d, consts):
-        lanes = self.lanes_of(seeds) if self.task.samples else None
-        return self.task.rollout(children, idx_d, consts=consts,
-                                 lanes=lanes)["fitness"]
+    def _rollout(self, children, seeds, idx_d, consts) -> dict:
+        """The children's artifact: ``{"fitness"}`` from a device-scored
+        task, the tokens of a host-scored one."""
+        lanes = (self.lanes_of(seeds) if getattr(self.task, "samples", False)
+                 else None)
+        return self.task.rollout(children, idx_d, consts=consts, lanes=lanes)
 
     def _chunks(self, seeds, pidx):
         """(n_chunks, chunk, host seed rows (n_chunks, chunk), device pidx
@@ -203,7 +207,8 @@ class ESEngine(PopulationEngine):
             n = min(chunk, L - c * chunk)  # real members of the chunk
             children = self._children(parents, factors, sigma, seeds_l[c],
                                       pidx_l[c], sens)
-            fit = self._fitness(children, seeds_l[c], idx_d, consts)
+            fit = self._rollout(children, seeds_l[c], idx_d,
+                                consts)["fitness"]
             fits.append(fit[:n])
             slots = free[:n]
             pool.index_copy_(0, slots, children[:n])
@@ -231,8 +236,9 @@ class ESEngine(PopulationEngine):
                         fresh: bool = False, sens=None) -> dict:
         """The plain path's sweep: seeds (L,) uint32, pidx (L,) parent rows
         (ignored when ``fresh``), idx_row (B,), ``sens`` the safe kinds'
-        sensitivity (``build_children``) -> ``{"fitness": (L,)}`` on the
-        device (JAX: es.py:423-441)."""
+        sensitivity (``build_children``) -> the artifact with a leading
+        (L,) axis on the device: ``{"fitness"}``, or a host-scored task's
+        tokens (JAX: es.py:423-441)."""
         L = len(seeds)
         n_chunks, _, seeds_l, pidx_l = self._chunks(
             seeds, None if fresh else pidx)
@@ -240,12 +246,12 @@ class ESEngine(PopulationEngine):
         consts = self.task.device_consts()
         parents = None if fresh else parents
         factors = self._factors(parents)
-        fits = [self._fitness(self._children(
+        arts = [self._rollout(self._children(
                     parents, factors, sigma, seeds_l[c],
                     None if pidx_l is None else pidx_l[c], sens),
                     seeds_l[c], idx_d, consts)
                 for c in range(n_chunks)]
-        return {"fitness": torch.cat(fits)[:L]}
+        return {k: torch.cat([a[k] for a in arts])[:L] for k in arts[0]}
 
     def materialize(self, parents, sigma, seeds, pidx, fresh: bool = False,
                     sens=None) -> torch.Tensor:
@@ -351,8 +357,9 @@ class ESMaster(MasterBase):
 
     Every mutation kind runs: SM-G-SUM and SM-G-ABS with their per-parent
     sensitivities (``tpu.sensitivity_*``), SM-VECTOR with the vector of
-    ``safe_mutation_vector``. Not ported yet, and refused: a device mesh,
-    ``tpu.profile`` and ``tpu.es_decode_layout: true``."""
+    ``safe_mutation_vector``; a host-scored task on the plain path. Not
+    ported yet, and refused: a device mesh, ``tpu.profile`` and
+    ``tpu.es_decode_layout: true``."""
 
     def __init__(self, exp: dict, device=None, data=None):
         """``device``: the card unless ``"cpu"`` is passed; ``data``: the
@@ -532,7 +539,8 @@ class ESMaster(MasterBase):
 
     def _fused_capable(self) -> bool:
         """Whether generations may run fused (JAX: es.py:856-884): not
-        ``tpu.fused_es: false``, device fitness, at least as many offspring
+        ``tpu.fused_es: false``, device fitness (a host-scored task runs
+        the plain path), at least as many offspring
         as kept children, 1 <= candidates <= min(kept, offspring), and the
         device validation constants."""
         if self._fused_capable_cache is None:

@@ -27,13 +27,21 @@ pair's f32 delta in the kernel from its seed, once per chunk, and K6
 deltas again and sums the weighted gradient, once per generation (JAX:
 ``nes.py:356-403``).
 
-A task without a decode layout that scores its own rollouts
-(``artifact_is_fitness``: ``MnistTask``) runs the same generation in torch
-order (JAX: ``nes.py:328-331``): each pair's delta ``scale * N(0, 1)`` over
-the flat theta in f32 (``normal_of``; ``tpu.delta_dtype`` is the layout
-path's), the chunk's pair-major members ``base ± delta`` scored by one
-``task.rollout``, and no ``from_dec``; the pair kernel and in-kernel noise
-resolve off.
+A device-scored task without a decode layout (``MnistTask``; the
+captioner decoded eagerly) runs the same generation in torch order (JAX:
+``nes.py:328-331``): each pair's delta ``scale * N(0, 1)`` over the flat
+theta in f32 (``normal_of``; ``tpu.delta_dtype`` is the layout path's), the
+chunk's pair-major members ``base ± delta`` scored by one ``task.rollout``,
+and no ``from_dec``; the pair kernel and in-kernel noise resolve off.
+
+A host-scored task (the captioner with ``tpu.device_cider`` off, or a
+vocabulary too large for the device scorer) splits the generation as the
+JAX package does (``nes.py:616-650``): ``eval_generation`` rolls out the
+torch-order members and returns their token artifacts with leading (F, 2)
+axes, and the deltas while all of them fit ``DELTA_BYTES_LIMIT``; the
+master scores them (``task.host_fitness``) and ``update`` steps with the
+carried deltas, or draws them again from the seeds: the same sum in the
+same order, so both give the same bits.
 
 Safe mutations scale the noise by ``sigma / sens``: SM-VECTOR's vector, or
 for SM-G-SUM and SM-G-ABS the sensitivity of the generation's own theta
@@ -84,6 +92,10 @@ __all__ = ["NESEngine", "NESMaster", "setup_log_dir"]
 class NESEngine(PopulationEngine):
     """Device-side math for NES generations on one card."""
 
+    # eval_generation hands its deltas to update while the (F, dim) f32
+    # matrix fits (JAX: nes.py:176)
+    DELTA_BYTES_LIMIT = 4 << 30
+
     def __init__(self, task, optimizer, mutation: MutationKind,
                  pop_chunk: int = 0, kernel_perturb: object = "auto",
                  kernel_noise: object = "auto", delta_dtype: str = "f32",
@@ -92,24 +104,23 @@ class NESEngine(PopulationEngine):
         """``sens``: the SM-G settings of ``PopulationEngine``;
         ``sens_batch``: the sweep's batch rows (``tpu.sensitivity_batch``).
         ``inline_sens``: each generation computes its SM-G sensitivity from
-        its own theta; None (auto) turns it on for SM-G, as the JAX package
-        does for a device-scored task (nes.py:76-104)."""
+        its own theta; None (auto) turns it on for SM-G on a device-scored
+        task, as the JAX package does (nes.py:76-104); a host-scored task's
+        master computes it (``NESMaster._maybe_sensitivity``)."""
         super().__init__(task, pop_chunk=pop_chunk, mutation=mutation,
                          **sens)
         self.optimizer = optimizer
-        self.inline_sens = (mutation.is_gradient if inline_sens is None
-                            else bool(inline_sens))
-        if self.inline_sens and not mutation.is_gradient:
+        self.inline_sens = (mutation.is_gradient and task.fitness_on_device
+                            if inline_sens is None else bool(inline_sens))
+        if self.inline_sens and not (mutation.is_gradient
+                                     and task.fitness_on_device):
             raise ValueError(
-                f"inline_sens=True requires an SM-G-* mutation, not "
-                f"{mutation.value or 'the default'}")
+                f"inline_sens=True requires an SM-G-* mutation and a "
+                f"device-scored task, not {mutation.value or 'the default'}"
+                f" with fitness_on_device={task.fitness_on_device}")
         self._sens_batch = int(sens_batch)
         self._layout = (getattr(task, "decode_layout", None)
                         if task.fitness_on_device else None)
-        if self._layout is None and not task.artifact_is_fitness:
-            raise NotImplementedError(
-                "host-scored fitness (a task whose rollouts return tokens) "
-                "is not ported yet")
         # "auto" and True both take the pair kernel where the task has it
         pair_ok = getattr(task, "supports_pair_perturb", False)
         self._kernel_perturb = kernel_perturb is not False and pair_ok
@@ -195,6 +206,24 @@ class NESEngine(PopulationEngine):
             return torch.stack([pos, neg], 1).flatten(0, 1)
         return np.stack([pos, neg], 1).reshape(2 * len(seeds_c), -1)
 
+    def _rollout_members(self, base_vec, deltas, idx_c, seeds_c, consts
+                         ) -> dict:
+        """One chunk's pair-major members ``base ± delta`` (row 2i is
+        +delta_i, row 2i+1 -delta_i) rolled out in one call, the sampling
+        kinds with their lanes' noise: ``task.rollout_dec`` on the layout
+        path, ``task.rollout`` in torch order. Returns the task's artifact
+        with a leading 2 * chunk axis."""
+        task = self.task
+        members = torch.stack([base_vec + deltas, base_vec - deltas],
+                              1).reshape(2 * deltas.shape[0], -1)
+        idx2 = idx_c.repeat_interleave(2, 0)
+        lanes = (self._lanes(seeds_c) if getattr(task, "samples", False)
+                 else None)
+        if self._layout is None:
+            return task.rollout(members, idx2, consts=consts, lanes=lanes)
+        return {"fitness": task.rollout_dec(members, idx2, consts=consts,
+                                            lanes=lanes)}
+
     @staticmethod
     def _accumulate(grad, w_c, deltas_c):
         """grad + sum_i w_i * delta_i over one chunk, in pair order, each
@@ -228,17 +257,18 @@ class NESEngine(PopulationEngine):
         training set; ``sens`` the safe kinds' (dim,) sensitivity, replaced
         with ``inline_sens`` by that of theta over member 0's batch.
         Returns (theta, opt_state, packed) with packed = [fitnesses (2F) |
-        ratio | mean|theta|] on theta's device."""
+        ratio | mean|theta|] on theta's device. A device-scored task's
+        generation; a host-scored one runs ``eval_generation`` and
+        ``update``."""
         task, lay = self.task, self._layout
+        if not task.fitness_on_device:
+            raise ValueError("a host-scored task's generation is "
+                             "eval_generation, host_fitness, then update")
         if self.inline_sens:
             sens = self.sensitivity(theta, idx[0], seeds[0])
-        dev = theta.device
         F = seeds.shape[0]
-        n_chunks, chunk = self._plan(F)
-        seeds_l = self._lay_out(np.asarray(seeds, np.uint32), n_chunks, chunk)
-        idx_l = torch.as_tensor(
-            self._lay_out(np.asarray(idx, np.int64), n_chunks, chunk),
-            device=dev)
+        n_chunks, chunk, seeds_l, idx_l = self._chunked(seeds, idx,
+                                                        theta.device)
         consts = task.device_consts()
 
         scale = self._scale_vec(theta, sens, sigma)
@@ -265,18 +295,9 @@ class NESEngine(PopulationEngine):
                 fits.append(task.rollout_pair_dec(base_params, deltas,
                                                   idx_l[c], consts=consts))
             else:
-                # pair-major members: row 2i is +delta_i, row 2i+1 -delta_i
-                members = torch.stack([base_vec + deltas, base_vec - deltas],
-                                      1).reshape(2 * chunk, -1)
-                idx2 = idx_l[c].repeat_interleave(2, 0)
-                if lay is None:
-                    fit = task.rollout(members, idx2, consts=consts)
-                    fits.append(fit["fitness"].reshape(chunk, 2))
-                    continue
-                lanes = self._lanes(seeds_l[c]) if task.samples else None
-                fits.append(task.rollout_dec(
-                    members, idx2, consts=consts,
-                    lanes=lanes).reshape(chunk, 2))
+                fits.append(self._rollout_members(
+                    base_vec, deltas, idx_l[c], seeds_l[c],
+                    consts)["fitness"].reshape(chunk, 2))
         fitnesses = torch.cat(fits).reshape(-1, 2)[:F]
 
         weights = self._pair_weights(fitnesses, seeds_l.shape)
@@ -337,6 +358,68 @@ class NESEngine(PopulationEngine):
                 l2coeff)
             rows.append(torch.cat([packed, val, e_scores]))
         return theta, opt_state, e_rows, torch.stack(rows)
+
+    def _chunked(self, seeds, idx, device):
+        """(n_chunks, chunk, seeds (n_chunks, chunk) uint32, idx rows
+        (n_chunks, chunk, B) on ``device``), padded with the last pair."""
+        n_chunks, chunk = self._plan(seeds.shape[0])
+        seeds_l = self._lay_out(np.asarray(seeds, np.uint32), n_chunks, chunk)
+        if idx is None:
+            return n_chunks, chunk, seeds_l, None
+        return n_chunks, chunk, seeds_l, torch.as_tensor(
+            self._lay_out(np.asarray(idx, np.int64), n_chunks, chunk),
+            device=device)
+
+    def eval_generation(self, theta, sens, sigma, seeds: np.ndarray,
+                        idx: np.ndarray):
+        """The rollouts of a host-scored generation (JAX: nes.py:616-631):
+        seeds (F,), idx (F, B) -> (artifacts with leading (F, 2) axes,
+        [pos, neg] per pair; the deltas (n_chunks, chunk, dim) f32 in torch
+        order, or None when they exceed ``DELTA_BYTES_LIMIT``). Each pair's
+        delta is ``scale * N(0, 1)`` of ``normal_of``; pass the deltas to
+        ``update`` to skip drawing them again. The decode-layout path
+        (fused decode, device scoring) runs ``generation`` instead."""
+        if self._layout is not None:
+            raise ValueError("eval_generation rolls out torch-order members;"
+                             " the decode-layout path runs generation")
+        F = seeds.shape[0]
+        n_chunks, chunk, seeds_l, idx_l = self._chunked(seeds, idx,
+                                                        theta.device)
+        carry = n_chunks * chunk * self.dim * 4 <= self.DELTA_BYTES_LIMIT
+        consts = self.task.device_consts()
+        scale = self._scale_vec(theta, sens, sigma)
+        arts, kept = [], []
+        for c in range(n_chunks):
+            deltas = self._deltas(scale, seeds_l[c])
+            if carry:
+                kept.append(deltas)
+            arts.append(self._rollout_members(theta, deltas, idx_l[c],
+                                              seeds_l[c], consts))
+        art = {k: torch.cat([a[k] for a in arts])[:2 * F].reshape(
+            F, 2, *arts[0][k].shape[1:]) for k in arts[0]}
+        return art, (torch.stack(kept) if carry else None)
+
+    def update(self, theta, opt_state, sens, sigma, seeds: np.ndarray,
+               fitnesses, stepsize: float, l2coeff: float, deltas=None):
+        """The step of a host-scored generation from its (F, 2) fitnesses
+        (JAX: nes.py:633-650): the centered-rank weights, the gradient
+        summed over the pairs in order (``_accumulate``, K6's order) from
+        eval_generation's ``deltas``, or from deltas drawn again from the
+        seeds (the same bits), then the optimizer. Returns (opt_state,
+        theta, ratio)."""
+        n_chunks, chunk, seeds_l, _ = self._chunked(seeds, None, None)
+        fitnesses = torch.as_tensor(np.asarray(fitnesses, np.float32),
+                                    device=theta.device)
+        weights = self._pair_weights(fitnesses, (n_chunks, chunk))
+        if deltas is None:
+            scale = self._scale_vec(theta, sens, sigma)
+        grad = torch.zeros_like(theta)
+        for c in range(n_chunks):
+            grad = self._accumulate(
+                grad, weights[c], deltas[c] if deltas is not None
+                else self._deltas(scale, seeds_l[c]))
+        return self._apply_grad(theta, opt_state, grad, fitnesses.numel(),
+                                stepsize, l2coeff)
 
     @staticmethod
     def unpack_val(rows, F: int, E: int):
@@ -563,7 +646,9 @@ class NESMaster(MasterBase):
         each validating iteration, so with val_freq 1 every generation runs
         alone. SM-G with its sensitivity computed on the host (fixed for
         the whole dispatch) runs every generation alone (JAX: nes.py:
-        1066-1077)."""
+        1066-1077), and so does a host-scored task's (nes.py:1053-1055)."""
+        if not self.task.fitness_on_device:
+            return 1
         if self.mutation.is_gradient and not self.engine.inline_sens:
             if not self._block_warned:
                 self._block_warned = True
@@ -620,12 +705,66 @@ class NESMaster(MasterBase):
             if plot:
                 stats.plot_stats(self.experiment.snapshot_dir())
 
+    def _fresh_eval(self) -> tuple[float, bool]:
+        """(score, fresh) of this iteration's validation of the pre-update
+        theta (reference: nic_nes/iteration.py:49-50); tpu.val_freq > 1
+        thins it to every k iterations, carrying the last score."""
+        fresh = (self.it.iteration() % max(self.tpu_cfg.val_freq, 1) == 0
+                 or self._last_eval is None)
+        if fresh:
+            self._last_eval = self.task.validate(self.theta)
+        return self._last_eval, fresh
+
+    def _block_step(self, b: int, t_block: float, sigma, seeds, idx, sens,
+                    F: int, plot: bool):
+        """``b`` device-scored generations in one block, validated on the
+        host at its start, then each one's bookkeeping."""
+        it = self.it
+        new_theta, new_opt_state, packs = self.engine.generation_block(
+            self.theta, self.opt_state, sens, sigma, seeds, idx,
+            self.optimizer.stepsize, self.config.l2coeff or 0.0)
+        eval_score, fresh = self._fresh_eval()
+        self._record_eval(eval_score, fresh=fresh)
+        fits_all, ratios, norms = self.engine.unpack(packs, F)
+        block_dt = time.time() - t_block
+        self.theta, self.opt_state = new_theta, new_opt_state
+        # a snapshot serializes experiment.opt_state next to theta
+        self.experiment.opt_state = self.opt_state
+        for k in range(b):
+            if k:
+                it.incr_iteration()
+                logger.info("********** Iteration %d (chained) "
+                            "**********", it.iteration())
+                self._record_eval(eval_score, fresh=False)
+            self._record_stats(fits_all[k], ratios[k], [norms[k]],
+                               eval_score, block_dt / b, plot)
+
+    def _host_step(self, t_block: float, sigma, seeds, idx, sens,
+                   plot: bool):
+        """One host-scored generation (JAX: nes.py:1225-1228,1271-1284):
+        the rollouts, their fitnesses scored on the host, the validation of
+        the pre-update theta, then the step with the carried deltas."""
+        artifacts, deltas = self.engine.eval_generation(
+            self.theta, sens, sigma, seeds, idx)
+        fitnesses = self.task.host_fitness(artifacts, idx)
+        del artifacts
+        eval_score, fresh = self._fresh_eval()
+        self._record_eval(eval_score, fresh=fresh)
+        self.opt_state, self.theta, ratio = self.engine.update(
+            self.theta, self.opt_state, sens, sigma, seeds, fitnesses,
+            self.optimizer.stepsize, self.config.l2coeff or 0.0,
+            deltas=deltas)
+        del deltas
+        self.experiment.opt_state = self.opt_state  # before a snapshot
+        self._record_stats(fitnesses, float(ratio),
+                           [float(self.theta.abs().mean())], eval_score,
+                           time.time() - t_block, plot)
+
     def run_master(self, plot: bool = False,
                    max_iterations: int | None = None):
         config, it, stats = self.config, self.it, self.stats
         limit = max_iterations or config.max_nb_iterations
         F = self._pair_count()
-        val_freq = max(self.tpu_cfg.val_freq, 1)
         self._val_fused = self._val_fused_mode()
         if self._val_fused:
             logger.info("fused validation: every generation validates on "
@@ -669,34 +808,12 @@ class NESMaster(MasterBase):
                         break  # rebuild the epoch at the new batch size
                     continue
 
-                new_theta, new_opt_state, packs = \
-                    self.engine.generation_block(
-                        self.theta, self.opt_state, sens, sigma, seeds,
-                        idx, self.optimizer.stepsize, config.l2coeff or 0.0)
-
-                # one validation per generation on the pre-update model
-                # (reference: nic_nes/iteration.py:49-50); tpu.val_freq > 1
-                # thins it to every k generations, carrying the last score
-                fresh_val = (it.iteration() % val_freq == 0
-                             or self._last_eval is None)
-                if fresh_val:
-                    self._last_eval = self.task.validate(self.theta)
-                eval_score = self._last_eval
-                self._record_eval(eval_score, fresh=fresh_val)
-
-                fits_all, ratios, norms = self.engine.unpack(packs, F)
-                block_dt = time.time() - t_block
-                self.theta, self.opt_state = new_theta, new_opt_state
-                # a snapshot serializes experiment.opt_state next to theta
-                self.experiment.opt_state = self.opt_state
-                for k in range(b):
-                    if k:
-                        it.incr_iteration()
-                        logger.info("********** Iteration %d (chained) "
-                                    "**********", it.iteration())
-                        self._record_eval(eval_score, fresh=False)
-                    self._record_stats(fits_all[k], ratios[k], [norms[k]],
-                                       eval_score, block_dt / b, plot)
+                if not self.task.fitness_on_device:
+                    self._host_step(t_block, sigma, seeds[0], idx[0], sens,
+                                    plot)
+                else:
+                    self._block_step(b, t_block, sigma, seeds, idx, sens, F,
+                                     plot)
 
                 if it.patience_reached() or it.schedule_reached():
                     if config.stepsize_divisor:

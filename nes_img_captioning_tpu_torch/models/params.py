@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["Leaf", "ParamSpec", "reference_init_kind", "torch_fans",
-           "managed_linear", "norm_leaves", "theta_from_numpy",
-           "theta_to_numpy"]
+           "managed_linear", "norm_leaves", "batch_stat_norm", "layer_norm",
+           "theta_from_numpy", "theta_to_numpy"]
 
 
 def torch_fans(shape: tuple[int, ...]) -> tuple[int, int]:
@@ -116,9 +116,13 @@ class ParamSpec:
     def unravel(self, theta: torch.Tensor) -> dict[str, torch.Tensor]:
         """Views of ``theta`` (no copy), one per leaf. One ``split``, whose
         backward joins the leaves' gradients in one ``cat`` (a slice per
-        leaf would scatter each into a zero vector of theta's size)."""
-        pieces = theta.split([l.size for l in self.leaves])
-        return {l.name: t.view(l.shape) for l, t in zip(self.leaves, pieces)}
+        leaf would scatter each into a zero vector of theta's size).
+        Members (..., dim) give leaves (..., *shape) with the same leading
+        axes."""
+        pieces = theta.split([l.size for l in self.leaves], -1)
+        lead = theta.shape[:-1]
+        return {l.name: t.reshape(*lead, *l.shape) if lead else t.view(l.shape)
+                for l, t in zip(self.leaves, pieces)}
 
     def ravel(self, params: dict) -> torch.Tensor:
         return torch.cat([params[l.name].reshape(-1) for l in self.leaves])
@@ -173,6 +177,39 @@ def norm_leaves(name: str, dim: int, affine: bool) -> list[Leaf]:
         return []
     return [Leaf(name + ".weight", (dim,), "ones"),
             Leaf(name + ".bias", (dim,), "zeros")]
+
+
+def _norm(x: torch.Tensor, dim: int, weight, bias, eps: float):
+    # the mean as a sum times 1/n: XLA's form of jnp.mean, so a feature
+    # equal in every row normalizes to the same rounding residue
+    inv_n = 1.0 / x.shape[dim]
+    centered = x - x.sum(dim, keepdim=True) * inv_n
+    var = centered.square().sum(dim, keepdim=True) / x.shape[dim]
+    y = centered * torch.rsqrt(var + eps)
+    # weight and bias (..., N) broadcast over the rows of x (..., R, N)
+    if weight is not None:
+        y = y * weight.unsqueeze(-2)
+    if bias is not None:
+        y = y + bias.unsqueeze(-2)
+    return y
+
+
+def batch_stat_norm(x: torch.Tensor, weight=None, bias=None,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm1d(track_running_stats=False): every call normalizes with
+    the current batch's statistics, so the reference's "virtual batch norm"
+    pre-pass over a reference batch changes nothing (JAX: params.py:
+    231-250). Biased variance, ``rsqrt(var + eps)``, optional affine. The
+    statistics are over axis -2, the rows, so members (M, R, N) keep each
+    member's own."""
+    return _norm(x, -2, weight, bias, eps)
+
+
+def layer_norm(x: torch.Tensor, weight=None, bias=None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, as batch_stat_norm's arithmetic (JAX:
+    params.py:253-264)."""
+    return _norm(x, -1, weight, bias, eps)
 
 
 def theta_from_numpy(theta, device="cpu") -> torch.Tensor:

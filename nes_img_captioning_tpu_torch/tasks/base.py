@@ -53,12 +53,13 @@ class Task(abc.ABC):
         return contextlib.nullcontext()
 
     def host_fitness(self, artifacts, idx) -> np.ndarray:
-        """The fitness array of a sweep's artifacts. The device scorer's
-        ``{"fitness": ...}`` passes through; host scoring of token artifacts
-        is not ported yet (JAX: captioning.py:528-533)."""
+        """The fitness array of a sweep's artifacts: the device scorer's
+        ``{"fitness": ...}`` passes through. A task whose rollouts return
+        other artifacts (``CocoTask``'s tokens) scores them in its own
+        override (JAX: captioning.py:528-573)."""
         if isinstance(artifacts, dict) and "fitness" in artifacts:
             f = artifacts["fitness"]
             f = f.detach().cpu().numpy() if torch.is_tensor(f) else f
             return np.asarray(f, np.float32)
-        raise NotImplementedError(
-            "host-scored fitness (token artifacts) is not ported yet")
+        raise TypeError(f"{type(self).__name__} rollouts returned no "
+                        "fitness and the task scores no other artifact")

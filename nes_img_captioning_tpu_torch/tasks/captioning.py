@@ -1,8 +1,6 @@
 """MSCOCO captioning task (port of ``CocoTask`` in ``nes_img_captioning_tpu/tasks/captioning.py``).
 
-The port runs every fitness kind of the reference (src/captioning/
-policies.py, Fitness) on the decode-layout path, scored by the on-device
-CIDEr-D:
+Every fitness kind of the reference (src/captioning/policies.py, Fitness):
 
 * greedy | sample        -> mean CIDEr-D * 100 per member;
 * self_critical          -> mean(CIDEr-D(sample) - CIDEr-D(greedy)) * 100;
@@ -10,24 +8,42 @@ CIDEr-D:
                             (sc_loss on samples with the self-critical
                             reward).
 
-The rollouts decode with the kernels of ops/decode_cuda.py: K1 per member
-(K4 with ``tpu.decode_vocab_tile``), K2 per antithetic pair, K5 per pair
-with the noise drawn in the kernel, and K3 for the sampling kinds. NIC-ES
-hands ``rollout`` its children in torch order; they are laid out in decode
-order (``to_dec``) and decoded per member like NES's. Greedy
-batches are image-level: greedy decoding of the reference's 5 identical
-rows per image gives 5 identical captions, so each image is decoded once.
-The sampling kinds draw ``seq_per_img`` (default 5) independent samples per
-image, rows image-major (row ``b * spi + i``), as the reference's
-``repeat(feats, 5)``. A batch above the kernels' 128 rows is decoded in
-row blocks of at most 128, one launch each (K3's blocks draw the Gumbel
-stream of one launch over all rows). Validation decodes the val subset
-with one launch of K1 (K4 when tiled) over all its row blocks
-(``decode_rows``) and scores it with word-level plain CIDEr: on the host
-with the native scorer (``validate``, which also writes the predictions
-JSON), or on the card (``validate_device`` on ``device_val_consts``, no
-host sync), which ``tpu.fused_validation`` runs inside the master's
-blocks.
+A rollout is a decode and a score, each in one of two forms (JAX:
+captioning.py:221-319):
+
+* decode, fused (``tpu.fused_decode``; "auto" takes it for the no-norm
+  model, which on the card must have E = R = 128 and a feature width that
+  is a multiple of 128 unless the knob is false): the kernels of ops/decode_cuda.py, K1 per member (K4
+  with ``tpu.decode_vocab_tile``), K2 per antithetic pair, K5 per pair with
+  the noise drawn in the kernel, and K3 for the sampling kinds, in row
+  blocks of at most 128 (K3's blocks draw the Gumbel stream of one launch
+  over all rows);
+* decode, eager: ``FCCaptionModel.sample_members``, f32, the whole batch of
+  each member at once, so the vbn, vbn_e and layer_n variants keep their
+  batch statistics over all of a member's rows as the JAX decoder does;
+* score on the device (``tpu.device_cider``; "auto" unless V + 1 >= 16384):
+  the on-device CIDEr-D, the rollout returns ``{"fitness"}``;
+* score on the host: the rollout returns the tokens (int16 while V <
+  32767), with the logprobs for the criteria kinds and the greedy baseline
+  for the self-critical kinds, and ``host_fitness`` scores them on the
+  native scorer (``_score_dedup``: each distinct caption of an image once).
+
+NES's decode-order generation (``rollout_dec``, the decode layout) exists
+only when the decode is fused and scored on the device; every other
+combination rolls out torch-order members (``rollout``). Greedy batches are
+image-level: greedy decoding of the reference's 5 identical rows per image
+gives 5 identical captions, so each image is decoded once. The sampling
+kinds draw ``seq_per_img`` (default 5) samples per image, rows image-major
+(row ``b * spi + i``), as the reference's ``repeat(feats, 5)``.
+
+Validation decodes the val subset greedily and scores it with word-level
+plain CIDEr: on the host with the native scorer (``validate``, which also
+writes the predictions JSON), or on the card (``validate_device`` on
+``device_val_consts``, no host sync), which ``tpu.fused_validation`` runs
+inside the master's blocks. Fused, one launch of K1 (K4 when tiled) covers
+all row blocks (``decode_rows``); eager, the rows are decoded in the JAX
+package's chunks of ``val_batch_size``, the ragged tail padded with zero
+rows, which the vbn statistics see.
 """
 
 from __future__ import annotations
@@ -43,8 +59,10 @@ from .base import Task
 from ..data.mscoco import CocoData
 from ..fitness.criteria import FITNESS_CRITERIA, criterion_device
 from ..fitness.scorer import IndexedCiderScorer
+from ..fitness.criteria import apply_criterion
 from ..models.fc_caption import FCCaptionModel, FCModelOptions
 from ..ops.decode_cuda import KERNEL_WIDTH, PAD_LANE, pad_vocab
+from ..ops.noise import gumbel_plain
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -56,6 +74,8 @@ GREEDY_KINDS = {"greedy", "greedy_logprob", "greedy_expprob", "greedy_linprob",
                 "greedy_avgprob"}
 SELF_CRITICAL_KINDS = {"self_critical", "sc_loss"}
 _KINDS = GREEDY_KINDS | SELF_CRITICAL_KINDS | {"sample"}
+# the on-device CIDEr-D packs a token into 14 bits (JAX: captioning.py:140)
+DEVICE_CIDER_VOCAB = 1 << 14
 
 
 class CocoTask(Task):
@@ -89,16 +109,7 @@ class CocoTask(Task):
             layer_n=bool(mopts.get("layer_n", False)),
             layer_n_affine=bool(mopts.get("layer_n_affine", False)),
         ), device="meta")  # the task needs the spec; members are flat thetas
-        o = self.model.options
-        if self.device.type == "cuda" and not (
-                o.input_encoding_size == o.rnn_size == KERNEL_WIDTH
-                and o.fc_feat_size % KERNEL_WIDTH == 0):
-            raise ValueError(
-                f"input_encoding_size={o.input_encoding_size}, rnn_size="
-                f"{o.rnn_size}, fc_feat_size={o.fc_feat_size}: the CUDA "
-                f"decode kernels take E = R = {KERNEL_WIDTH} and a feature "
-                f"width that is a multiple of {KERNEL_WIDTH}")
-
+        self._fused = self._resolve_fused(tpu_cfg.fused_decode)
         self.train_fc = torch.as_tensor(self.data.split_feats("train"),
                                         device=self.device)
         self.val_fc = torch.as_tensor(self.data.split_feats("val"),
@@ -106,14 +117,18 @@ class CocoTask(Task):
         self.train_gts = self.data.split_gts("train")
         self._train_scorer = self._val_scorer = None
         self._val_dev_cache = None
+        # (distinct rows scored, rows) of the last ``_score_dedup``
+        self.dedup_rows = (0, 0)
         # predictions artifact destination; absent when the task is built
         # without a run (tests, chip_smoke's kernel phases)
         self._eval_dir = (os.path.join(exp["log_dir"], "eval")
                           if exp.get("log_dir") else None)
 
-        self._fused = tpu_cfg.fused_decode is not False
         self._decode_dtype = (torch.bfloat16 if tpu_cfg.precision == "bf16"
                               else torch.float32)
+        # the host artifact's token dtype (JAX: captioning.py:123-125)
+        self._wire_dtype = (torch.int16 if self.data.vocab_size < 32767
+                            else torch.int32)
         # SM-G's vocab grouping of the sensitivity forward (reference: 100)
         self._sens_split = int(tpu_cfg.sensitivity_split or 100)
         # the vocab-tiled greedy decode (K4) for every greedy decode
@@ -140,10 +155,17 @@ class CocoTask(Task):
                 "%.4f)", copts["cider_df"],
                 sum(len(d) for d in self._frozen_df[0]), self._frozen_df[1])
 
+        # device scoring: "auto" as the JAX package (captioning.py:136-142);
+        # an explicit true the device scorer cannot honour raises where
+        # JAX scores on the host instead
+        big = self.data.vocab_size + 1 >= DEVICE_CIDER_VOCAB
+        if tpu_cfg.device_cider is True and big:
+            raise ValueError(
+                f"tpu.device_cider=true: vocab {self.data.vocab_size} + 1 is "
+                f"too large for the device CIDEr-D (< {DEVICE_CIDER_VOCAB}); "
+                "leave it at \"auto\" or false to score on the host")
         self._device_cider = None
-        if tpu_cfg.device_cider is not False:
-            if self.data.vocab_size + 1 >= (1 << 14):
-                raise ValueError("vocab too large for the device CIDEr-D")
+        if tpu_cfg.device_cider is not False and not big:
             from ..ops.cider_device import DeviceCider
 
             logger.info("building on-device CIDEr-D scorer (%d train images)",
@@ -153,11 +175,47 @@ class CocoTask(Task):
                                              frozen_df=self._frozen_df,
                                              device=self.device)
 
-        self.decode_layout = None
-        if self._fused and self._device_cider is not None:
+        # the kernels' parameter layout; the NES engine's decode-order
+        # generation (``decode_layout``) also needs device scoring
+        self._layout = None
+        if self._fused:
             from ..ops.decode_layout import DecodeLayout
 
-            self.decode_layout = DecodeLayout(self.spec, self.model.options)
+            self._layout = DecodeLayout(self.spec, self.model.options)
+        self.decode_layout = (self._layout if self._device_cider is not None
+                              else None)
+
+    def _resolve_fused(self, want) -> bool:
+        """tpu.fused_decode: "auto" takes the kernels for the no-norm model
+        and the eager decoder for the vbn, vbn_e and layer_n variants, as
+        JAX's ``can_fuse`` does; false takes the eager decoder. True with a
+        norm variant raises: JAX's fused path would decode it through
+        ``prepare_decode_params``, which drops every norm leaf, another
+        model. On the card the kernels take E = R = 128 and a feature width
+        that is a multiple of 128; a no-norm model of another width raises
+        unless fused_decode is false, where JAX would still run its
+        kernels."""
+        o = self.model.options
+        if o.vbn or o.vbn_e or o.layer_n:
+            if want is True:
+                raise ValueError(
+                    "tpu.fused_decode=true: the decode kernels run the "
+                    "no-norm model; the vbn, vbn_e and layer_n variants "
+                    "decode eagerly, so leave it at \"auto\" or false")
+            return False
+        if want is False:
+            return False
+        if self.device.type == "cuda" and not (
+                o.input_encoding_size == o.rnn_size == KERNEL_WIDTH
+                and o.fc_feat_size % KERNEL_WIDTH == 0):
+            raise ValueError(
+                f"tpu.fused_decode={want}: input_encoding_size="
+                f"{o.input_encoding_size}, rnn_size={o.rnn_size}, "
+                f"fc_feat_size={o.fc_feat_size}: the CUDA decode kernels take "
+                f"E = R = {KERNEL_WIDTH} and a feature width that is a "
+                f"multiple of {KERNEL_WIDTH}; set it to false to decode "
+                "eagerly")
+        return True
 
     @property
     def train_scorer(self) -> IndexedCiderScorer:
@@ -323,48 +381,111 @@ class CocoTask(Task):
 
         return self._by_rows(block, feats.shape[1], 2)
 
-    def rollout_dec(self, vec_dec, idx, consts=None, lanes=None):
-        """Rollouts of decode-ordered members, one launch per decode and
-        block of 128 rows: vec_dec (M, dim_dec), idx (M, B). Greedy kinds
-        decode each member's B rows once (K1, or K4 when tiled). The
-        sampling kinds decode seq_per_img lanes per member with K3,
-        ``lanes`` giving their noise: (M, spi) uint32 lane seeds (host), or
-        an (M, spi, T, B, Vpad) f32 Gumbel table (K3's host-table form); the
-        self-critical kinds also decode each member greedily for the
-        baseline. Returns (M,) fitnesses."""
-        consts = self.device_consts() if consts is None else consts
-        params = self.decode_layout.prep(vec_dec, self._decode_dtype)
-        feats = consts["train_fc"][idx]
-        T = self.model.options.seq_length
-        base = None
+    def _decode_fused(self, params: dict, feats, lanes):
+        """The kernels' decode of members (params with a leading member
+        axis, feats (M, B, F)): greedy kinds K1 (K4 when tiled) once per
+        image; the sampling kinds K3, ``seq_per_img`` lanes per member from
+        ``lanes`` ((M, spi) uint32 lane seeds, or an (M, spi, T, B, Vpad)
+        f32 Gumbel table), and for the self-critical kinds K1 again for the
+        greedy baseline. Returns (seq, lp, baseline seq or None): (M, R,
+        T), R = B, or B * spi image-major sampled rows."""
         if not self.samples:
-            seq, lp = self._greedy(params, feats, self.need_logprobs)
-        else:
-            if lanes is None:
-                raise ValueError(f"fitness {self.fitness_kind!r} samples: "
-                                 "rollout_dec needs its lanes' noise")
-            seq, lp = self._sample(params, feats, lanes)  # (M, spi, B, T)
-            M, spi, B = seq.shape[:3]
-            # image-major rows b * spi + i
-            seq = seq.transpose(1, 2).reshape(M, B * spi, T)
-            lp = lp.transpose(1, 2).reshape(M, B * spi, T)
-            if self.fitness_kind in SELF_CRITICAL_KINDS:
-                base = self._greedy(params, feats)[0]
+            return (*self._greedy(params, feats, self.need_logprobs), None)
+        if lanes is None:
+            raise ValueError(f"fitness {self.fitness_kind!r} samples: the "
+                             "rollout needs its lanes' noise")
+        seq, lp = self._sample(params, feats, lanes)  # (M, spi, B, T)
+        M, spi, B, T = seq.shape
+        # image-major rows b * spi + i
+        seq = seq.transpose(1, 2).reshape(M, B * spi, T)
+        lp = lp.transpose(1, 2).reshape(M, B * spi, T)
+        base = (self._greedy(params, feats)[0]
+                if self.fitness_kind in SELF_CRITICAL_KINDS else None)
+        return seq, lp, base
+
+    def _eager_gumbel(self, lanes, M: int, B: int):
+        """Step t -> (M, B * spi, Vpad) Gumbel values of the eager
+        decoder's image-major rows, row b * spi + i from lane i's stream at
+        batch row b: drawn from (M, spi) uint32 lane seeds as K3 draws them
+        (``gumbel_plain``), or read from an (M, spi, T, B, V) table."""
+        spi = self.seq_per_img
+        if torch.is_tensor(lanes):
+            return lambda t: lanes[:, :, t].transpose(1, 2).reshape(
+                M, B * spi, -1)
+        seeds = torch.as_tensor(np.asarray(lanes).astype(np.int64),
+                                device=self.device)
+        Vpad = pad_vocab(self.data.vocab_size + 1)
+        return lambda t: gumbel_plain(seeds, t, B, Vpad).transpose(
+            1, 2).reshape(M, B * spi, Vpad)
+
+    def _decode_eager(self, thetas, feats, lanes):
+        """The eager decode of torch-order members thetas (M, dim), feats
+        (M, B, F): ``sample_members`` over each member's whole batch, the
+        sampling kinds on its B * spi image-major rows with the noise of
+        ``lanes`` (as ``_decode_fused`` takes it) and the self-critical
+        baseline greedily on its B rows (JAX: captioning.py:288-289,
+        316-318). Returns what ``_decode_fused`` returns."""
+        sample = self.model.sample_members
+        if not self.samples:
+            return (*sample(thetas, feats), None)
+        if lanes is None:
+            raise ValueError(f"fitness {self.fitness_kind!r} samples: the "
+                             "rollout needs its lanes' noise")
+        M, B = feats.shape[:2]
+        seq, lp = sample(thetas, feats.repeat_interleave(self.seq_per_img, 1),
+                         greedy=False, gumbel=self._eager_gumbel(lanes, M, B))
+        base = (sample(thetas, feats)[0]
+                if self.fitness_kind in SELF_CRITICAL_KINDS else None)
+        return seq, lp, base
+
+    def _score(self, seq, lp, base, idx, consts) -> dict:
+        """A rollout's artifact: ``{"fitness": (M,)}`` from the device
+        scorer, or for host scoring the tokens ``{"seq"}`` in the wire
+        dtype, with ``"logprob"`` for the criteria kinds and
+        ``"greedy_seq"`` for the self-critical kinds (JAX: captioning.py:
+        306-319), which ``host_fitness`` scores."""
+        if self._device_cider is not None:
+            return {"fitness": self._device_fitness(
+                seq, idx, consts.get("cider"), lp=lp, base_seq=base)}
+        art = {"seq": seq.to(self._wire_dtype)}
+        if self.need_logprobs:
+            art["logprob"] = lp
+        if base is not None:
+            art["greedy_seq"] = base.to(self._wire_dtype)
+        return art
+
+    def rollout_dec(self, vec_dec, idx, consts=None, lanes=None):
+        """Rollouts of decode-ordered members (the decode layout: fused and
+        device-scored), one launch per decode and block of 128 rows:
+        vec_dec (M, dim_dec), idx (M, B); ``lanes`` as ``_decode_fused``
+        takes them. Returns (M,) fitnesses."""
+        consts = self.device_consts() if consts is None else consts
+        seq, lp, base = self._decode_fused(
+            self.decode_layout.prep(vec_dec, self._decode_dtype),
+            consts["train_fc"][idx], lanes)
         return self._device_fitness(seq, idx, consts.get("cider"), lp=lp,
                                     base_seq=base)
 
-    def rollout(self, thetas, idx_row, consts=None, lanes=None) -> dict:
-        """Rollouts of torch-order members, the NIC-ES sweep (JAX:
-        captioning.py:291-325): thetas (M, dim) flat f32, idx_row (B,) the
-        generation's batch, shared by every member. The members are laid out
-        in decode order by the exact ``decode_layout.to_dec`` and decoded by
-        ``rollout_dec`` (K1, K4 when tiled, K3 with ``lanes`` for the
-        sampling kinds; row blocks of 128). Returns ``{"fitness": (M,)}``,
-        the device scorer's artifact."""
-        idx_row = torch.as_tensor(idx_row, device=self.device)
-        idx = idx_row.reshape(1, -1).expand(thetas.shape[0], -1)
-        return {"fitness": self.rollout_dec(self.decode_layout.to_dec(thetas),
-                                            idx, consts=consts, lanes=lanes)}
+    def rollout(self, thetas, idx, consts=None, lanes=None) -> dict:
+        """Rollouts of torch-order members (JAX: captioning.py:291-319):
+        thetas (M, dim) flat f32; idx (B,), one batch shared by every member
+        (NIC-ES), or (M, B), each member's own (NIC-NES pairs); ``lanes``
+        the sampling kinds' noise per member. Fused, the members are laid
+        out in decode order by the exact ``to_dec`` and decoded by the
+        kernels; eager, by ``sample_members``. Returns ``_score``'s
+        artifact: ``{"fitness": (M,)}`` or the host scorer's tokens."""
+        consts = self.device_consts() if consts is None else consts
+        idx = torch.as_tensor(idx, device=self.device)
+        if idx.dim() == 1:
+            idx = idx.reshape(1, -1).expand(thetas.shape[0], -1)
+        feats = consts["train_fc"][idx]
+        if self._fused:
+            lay = self._layout
+            decoded = self._decode_fused(
+                lay.prep(lay.to_dec(thetas), self._decode_dtype), feats, lanes)
+        else:
+            decoded = self._decode_eager(thetas, feats, lanes)
+        return self._score(*decoded, idx, consts)
 
     def _device_fitness(self, seq, idx, dev=None, lp=None, base_seq=None):
         """seq (N, R, T) tokens of N members (R = B rows, or B * spi
@@ -393,6 +514,74 @@ class CocoTask(Task):
                                     scores[..., None])
         return scores.mean(-1) * 100.0
 
+    # ---- host fitness ---------------------------------------------------------------
+
+    def _score_dedup(self, cands: np.ndarray, img_idx: np.ndarray
+                     ) -> np.ndarray:
+        """CIDEr-D of each row (cands (N, T), img_idx (N,)), each distinct
+        (caption, image) scored once and scattered back: nearby thetas
+        often decode the same caption for an image (JAX: captioning.py:
+        502-526). The key is a 64-bit multiplicative hash of the row's
+        tokens and image; with 90% or more of the rows distinct every row
+        is scored, skipping the indirection."""
+        key = np.concatenate([np.ascontiguousarray(cands, np.int64),
+                              img_idx[:, None].astype(np.int64)], axis=1)
+        mult = np.array([(0x9E3779B97F4A7C15 * (i + 1)) % (1 << 64)
+                         for i in range(key.shape[1])],
+                        dtype=np.uint64).view(np.int64)
+        with np.errstate(over="ignore"):
+            hashes = (key * mult).sum(axis=1)
+        _, first, inverse = np.unique(hashes, return_index=True,
+                                      return_inverse=True)
+        self.dedup_rows = (len(first), len(hashes))
+        if len(first) >= 0.9 * len(hashes):
+            return self.train_scorer.score(cands, img_idx)[1]
+        return self.train_scorer.score(cands[first],
+                                       img_idx[first])[1][inverse.ravel()]
+
+    def host_fitness(self, artifacts, idx) -> np.ndarray:
+        """The fitnesses of a sweep's artifacts with leading member axes:
+        the device scorer's pass through; token artifacts are scored here,
+        every row of every member in one ``_score_dedup`` on the native
+        scorer, then reduced per member (JAX: captioning.py:528-573). idx:
+        (B,), the batch of every member (NIC-ES), or (F, B) for NES's (F,
+        2) pairs, whose two members share row m // 2. The self-critical
+        kinds subtract each image's greedy-baseline CIDEr-D from its
+        samples; the criteria kinds reduce on the host (``apply_criterion``,
+        f64)."""
+        if "fitness" in artifacts:
+            return super().host_fitness(artifacts, idx)
+        host = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                for k, v in artifacts.items()}
+        seq = host["seq"]
+        lead = seq.shape[:-2]
+        n = int(np.prod(lead))
+        R, T = seq.shape[-2:]
+        seq_f = seq.reshape(n, R, T)
+        idx = np.asarray(idx)
+        if idx.ndim == 1:
+            rows = np.broadcast_to(idx, (n, idx.shape[0]))
+        else:
+            rows = np.repeat(idx, int(np.prod(lead[1:])), axis=0)
+        B = rows.shape[1]
+        spi = R // B
+        img_idx = np.repeat(rows, spi, axis=1)  # (n, R)
+        scores = self._score_dedup(seq_f.reshape(-1, T),
+                                   img_idx.reshape(-1)).reshape(n, R)
+        if self.fitness_kind in SELF_CRITICAL_KINDS:
+            base = self.train_scorer.score(
+                host["greedy_seq"].reshape(-1, T), rows.reshape(-1))[1]
+            scores = scores - np.repeat(base.reshape(n, B), spi, axis=1)
+        if self.need_logprobs:
+            lp = host["logprob"].reshape(n, R, T)
+            out = np.asarray([
+                apply_criterion(self.fitness_kind, lp[m], seq_f[m],
+                                np.repeat(scores[m][:, None], T, axis=1))
+                for m in range(n)], dtype=np.float32)
+        else:
+            out = (scores.mean(axis=1) * 100.0).astype(np.float32)
+        return out.reshape(lead)
+
     # ---- sensitivity -------------------------------------------------------
 
     @property
@@ -418,8 +607,25 @@ class CocoTask(Task):
         return n if num in (-1, None, 0) else min(num, n)
 
     def _decode_rows(self, theta, feats) -> torch.Tensor:
-        """Greedy tokens (N, T) of theta on feats (N, F): one launch of K1
-        (K4 when tiled) over all row blocks of 128 (``decode_rows``)."""
+        """Greedy tokens (N, T) of theta on feats (N, F). Fused: one launch
+        of K1 (K4 when tiled) over all row blocks of 128 (``decode_rows``);
+        greedy rows are independent, so the blocks change no token. Eager:
+        the JAX package's chunks of ``val_batch_size`` (else
+        ``batch_size``, else 64; at most N), the ragged tail padded with
+        zero rows, whose statistics the vbn variants see (JAX:
+        captioning.py:577-594)."""
+        if not self._fused:
+            N = feats.shape[0]
+            bs = min(self.config.val_batch_size or self.config.batch_size
+                     or 64, N)
+            chunks = []
+            for lo in range(0, N, bs):
+                chunk = feats[lo:lo + bs]
+                pad = bs - chunk.shape[0]
+                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, pad))
+                chunks.append(self.model.sample_members(
+                    theta[None], chunk[None])[0][0, :bs - pad])
+            return torch.cat(chunks)
         from ..ops.decode_cuda import decode_rows, prepare_decode_params
 
         params = prepare_decode_params(self.spec, theta, self.model.options,
@@ -428,9 +634,8 @@ class CocoTask(Task):
                            False, vocab_tile=self._vocab_tile)[0]
 
     def _decode_split(self, theta, feats, num: int) -> np.ndarray:
-        """Greedy-decode the first ``num`` rows of a split (all for -1, 0 or
-        None) in one launch. Greedy rows are independent, so the blocks
-        change no token."""
+        """Greedy tokens of the first ``num`` rows of a split (all for -1,
+        0 or None), as ``_decode_rows`` decodes them."""
         return self._decode_rows(
             theta, feats[:self._val_count(feats, num)]).cpu().numpy()
 
@@ -452,8 +657,7 @@ class CocoTask(Task):
         """Word-level plain CIDEr of theta's greedy captions over the first
         config.num_val_items val images, scored on the host by the native
         scorer; writes the predictions JSON (captioning.py:617-625 of the
-        JAX package). The chunks of ``val_batch_size`` the JAX package
-        decodes change no token here: one launch decodes every row."""
+        JAX package)."""
         seqs = self._decode_split(theta, self.val_fc,
                                   self.config.num_val_items or -1)
         self._write_predictions(seqs, "val")
@@ -463,8 +667,9 @@ class CocoTask(Task):
 
     def device_val_consts(self) -> dict | None:
         """The card's constants of ``validate_device``, built once: the val
-        subset's feats in the decode dtype (no padding: the row-block
-        launch takes the ragged last block as it is), the token -> word-id
+        subset's feats (fused: in the decode dtype, unpadded, as the
+        row-block launch takes them; eager: f32, chunked by
+        ``_decode_rows``), the token -> word-id
         table of ``data.word_id_rows`` as one flat tensor (gathered with
         ``table[seqs]``), the subset's image indices, and a word-level
         plain-CIDEr DeviceCider over the val refs: validate()'s subset and
@@ -483,7 +688,8 @@ class CocoTask(Task):
             table = self.data.word_id_rows(
                 np.arange(self.data.vocab_size + 1))
             self._val_dev_cache = {
-                "feats": self.val_fc[:n].to(self._decode_dtype).contiguous(),
+                "feats": (self.val_fc[:n].to(self._decode_dtype).contiguous()
+                          if self._fused else self.val_fc[:n]),
                 "word": torch.as_tensor(table, dtype=torch.int64,
                                         device=self.device),
                 "img": torch.arange(n, device=self.device),
@@ -492,8 +698,8 @@ class CocoTask(Task):
         return self._val_dev_cache
 
     def validate_device(self, theta, vconsts) -> torch.Tensor:
-        """validate() on the card: one row-block decode of the val subset,
-        the word-id gather and the word-level plain CIDEr of DeviceCider;
+        """validate() on the card: the val subset decoded as
+        ``_decode_rows`` decodes it, the word-id gather and the word-level plain CIDEr of DeviceCider;
         the mean score as a 0-d f32 tensor on the card, with no host sync
         and no predictions JSON (JAX: captioning.py:696-724). Equal to
         validate() to f32 accuracy."""

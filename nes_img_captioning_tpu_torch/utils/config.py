@@ -17,6 +17,13 @@ it refuses ``mesh_shape`` and ``profile``, and accepts the others without
 reading them yet. Unlike the JAX parser, ``kernel_noise``, ``fused_decode`` and
 ``device_cider`` are validated like the other tri-state knobs, so a
 near-miss such as ``"false"`` is rejected instead of read as true.
+``fused_decode`` and ``device_cider`` resolve when the captioning task is
+built (``tasks/captioning.py``): "auto" as in the JAX package, and an
+explicit true that the port cannot honour (the decode kernels for a norm
+variant, the device scorer at V + 1 >= 16384) raises where the JAX
+package goes on with another path; on the card the decode kernels take
+E = R = 128 only, so a no-norm model of another width raises unless
+``fused_decode`` is false.
 """
 
 from __future__ import annotations

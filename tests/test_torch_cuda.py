@@ -637,7 +637,8 @@ def test_k3_member_edges(small_members, case, dt):
 def card_task():
     """A CocoTask factory on the card at E = R = 128, vocab 300, 256-d
     features, f32 weights, over an in-memory synthetic split of 64
-    images."""
+    images; ``popts``, ``mopts`` and ``tpu`` add policy options, model
+    options and TpuConfig fields."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -652,13 +653,14 @@ def card_task():
         n_train=64, n_val=8, n_test=8, vocab_size=300, fc_feat_size=256,
         cap_len=9, seed=0))
 
-    def make(kind, precision="f32"):
+    def make(kind, precision="f32", popts=None, mopts=None, **tpu):
         exp = {"dataset": "mscoco", "policy_options": {
-            "fitness": kind, "vbn": False, "model_options": {
+            "fitness": kind, "vbn": False, **(popts or {}),
+            "model_options": {
                 "input_encoding_size": 128, "rnn_size": 128,
-                "fc_feat_size": 256}}}
+                "fc_feat_size": 256, **(mopts or {})}}}
         return CocoTask(exp, Config(batch_size=256),
-                        TpuConfig(seed=0, precision=precision),
+                        TpuConfig(seed=0, precision=precision, **tpu),
                         device="cuda", data=data)
     make.data = data
     return make
@@ -1126,3 +1128,89 @@ def test_mnist_sensitivity_rows_bitwise_repeatable(mnist_tasks, precision):
     if precision == "float32":
         want = calc_sensitivities(cpu, thetas, idx, kind, 0.2)
         torch.testing.assert_close(first.cpu(), want, rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k1_on_torch_order_members_both_layouts(card_task, dtype):
+    """K1 on torch-order members laid out by prepare_decode_params, one
+    member at a time, equals K1 on to_dec + prep of the same members, bit
+    for bit; a host-scored task's rollout returns those tokens (int16)."""
+    task = card_task("greedy", device_cider=False)
+    assert task._fused and task.decode_layout is None
+    assert not task.fitness_on_device
+    lay, opts = task._layout, task.model.options
+    g = torch.Generator(device="cuda").manual_seed(7)
+    thetas = torch.stack([task.spec.init_theta(g) * (2 + i)
+                          for i in range(3)])
+    idx = torch.randint(0, 64, (3, 40), generator=g, device="cuda")
+    feats = task.train_fc[idx]
+    by_layout = lay.prep(lay.to_dec(thetas), dtype)
+    per_member = [tdc.prepare_decode_params(task.spec, th, opts, dtype)
+                  for th in thetas]
+    stacked = {k: torch.stack([p[k] for p in per_member])
+               for k in per_member[0]}
+    seq_a, lp_a = tdc.decode_fused(by_layout, feats, 16, True)
+    seq_b, lp_b = tdc.decode_fused(stacked, feats, 16, True)
+    assert torch.equal(seq_a, seq_b) and torch.equal(lp_a, lp_b)
+    if dtype == torch.float32:
+        art = task.rollout(thetas, idx)
+        assert art["seq"].dtype == torch.int16
+        assert torch.equal(art["seq"].int(), seq_a)
+
+
+NORM_FLAGS = {"vbn": ({"vbn": True}, {}),
+              "vbn_e_affine": ({}, {"vbn_e": True, "vbn_affine": True}),
+              "layer_n": ({}, {"layer_n": True})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(NORM_FLAGS))
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_eager_decoder_card_matches_cpu(card_task, variant, greedy):
+    """The eager decoder of the norm variants (f32, TF32 off) on the card
+    against the same members on the CPU: tokens equal, lp within 1e-4."""
+    popts, mopts = NORM_FLAGS[variant]
+    task = card_task("greedy", popts=popts, mopts=mopts)
+    assert not task._fused and task.decode_layout is None
+    g = torch.Generator(device="cuda").manual_seed(8)
+    thetas = torch.stack([task.spec.init_theta(g) for _ in range(4)])
+    feats = task.train_fc[torch.randint(0, 64, (4, 48), generator=g,
+                                        device="cuda")]
+    gumbel = None if greedy else -torch.log(-torch.log(torch.rand(
+        (4, 16, 48, 301), generator=g, device="cuda") * 0.999 + 5e-4))
+    seq, lp = task.model.sample_members(thetas, feats, greedy, gumbel)
+    seq_h, lp_h = task.model.sample_members(
+        thetas.cpu(), feats.cpu(), greedy,
+        None if greedy else gumbel.cpu())
+    assert torch.equal(seq.cpu(), seq_h)
+    assert float((lp.cpu() - lp_h).abs().max()) < 1e-4
+    assert len(torch.unique(seq_h)) > 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_vbn_sensitivity_rows_bitwise_repeatable(card_task, precision):
+    """test_sensitivity_rows_bitwise_repeatable for the vbn captioner: its
+    batch statistics are over one parent's rows, so each row of a sweep of
+    3 parents is that parent's sweep alone bit for bit, and a second sweep
+    repeats the matrix."""
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.ops.sensitivity import (
+        calc_sensitivities,
+    )
+
+    task = card_task("greedy", popts={"vbn": True})
+    parents, rows = _sens_inputs(task, 3)
+    idx = torch.as_tensor(rows, device="cuda")
+    kind = MutationKind.SAFE_GRAD_SUM
+    first = calc_sensitivities(task, parents, idx, kind, 0.01, precision)
+    again = calc_sensitivities(task, parents, idx, kind, 0.01, precision)
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    for i in range(3):
+        alone = calc_sensitivities(task, parents[i:i + 1], idx, kind, 0.01,
+                                   precision)
+        assert torch.equal(alone[0].view(torch.int32),
+                           first[i].view(torch.int32))
+    assert torch.isfinite(first).all() and (first > 1).any()

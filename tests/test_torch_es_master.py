@@ -165,14 +165,13 @@ def test_sampling_kind_runs_on_both_paths(coco, tmp_path):
 @pytest.mark.parametrize("case,error,match", [
     ("es_decode_layout", NotImplementedError, "es_decode_layout"),
     ("mesh_shape", NotImplementedError, "mesh_shape"),
-    ("host_scored", NotImplementedError, "host-scored"),
     ("default_device", RuntimeError, "device='cpu'"),
 ])
 def test_es_master_refuses_what_is_not_ported(coco, tmp_path, case, error,
                                               match):
-    """tpu.es_decode_layout true, a mesh and host-scored fitness raise;
-    without ``device="cpu"`` the master asks for the card, which this
-    machine lacks."""
+    """tpu.es_decode_layout true and a mesh raise; without
+    ``device="cpu"`` the master asks for the card, which this machine
+    lacks."""
     from nes_img_captioning_tpu_torch.algorithms.es import ESMaster
 
     if case == "default_device" and torch.cuda.is_available():
@@ -183,8 +182,6 @@ def test_es_master_refuses_what_is_not_ported(coco, tmp_path, case, error,
         exp["tpu"]["es_decode_layout"] = True
     elif case == "mesh_shape":
         exp["tpu"]["mesh_shape"] = [1]
-    elif case == "host_scored":
-        exp["tpu"]["device_cider"] = False
     else:
         device = None
     with pytest.raises(error, match=match):

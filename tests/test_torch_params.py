@@ -96,10 +96,16 @@ def test_theta_numpy_round_trip():
 
 
 def test_norm_variants_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        FCCaptionModel(FCModelOptions(**TOY, vbn=True), device="meta")
-    with pytest.raises(NotImplementedError):
-        FCCaptionModel(FCModelOptions(**TOY, layer_n=True), device="meta")
+    """The vbn and layer_n variants, once refused, now build with their
+    norm leaves in the spec (tests/test_torch_norm_variants.py holds them
+    to the JAX package)."""
+    for flags, leaf in (({"vbn": True, "vbn_affine": True},
+                         "core.c_bn.weight"),
+                        ({"layer_n": True, "layer_n_affine": True},
+                         "core.c_ln.bias")):
+        m = FCCaptionModel(FCModelOptions(**TOY, **flags), device="meta")
+        assert leaf in m.spec.names
+        assert [n for n, _ in m.named_parameters()] == list(m.spec.names)
 
 
 @pytest.mark.parametrize("eos_boost", [0.0, 8.0], ids=["plain", "early_stop"])
