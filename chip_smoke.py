@@ -160,7 +160,31 @@ Phases, each printed as it ends (any failure exits non-zero):
     (tokens equal but where a member first differs at a near-tie, lp
     within 1e-4 on the members that agree); one vbn generation under
     torch.profiler. These three phases add no kernel: K1, K3 and K4 run
-    on their existing rows' launch shapes, and their counts are logged.
+    on their existing rows' launch shapes, and their counts are logged;
+27. XENT pretraining at full width on [18]'s fixture (2048 train images,
+    TF32 off): xent_loss and its gradient on the card against the CPU;
+    pretrain_xent at the CLI's defaults (3000 steps, batch 64, lr 5e-4),
+    ms per step, the train split's loss and the val CIDEr before and after
+    (both must improve), one step under torch.profiler; the result saved
+    with spec.save_pth and loaded by an NESMaster's from_single ([10]'s
+    cut, 2 iterations): bit for bit the saved theta, validating at its
+    CIDEr; the trained regime beside random init (rows that emit EOS, K1's
+    executed steps, _score_dedup's share);
+28. evaluate_checkpoints on the random-init and XENT checkpoints over the
+    fixture's 5000 test images at f32 (one row-block launch of K1 each),
+    that launch held to its plain twin (tokens but at near-ties; lp from
+    an f64 replay within twice the twin's distance + 2e-5), its time
+    beside its plain twin, cuBLAS and its bound, each language metric's
+    seconds; test_score of the bf16 task equal to language_eval's CIDEr on
+    its tokens;
+29. in a process of its own, [10]'s NESMaster with tpu.profile for 3
+    iterations: the trace of the block holding generation 2 under
+    <log_dir>/profile/, read by utils/profile_summary, which lists K5, K6
+    and the row-block K1 as often as the launch counters say, with no
+    launch missing its kernel's record; its idle share;
+30. dump_all_sensitivities (SM-G-SUM, split 400, f32) on the XENT theta
+    over 4 batches of 64 rows: each file bit for bit calc_sensitivity's,
+    and the share of entries above the clamp beside random init's.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -841,21 +865,31 @@ def rows_flops(seq, F: int, V1: int) -> float:
     return total
 
 
-def val_fixture():
-    """The in-memory fixture of phases 18 and 19: the bench's 2048 train
-    images and VAL_ITEMS validation images (mscoco_nes.json's and
-    mscoco_es.json's num_val_items)."""
+def val_fixture(phase: str = "[18]"):
+    """The in-memory fixture of phases 18-30: the bench's 2048 train
+    images, VAL_ITEMS validation images (mscoco_nes.json's and
+    mscoco_es.json's num_val_items) and TEST_ITEMS test images ([28]). The
+    generator draws the images in split order, after its token projection,
+    so the test images leave the train and val arrays of [18]-[26] as they
+    were with 8 test images: checked by their digest."""
     from nes_img_captioning_tpu_torch.data.mscoco import CocoData
     from nes_img_captioning_tpu_torch.data.synthetic import (
         synthetic_coco_arrays,
     )
 
     t0 = time.time()
-    data = CocoData.from_arrays(synthetic_coco_arrays(
-        n_train=2048, n_val=VAL_ITEMS, n_test=8, vocab_size=9487,
-        fc_feat_size=2048, cap_len=9, seed=0))
-    log(f"[18] fixture with {VAL_ITEMS} val images in "
-        f"{time.time() - t0:.1f} s")
+    kw = dict(n_train=2048, n_val=VAL_ITEMS, vocab_size=9487,
+              fc_feat_size=2048, cap_len=9, seed=0)
+    arrays = synthetic_coco_arrays(n_test=TEST_ITEMS, **kw)
+    n = kw["n_train"] + VAL_ITEMS
+    digest = fixture_digest(arrays, n)
+    if digest != fixture_digest(synthetic_coco_arrays(n_test=8, **kw), n):
+        raise AssertionError("[18] the test images moved the train and val "
+                             "arrays")
+    data = CocoData.from_arrays(arrays)
+    log(f"{phase} fixture with {VAL_ITEMS} val and {TEST_ITEMS} test images "
+        f"in {time.time() - t0:.1f} s; train and val arrays' SHA-256 "
+        f"{digest[:16]} with 8 test images or {TEST_ITEMS}")
     return data
 
 
@@ -2543,6 +2577,580 @@ def norm_phase(card: str, data) -> None:
     shutil.rmtree(runs_dir)
 
 
+# [27]: XENT pretraining at the CLI's defaults (pretrain.py: 3000 steps, lr
+# 5e-4, batch 64, seed 0) on the fixture's 2048 train images
+XENT_STEPS, XENT_LR, XENT_BATCH = 3000, 5e-4, 64
+# [27]: the card's loss within XENT_LOSS_RTOL of the CPU's, its gradient
+# within XENT_GRAD_RTOL plus XENT_GRAD_ATOL x the CPU gradient's largest
+# element (f32 sums in cuBLAS's order against the CPU's, TF32 off)
+XENT_LOSS_RTOL, XENT_GRAD_RTOL, XENT_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+WARM_ITERS = 2
+# [28]: the test split's images (the Karpathy test split's 5000)
+TEST_ITEMS = 5000
+# [28]: f32 rows may differ from the plain twin only where its top-2 logit
+# gap is below this (the eager f32 decoder's bound, EAGER_TIE_GAP). lp over
+# the row blocks whose tokens all agree: at XENT-trained weights the kernel
+# and its plain twin, two f32 decodes that sum their products in other
+# orders, drift apart by more than the f32 parity bar LP_F32_TOL (H100
+# runs: 5.05e-5 over 5000 rows, where the kernel is 4.13e-5 from an f64
+# replay of the same tokens and the twin 2.23e-5). So the kernel is held to
+# the f64 replay: at most LP_F32_FACTOR times the twin's distance from it,
+# plus LP_F32_TOL; a wrong block, weight or step moves lp by far more
+F32_TIE_GAP = 1e-4
+LP_F32_TOL, LP_F32_FACTOR = 2e-5, 2.0
+# [29]: NESMaster iterations with tpu.profile (blocks of 2: generations 1-2
+# are traced, 3 is not)
+PROFILE_ITERS, PROFILE_TRACED = 3, 2
+# [30]: dump_all_sensitivities' batches of SENS_DUMP_BATCH rows over the
+# first SENS_DUMP_ROWS train images, SM-G-SUM at split 400
+SENS_DUMP_BATCH, SENS_DUMP_ROWS, SENS_DUMP_SPLIT = 64, 256, 400
+
+
+def fixture_digest(arrays: dict, n_images: int) -> str:
+    """SHA-256 of the first ``n_images`` images' arrays (features, labels,
+    caption ranges, ids, split and file entries): the train and val part of
+    a fixture drawn in split order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    n_rows = int(arrays["label_end_ix"][n_images - 1])
+    for a in (arrays["feats"][:n_images], arrays["labels"][:n_rows],
+              arrays["label_start_ix"][:n_images],
+              arrays["label_end_ix"][:n_images], arrays["ids"][:n_images]):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(json.dumps(arrays["info"]["images"][:n_images]).encode())
+    h.update(json.dumps(arrays["info"]["ix_to_word"]).encode())
+    return h.hexdigest()
+
+
+def greedy_lp_f64(task, theta, feats, seq):
+    """The greedy lp (N, T) of one flat theta on feats (N, F), replayed in
+    f64 along the tokens ``seq`` (N, T): each step's largest logprob, the
+    next step fed the row's token (0 after its EOS, as the kernels do)."""
+    import torch
+
+    model = task.model
+    p = model.spec.unravel(theta.double())
+    with torch.no_grad():
+        h = c = torch.zeros((feats.shape[0], model.options.rnn_size),
+                            dtype=torch.float64, device=feats.device)
+        _, h, c = model.lstm_core(p, model._img_embed(p, feats.double()), h,
+                                  c)
+        it = torch.zeros(feats.shape[0], dtype=torch.long,
+                         device=feats.device)
+        lps = []
+        for t in range(seq.shape[-1]):
+            out, h, c = model.lstm_core(p, model._embed(p, it), h, c)
+            lps.append(model._logprobs(p, out).max(-1).values)
+            it = seq[:, t].long()
+    return torch.stack(lps, -1)
+
+
+def greedy_regime(task, theta, seeds, batches) -> dict:
+    """One greedy generation's decode at theta (the bench's 144 pairs, bf16
+    deltas of sigma 0.01 from the pairs' seeds, K1 per chunk of 48 members):
+    the share of rows that emit EOS, K1's executed steps per member (mean
+    and max) and the share of rows ``_score_dedup`` scores on the host."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    lay, T = task.decode_layout, task.model.options.seq_length
+    P, B = BENCH["pop_chunk"], BENCH["batch"]
+    base = lay.to_dec(theta)
+    scale = lay.to_dec(torch.full_like(theta, BENCH["sigma"]), pad_scale=0.0)
+    seqs, steps = [], []
+    for lo in range(0, BENCH["pairs"], P):
+        deltas = torch.stack([(scale * torch.randn(
+            lay.dim_dec, device=theta.device, generator=torch.Generator(
+                device=theta.device).manual_seed(int(s)))).to(torch.bfloat16)
+            for s in seeds[lo:lo + P]])
+        members = torch.stack([base + deltas, base - deltas], 1).reshape(
+            2 * P, -1)
+        idx = torch.as_tensor(batches[lo:lo + P], device=theta.device)
+        seq, _ = dc.decode_fused(lay.prep(members, torch.bfloat16),
+                                 task.train_fc[idx.repeat_interleave(2, 0)],
+                                 T, False)
+        seqs.append(seq)
+        steps.append(executed_steps(seq, T))
+    seq = torch.cat(seqs)                                  # (2F, B, T)
+    steps = torch.cat(steps).float()
+    img = np.repeat(np.asarray(batches), 2, axis=0).reshape(-1)
+    task._score_dedup(seq.reshape(-1, T).cpu().numpy(), img)
+    scored, rows = task.dedup_rows
+    return {"eos_share": float((seq == 0).any(-1).float().mean()),
+            "steps_mean": float(steps.mean()), "steps_max": int(steps.max()),
+            "dedup_share": scored / rows}
+
+
+def xent_phase(card: str, data) -> dict:
+    """Phase 27: XENT pretraining at full width (vocab 9487, F = 2048, E =
+    R = 128) on the fixture's 2048 train images, TF32 off: xent_loss and
+    its gradient on the card against the CPU at the reference's init on
+    one batch; pretrain_xent for XENT_STEPS steps (ms per step by CUDA
+    events, the train split's loss and the val CIDEr of 256 images before
+    and after: the loss falls, CIDEr rises), one step profiled;
+    spec.save_pth, then an NESMaster of experiments/mscoco_nes.json cut as
+    [10] (kernel noise, blocks of 2) with from_single at that file for
+    WARM_ITERS iterations:
+    its theta is the saved one bit for bit and validates at the pretrained
+    CIDEr; the trained regime against random init (greedy_regime). Returns
+    the thetas, their files and the task."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
+    from nes_img_captioning_tpu_torch.data.core import EpochSampler
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.pretrain import (
+        pretrain_xent,
+        xent_loss,
+    )
+    from nes_img_captioning_tpu_torch.tasks import make_task
+    from nes_img_captioning_tpu_torch.utils.config import (
+        parse_config,
+        parse_tpu_config,
+    )
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_xent_{os.getpid()}")
+    exp = nes_experiment(runs_dir, "xent", "bf16")
+    task = make_task(exp, parse_config(exp), parse_tpu_config(exp),
+                     device=dev, data=data)
+    caps = torch.as_tensor(np.stack([np.asarray(g[0], np.int32)
+                                     for g in task.train_gts]), device=dev)
+    theta0 = task.generate_theta(torch.Generator(device=dev).manual_seed(0))
+
+    # the card's loss and gradient against the CPU's on one batch
+    idx = torch.as_tensor(EpochSampler(task.train_n, seed=1).batch(
+        XENT_BATCH), device=dev)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        th = theta0.to(where).clone().requires_grad_()
+        loss = xent_loss(task.model, th, task.train_fc[idx].to(where),
+                         caps[idx].to(where))
+        loss.backward()
+        grads[where] = (loss.item(), th.grad.cpu())
+    (l_card, g_card), (l_cpu, g_cpu) = grads["cuda"], grads["cpu"]
+    g_err = (g_card - g_cpu).abs()
+    g_tol = XENT_GRAD_RTOL * g_cpu.abs() + XENT_GRAD_ATOL * float(
+        g_cpu.abs().max())
+    if abs(l_card - l_cpu) > XENT_LOSS_RTOL * abs(l_cpu) or \
+            bool((g_err > g_tol).any()):
+        raise AssertionError(
+            f"[27] xent_loss card {l_card!r} against CPU {l_cpu!r}, or "
+            f"{int((g_err > g_tol).sum())} gradient elements past rtol "
+            f"{XENT_GRAD_RTOL} + {XENT_GRAD_ATOL} x max")
+    log(f"[27] xent_loss on {XENT_BATCH} images at the reference's init: "
+        f"card {l_card:.7f}, CPU {l_cpu:.7f} (|diff| "
+        f"{abs(l_card - l_cpu):.3g}); gradient max |card - CPU| "
+        f"{float(g_err.max()):.3g} of max |g| {float(g_cpu.abs().max()):.3g}"
+        f", all within rtol {XENT_GRAD_RTOL} + {XENT_GRAD_ATOL} x max")
+
+    def split_loss(theta):
+        with torch.no_grad():
+            return xent_loss(task.model, theta, task.train_fc, caps).item()
+
+    loss0, cider0 = split_loss(theta0), task.validate(theta0)
+    counters = (dc.decode_rows, dc.decode_fused, dc.decode_pair_rng,
+                dc.pair_grad_rng)
+    for c in counters:
+        c.launches = 0
+    theta1, train_ms = events_ms(lambda: pretrain_xent(
+        task, steps=XENT_STEPS, lr=XENT_LR, batch_size=XENT_BATCH, seed=0,
+        log_every=XENT_STEPS // 10, theta0=theta0))
+    loss1, cider1 = split_loss(theta1), task.validate(theta1)
+    rows_k1 = dc.decode_rows.launches
+    if not (loss1 < loss0 and cider1 > cider0) or rows_k1 != 1:
+        raise AssertionError(
+            f"[27] XENT: train-split loss {loss0:.4f} -> {loss1:.4f}, val "
+            f"CIDEr {cider0:.4f} -> {cider1:.4f} (both should improve); "
+            f"row-block K1 launches {rows_k1} != 1")
+    log(f"[27] pretrain_xent, {XENT_STEPS} steps of batch {XENT_BATCH} at "
+        f"lr {XENT_LR}: {train_ms:.1f} ms, {train_ms / XENT_STEPS:.3f} ms per "
+        f"step (CUDA events); train-split loss {loss0:.4f} -> {loss1:.4f}; "
+        f"val CIDEr (256 images, bf16 row-block K1, one launch each) "
+        f"{cider0:.4f} -> {cider1:.4f} ({card})")
+
+    wall, busy, rows = profile_call(lambda: pretrain_xent(
+        task, steps=1, lr=XENT_LR, batch_size=XENT_BATCH, log_every=0,
+        theta0=theta1))
+    log(f"[27] one XENT step under torch.profiler: wall {wall:.3f} ms, card "
+        f"busy {busy:.3f} ms ({busy / wall:.2%}; idle {1 - busy / wall:.2%}),"
+        f" {sum(r[1] for r in rows)} kernels ({card})")
+    for ms_, count, key in rows[:5]:
+        log(f"    {ms_:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    os.makedirs(runs_dir, exist_ok=True)
+    paths = {"random": os.path.join(runs_dir, "random.pth"),
+             "xent": os.path.join(runs_dir, "xent.pth")}
+    task.spec.save_pth(theta0, paths["random"])
+    task.spec.save_pth(theta1, paths["xent"])
+    warm = nes_experiment(runs_dir, "warm", "bf16", kernel_noise=True,
+                          gens_per_dispatch=2)
+    warm["from_single"] = paths["xent"]
+    m = NESMaster(warm, device=dev, data=data)
+    if not torch.equal(m.theta.view(torch.int32),
+                       theta1.view(torch.int32)):
+        raise AssertionError("[27] from_single: the loaded theta is not the "
+                             "saved one bit for bit")
+    if m.task.validate(m.theta) != cider1:
+        raise AssertionError("[27] from_single: the loaded theta does not "
+                             "validate at the pretrained CIDEr")
+    for c in counters:
+        c.launches = 0
+    m.run_master(max_iterations=WARM_ITERS)
+    torch.cuda.synchronize()
+    acc = m.stats.acc_stats()
+    counts = [c.launches for c in counters]
+    n_chunks = -(-BENCH["pairs"] // BENCH["pop_chunk"])
+    if len(acc) != WARM_ITERS or not acc[0] > cider0 or counts != [
+            WARM_ITERS, 0, n_chunks * WARM_ITERS, WARM_ITERS]:
+        raise AssertionError(f"[27] warm start: val CIDEr {acc} (random "
+                             f"init {cider0:.4f}); launches (row-block K1, "
+                             f"K1, K5, K6) {counts}")
+    log(f"[27] NESMaster from_single {os.path.basename(paths['xent'])} "
+        f"(experiments/mscoco_nes.json cut as [10], kernel noise, blocks of "
+        f"2): theta loaded bit for bit, validates at {cider1:.4f}; "
+        f"{WARM_ITERS} iterations, val CIDEr {[round(a, 4) for a in acc]} "
+        f"(random init {cider0:.4f}), mean fitness "
+        f"{[round(f, 4) for f in m.stats.score_stats()[1]]}, ms per "
+        f"iteration {[round(t * 1e3, 3) for t in m.stats.time_stats()]}; "
+        f"launches row-block K1 {counts[0]}, K5 {counts[2]}, K6 {counts[3]}"
+        f" ({card})")
+    seeds, batches = generation_inputs(task, 1)
+    for name, theta in (("random init", theta0), ("XENT", theta1)):
+        r = greedy_regime(task, theta, seeds[0], batches[0])
+        log(f"[27] trained regime, {name}: one greedy generation's "
+            f"{2 * BENCH['pairs']} members x {BENCH['batch']} rows (bf16, K1 "
+            f"per chunk of {2 * BENCH['pop_chunk']}): {r['eos_share']:.2%} "
+            f"of rows emit EOS; K1's executed steps per member mean "
+            f"{r['steps_mean']:.2f}, max {r['steps_max']} of 16; "
+            f"_score_dedup scores {r['dedup_share']:.2%} of the rows")
+    return {"task": task, "theta0": theta0, "theta1": theta1,
+            "paths": paths, "runs_dir": runs_dir, "cider": (cider0, cider1)}
+
+
+def test_eval_phase(card: str, data, xent: dict) -> list:
+    """Phase 28: evaluate_checkpoints on the random-init and XENT
+    checkpoints over the fixture's TEST_ITEMS test images at f32 (one
+    row-block launch of K1 per checkpoint); that launch against
+    decode_rows_plain on the XENT theta (tokens equal but at near-ties of
+    the plain twin, F32_TIE_GAP; over agreeing row blocks lp within
+    LP_F32_FACTOR x the twin's distance from an f64 replay + LP_F32_TOL)
+    and its captions in the output; test_score on [27]'s bf16 task equal to
+    language_eval's CIDEr step on the same tokens; the decode's time beside
+    its plain twin, cuBLAS and its bound, and each metric's seconds."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.eval_on_test import evaluate_checkpoints
+    from nes_img_captioning_tpu_torch.fitness.lang_metrics import (
+        corpus_bleu,
+        rouge_l,
+    )
+    from nes_img_captioning_tpu_torch.fitness.meteor import meteor_corpus
+    from nes_img_captioning_tpu_torch.fitness.scorer import IndexedCiderScorer
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    dev = torch.device("cuda")
+    task, theta = xent["task"], xent["theta1"]
+    T, Fd = task.model.options.seq_length, task.model.options.fc_feat_size
+    feats = task.test_fc
+    if feats.shape[0] != TEST_ITEMS:
+        raise AssertionError(f"[28] {feats.shape[0]} test images")
+    dc.decode_rows.launches = 0
+    t0 = time.perf_counter()
+    o = task.model.options
+    out = evaluate_checkpoints(
+        xent["paths"], {}, num=TEST_ITEMS, data=data, device=dev,
+        input_encoding_size=o.input_encoding_size, rnn_size=o.rnn_size,
+        fc_feat_size=o.fc_feat_size)
+    eval_s = time.perf_counter() - t0
+    launches = dc.decode_rows.launches
+    if launches != len(xent["paths"]):
+        raise AssertionError(f"[28] evaluate_checkpoints: {launches} "
+                             "row-block launches, one per checkpoint "
+                             "expected")
+    params = dc.prepare_decode_params(task.spec, theta, task.model.options,
+                                      dtype=torch.float32)
+    seq_k, lp_k = dc.decode_rows(params, feats, T, True)
+    seq_p, lp_p, gap_p = dc.decode_rows_plain(params, feats, T, True,
+                                              top2_gap=True)
+    torch.cuda.synchronize()
+    share, n_diff = check_near_ties(seq_k, seq_p, gap_p,
+                                    "[28] decode_rows f32", F32_TIE_GAP)
+    same = (seq_k == seq_p).all(-1)
+    block = torch.arange(TEST_ITEMS, device=dev) // 128
+    keep = ~torch.isin(block, block[~same])
+    err = float((lp_k - lp_p)[keep].abs().max())
+    # both f32 decodes against an f64 replay of the same tokens
+    lp64 = greedy_lp_f64(task, theta, feats, seq_k)
+    steps = torch.cat([executed_steps(seq_k[None, lo:lo + 128], T)
+                       for lo in range(0, TEST_ITEMS, 128)])
+    alive = (torch.arange(T, device=dev) < steps[block][:, None]) \
+        & keep[:, None]
+    err_k = float((lp_k.double() - lp64).abs()[alive].max())
+    err_p = float((lp_p.double() - lp64).abs()[alive].max())
+    if err_k > LP_F32_FACTOR * err_p + LP_F32_TOL:
+        raise AssertionError(
+            f"[28] decode_rows f32: max |lp - f64 replay| {err_k:.3g}, the "
+            f"plain twin's {err_p:.3g} (at most {LP_F32_FACTOR} x it + "
+            f"{LP_F32_TOL}); max |lp - plain| {err:.3g}")
+    if [p["caption"] for p in out["preds_per_model"]["xent"]] != \
+            data.decode_sequence(seq_k.cpu().numpy()):
+        raise AssertionError("[28] evaluate_checkpoints' captions are not "
+                             "the row-block launch's tokens")
+    stats = out["stats"]
+    for name, s in stats.items():
+        if not all(np.isfinite(s[k]) for k in (
+                "Bleu_1", "Bleu_4", "ROUGE_L", "CIDEr", "METEOR")):
+            raise AssertionError(f"[28] {name}: non-finite metrics {s}")
+        log(f"[28] {name} checkpoint on {TEST_ITEMS} test images (f32): "
+            + ", ".join(f"{k} {s[k]:.4f}" for k in (
+                "Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "CIDEr",
+                "METEOR")))
+    if not stats["xent"]["CIDEr"] > stats["random"]["CIDEr"]:
+        raise AssertionError("[28] the XENT checkpoint's test CIDEr is not "
+                             "above random init's")
+
+    # test_score on the bf16 task: language_eval's CIDEr step on its tokens
+    score = task.test_score(theta)
+    seq16 = task._decode_split(theta, task.test_fc, -1)
+    gts = data.split_gts("test")
+    ref_wids = [data.word_id_rows(g) for g in gts]
+    same_scorer = IndexedCiderScorer(ref_wids, variant="cider").score(
+        data.word_id_rows(seq16), np.arange(TEST_ITEMS))[0]
+    with open(os.path.join(xent["runs_dir"], "xent", "eval",
+                           "eval_cache_test.json")) as f:
+        n_preds = len(json.load(f))
+    if score != same_scorer or n_preds != TEST_ITEMS:
+        raise AssertionError(f"[28] test_score {score!r} against "
+                             f"language_eval's CIDEr {same_scorer!r}, "
+                             f"{n_preds} predictions written")
+    log(f"[28] test_score (bf16 task, one row-block launch): {score:.6f}, "
+        f"equal to language_eval's CIDEr on the same tokens; the f32 "
+        f"evaluation's CIDEr {stats['xent']['CIDEr']:.6f}; "
+        f"eval_cache_test.json holds {n_preds} captions")
+
+    # times: the decode, and each metric on the XENT captions
+    wids = data.word_id_rows(seq_k.cpu().numpy())
+    secs = {}
+    for name, fn in (
+            ("BLEU", lambda: corpus_bleu(wids, ref_wids)),
+            ("ROUGE-L", lambda: rouge_l(wids, ref_wids)),
+            ("CIDEr", lambda: IndexedCiderScorer(
+                ref_wids, variant="cider").score(wids,
+                                                 np.arange(TEST_ITEMS))),
+            ("METEOR", lambda: meteor_corpus(wids, ref_wids,
+                                             data.word_stem_of))):
+        t0 = time.perf_counter()
+        fn()
+        secs[name] = time.perf_counter() - t0
+    k1_ms = time_ms(lambda: dc.decode_rows(params, feats, T, False))
+    plain_ms = time_ms(lambda: dc.decode_rows_plain(params, feats, T, False),
+                       reps=1)
+
+    def library():
+        # cuBLAS for the decode's f32 products (TF32 off) and argmax over
+        # all rows: image step, 17 x gate products, 16 x logits
+        h = feats @ params["img_w"]
+        for step in range(T + 1):
+            h @ params["i2h_w"]
+            h @ params["h2h_w"]
+            if step:
+                (h @ params["logit_w"]).argmax(-1)
+
+    lib_ms = time_ms(library)
+    # the f32 kernel's products run on the FMA pipes, not the tensor cores
+    flops = rows_flops(seq_k, Fd, task.model.options.vocab_size + 1)
+    nbytes = sum(v.numel() * v.element_size() for v in params.values()) \
+        + feats.numel() * 4 + seq_k.numel() * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_F32
+    b_ms = max(t_bytes, t_ops) * 1e3
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    n_blocks = -(-TEST_ITEMS // 128)
+    log(f"[28] decode_rows f32 over {TEST_ITEMS} test rows: {k1_ms:.3f} ms, "
+        f"{2 * n_blocks} CTAs (plain twin {plain_ms:.3f} ms, cuBLAS f32 "
+        f"products {lib_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: "
+        f"{flops / 1e9:.1f} GFLOP at the f32 rate, {nbytes / 1e6:.1f} MB, "
+        f"{b_ms / k1_ms:.1%} of it); against the plain twin {share:.4%} of "
+        f"rows identical, {n_diff} differ at near-ties (top-2 gap < "
+        f"{F32_TIE_GAP}), max |lp - plain| {err:.3g} over {int(keep.sum())} "
+        f"rows of agreeing blocks; max |lp - f64 replay| kernel {err_k:.3g}, "
+        f"plain twin {err_p:.3g} ({card})")
+    log(f"[28] evaluate_checkpoints, 2 checkpoints x {TEST_ITEMS} images: "
+        f"{eval_s:.1f} s; on one checkpoint's captions (host, pure Python "
+        f"but CIDEr's native scorer): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    return [{
+        "name": "decode_rows_test_f32", "route": "cuda",
+        "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+        "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py:658",
+        "launches": launches, "max_abs_err": err, "ms": k1_ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "rows": TEST_ITEMS,
+        "ctas_per_launch": 2 * n_blocks, "metric_s": secs,
+        "evaluate_checkpoints_s": eval_s,
+    }]
+
+
+def profile_phase() -> None:
+    """Phase 29 in a process of its own (``chip_smoke.py --profile-phase``,
+    ``profile_main``), as a run that profiles its generation 2 is: in this
+    process, minutes and several profiler sessions in, the card's and the
+    host's clocks in the trace drift apart (one H100 run: kernels starting
+    up to 3.632 ms before their launch calls) and the records of the traced
+    window's first 17 kernels were missing; in a fresh process 24 of 24
+    such traces were complete."""
+    import torch
+
+    torch.cuda.empty_cache()  # this process's cached blocks, for the other
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--profile-phase"], capture_output=True, text=True,
+                         timeout=600)
+    sys.stdout.write(out.stdout)
+    if out.returncode != 0:
+        raise AssertionError(f"[29] exited {out.returncode}: "
+                             f"{out.stderr[-4000:]}")
+
+
+def profile_main() -> int:
+    """The process of phase 29: the fixture, then ``profile_run``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    profile_run(nvidia_smi(), val_fixture("[29]"))
+    return 0
+
+
+def profile_run(card: str, data) -> None:
+    """Phase 29: NESMaster as in [10] (kernel noise, blocks of 2) with
+    tpu.profile for PROFILE_ITERS iterations: the trace of the block that
+    runs generation 2 lands under <log_dir>/profile/, and
+    utils/profile_summary lists K5 (its draw and its pair decode), K6 and
+    the row-block K1 with counts equal to the launch counters' share of the
+    traced generations, every launch with its kernel's record; its idle
+    share."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.utils import profile_summary
+
+    dev = torch.device("cuda")
+    runs_dir = os.path.join("logs", f"chip_smoke_profile_{os.getpid()}")
+    exp = nes_experiment(runs_dir, "profile", "bf16", kernel_noise=True,
+                         gens_per_dispatch=2, profile=True)
+    counters = (dc.decode_pair_rng, dc.pair_grad_rng, dc.decode_rows,
+                dc.decode_fused, dc.decode_pair_perturb)
+    m = NESMaster(exp, device=dev, data=data)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    m.run_master(max_iterations=PROFILE_ITERS)
+    torch.cuda.synchronize()
+    counts = [c.launches for c in counters]
+    trace = profile_summary.find_trace(exp["log_dir"])
+    out = profile_summary.summarize(trace)
+
+    def traced(word):
+        return sum(n for name, _, n in out["rows"] if word in name)
+
+    got = {"K5 decode (pair_kernel)": traced("pair_kernel"),
+           "K5 draw (pair_delta_dump_kernel)":
+               traced("pair_delta_dump_kernel"),
+           "K6 (pair_grad_rng_kernel)": traced("pair_grad_rng_kernel"),
+           "row-block K1 (member_kernel)": traced("member_kernel")}
+    want = [c * PROFILE_TRACED // PROFILE_ITERS for c in counts[:3]]
+    if counts[3:] != [0, 0] or min(counts[:3]) == 0 or list(
+            got.values()) != [want[0], want[0], want[1], want[2]] or \
+            out["unmatched_launches"]:
+        raise AssertionError(
+            f"[29] traced kernels {got}; launches over {PROFILE_ITERS} "
+            f"iterations (K5, K6, row-block K1, K1, K2) {counts}; "
+            f"launches without a kernel record {out['unmatched_launches']}; "
+            f"the trace's rows "
+            f"{[(n[:60], c) for n, _, c in out['rows'][:12]]}")
+    log(f"[29] tpu.profile: {os.path.relpath(trace, runs_dir)}, generations "
+        f"1-{PROFILE_TRACED} of {PROFILE_ITERS} traced; profile_summary: "
+        + ", ".join(f"{k} x{v}" for k, v in got.items())
+        + f" (launch counters over the run: K5 {counts[0]}, K6 {counts[1]}, "
+        f"row-block K1 {counts[2]}), every launch with its kernel's record; "
+        f"window {out['window_ms']:.3f} ms, card busy {out['busy_ms']:.3f} "
+        f"ms, idle {out['idle']:.2%} ({card})")
+    for name, ms, n in out["rows"][:6]:
+        log(f"    {ms:10.3f} ms  x{n:<5d} {name[:90]}")
+    shutil.rmtree(runs_dir)
+
+
+def sens_dump_phase(card: str, data, xent: dict) -> None:
+    """Phase 30: dump_all_sensitivities (SM-G-SUM, split SENS_DUMP_SPLIT,
+    f32) on [27]'s XENT theta over the first SENS_DUMP_ROWS train images in
+    batches of SENS_DUMP_BATCH: each file loads through
+    load_sensitivity_file and equals calc_sensitivity on its batch's rows
+    bit for bit; the share of entries above the clamp beside random
+    init's."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.ops.sensitivity import (
+        calc_sensitivity,
+        dump_all_sensitivities,
+        load_sensitivity_file,
+    )
+
+    class FirstRows:
+        """The task over its first ``n`` train images."""
+
+        def __init__(self, task, n):
+            self._task, self.train_n = task, n
+
+        def __getattr__(self, name):
+            return getattr(self._task, name)
+
+    dev = torch.device("cuda")
+    task = FirstRows(bench_task(dev, data=data, device_cider=False,
+                                sensitivity_split=SENS_DUMP_SPLIT),
+                     SENS_DUMP_ROWS)
+    kind = MutationKind.SAFE_GRAD_SUM
+    out_dir = os.path.join(xent["runs_dir"], "sens")
+    paths, ms = events_ms(lambda: dump_all_sensitivities(
+        task, xent["theta1"], SENS_DUMP_BATCH, out_dir, kind))
+    order = np.random.default_rng(0).permutation(SENS_DUMP_ROWS)
+    n_batches = SENS_DUMP_ROWS // SENS_DUMP_BATCH
+    if len(paths) != n_batches:
+        raise AssertionError(f"[30] {len(paths)} files")
+    shares = []
+    for i, path in enumerate(paths):
+        idx = torch.as_tensor(order[i * SENS_DUMP_BATCH:
+                                    (i + 1) * SENS_DUMP_BATCH], device=dev)
+        want = calc_sensitivity(task, xent["theta1"], idx, kind, 0.01).cpu()
+        got = torch.from_numpy(load_sensitivity_file(path))
+        if not (os.path.basename(path).startswith(f"sens_t{i}_p0_") and
+                torch.equal(got.view(torch.int32), want.view(torch.int32))):
+            raise AssertionError(f"[30] {path}: not calc_sensitivity's "
+                                 "row bit for bit")
+        shares.append(float((got > 1).float().mean()))
+    idx = torch.as_tensor(order[:SENS_DUMP_BATCH], device=dev)
+    share0 = float((calc_sensitivity(task, xent["theta0"], idx, kind, 0.01)
+                    > 1).float().mean())
+    log(f"[30] dump_all_sensitivities (SM-G-SUM, split {SENS_DUMP_SPLIT}, "
+        f"f32) on the XENT theta: {n_batches} files of "
+        f"{task.spec.num_params:,} in {ms:.1f} ms (CUDA events, the file "
+        f"writes included), each "
+        f"calc_sensitivity's row bit for bit; entries above the 0.01 clamp "
+        f"{[round(s, 4) for s in shares]} (random init, first batch: "
+        f"{share0:.4f}) ({card})")
+    shutil.rmtree(out_dir)
+
+
 def main() -> int:
     import torch
 
@@ -3214,6 +3822,11 @@ def main() -> int:
     host_nes_phase(card, task)
     host_es_phase(card, data)
     norm_phase(card, task.data)
+    xent = xent_phase(card, data)
+    kernels += test_eval_phase(card, data, xent)
+    profile_phase()
+    sens_dump_phase(card, data, xent)
+    shutil.rmtree(xent["runs_dir"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3223,4 +3836,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_main() if sys.argv[1:] == ["--profile-phase"]
+             else main())

@@ -52,8 +52,9 @@ sweep returns the children's tokens and the master scores them
 (``task.host_fitness``); the fused paths need the device scorer (JAX:
 es.py:856-870).
 
-Not ported, and refused: ``tpu.es_decode_layout: true``, a device mesh and
-``tpu.profile``.
+Not ported, and refused: ``tpu.es_decode_layout: true`` and a device mesh.
+``tpu.profile`` traces the dispatch that runs generation 2
+(``MasterBase._profile_hook``).
 """
 
 from __future__ import annotations
@@ -358,8 +359,8 @@ class ESMaster(MasterBase):
     Every mutation kind runs: SM-G-SUM and SM-G-ABS with their per-parent
     sensitivities (``tpu.sensitivity_*``), SM-VECTOR with the vector of
     ``safe_mutation_vector``; a host-scored task on the plain path. Not
-    ported yet, and refused: a device mesh, ``tpu.profile`` and
-    ``tpu.es_decode_layout: true``."""
+    ported yet, and refused: a device mesh and ``tpu.es_decode_layout:
+    true``."""
 
     def __init__(self, exp: dict, device=None, data=None):
         """``device``: the card unless ``"cpu"`` is passed; ``data``: the
@@ -842,6 +843,7 @@ class ESMaster(MasterBase):
                 logger.info("********** Iteration %d%s **********",
                             it.iteration(),
                             f" (+{b - 1} chained)" if b > 1 else "")
+                self._profile_hook(it.iteration(), b)
 
                 sigma, bs = it.get_noise_stdev(), it.batch_size()
                 sampler = self._batch_sampler()
@@ -883,6 +885,7 @@ class ESMaster(MasterBase):
                 if it.patience_reached() or it.schedule_reached():
                     break
 
+        self._profile_finalize()  # in case the run ended in its dispatch
         if self._last_snapshot_iter != it.iteration():
             self._snapshot(plot)
         return self.policy_theta

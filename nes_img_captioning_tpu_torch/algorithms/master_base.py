@@ -1,7 +1,8 @@
 """What the NES and ES training loops share (``NESMaster``, ``ESMaster``):
 the experiment's parse and refusals, the task, the host RNG and its batch
 sampler, a resume from a z_info file, the podium's deferred slot files and
-the cadence of a block of chained generations.
+the cadence of a block of chained generations, and ``tpu.profile``'s
+trace.
 
 The snapshot's loader sidecar carries the seed stream's position
 (``seed_rng_state``) beside the sampler's, so a resumed run continues the
@@ -49,7 +50,7 @@ def setup_log_dir(exp: dict) -> str:
 
 class MasterBase:
     """One process on one card. Refused when set: a device mesh
-    (``tpu.mesh_shape``) and ``tpu.profile``. A subclass sets
+    (``tpu.mesh_shape``). A subclass sets
     ``self.experiment`` before a resume and keeps the podium's device rows
     in ``self._elites_dev``."""
 
@@ -62,11 +63,9 @@ class MasterBase:
         self.exp = exp
         self.config = parse_config(exp)
         self.tpu_cfg = tpu = parse_tpu_config(exp)
-        for knob, value in (("mesh_shape", tpu.mesh_shape is not None),
-                            ("profile", tpu.profile)):
-            if value:
-                raise NotImplementedError(
-                    f"tpu.{knob} is not ported yet; leave it at its default")
+        if tpu.mesh_shape is not None:
+            raise NotImplementedError(
+                "tpu.mesh_shape is not ported yet; leave it at its default")
         popts = exp.get("policy_options", {})
         mopts = popts.get("model_options", {})
         self.mutation = MutationKind(mopts.get("safe_mutations", "") or "")
@@ -86,6 +85,7 @@ class MasterBase:
         self._podium_dirty = False  # slot files behind the adopted scores
         self._block_warned = False
         self._last_snapshot_iter = None
+        self._profiler = None  # tpu.profile's running trace
         # SM-VECTOR's precomputed sensitivity, normalized, on the device
         self._sens_vector = None
         if self.mutation is MutationKind.SAFE_VECTOR:
@@ -149,6 +149,45 @@ class MasterBase:
         self.it.install_merged_podium(
             scores, rows, lambda row, path: self.task.spec.save_pth(row, path))
         self._podium_dirty = False
+
+    # ---- tpu.profile -----------------------------------------------------
+
+    def _profile_hook(self, first: int, gens: int):
+        """With ``tpu.profile``, trace the dispatch of generations
+        ``first`` .. ``first + gens - 1`` with torch.profiler if it runs
+        generation 2 (CUDA and CPU activities on the card, CPU alone on the
+        CPU); a dispatch after it writes the trace (``_profile_finalize``).
+        The JAX package starts its trace only when a dispatch begins at
+        generation 2, so in blocks of 2 or more it traces nothing; here a
+        block that holds generation 2 is traced whole."""
+        if not self.tpu_cfg.profile:
+            return
+        if self._profiler is None and first <= 2 < first + gens:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=acts)
+            self._profiler.start()
+        elif first > 2:
+            self._profile_finalize()
+
+    def _profile_finalize(self):
+        """Stop a running trace and write it as a Chrome trace,
+        ``<log_dir>/profile/trace_<pid>.pt.trace.json`` (read by
+        ``utils/profile_summary``); called again at the end of the run, in
+        case it ended in the traced dispatch."""
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        path = os.path.join(mkdir_p(os.path.join(self.exp["log_dir"],
+                                                 "profile")),
+                            f"trace_{os.getpid()}.pt.trace.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        logger.info("wrote the torch.profiler trace of generation 2: %s",
+                    path)
 
     # ---- the cadence of a block (tpu.gens_per_dispatch) ---------------------
 

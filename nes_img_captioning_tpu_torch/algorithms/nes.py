@@ -463,8 +463,9 @@ class NESMaster(MasterBase):
     it off once per dispatch here (``_maybe_sensitivity``), one generation
     per dispatch then.
 
-    Not ported yet, and refused when set: a device mesh
-    (``tpu.mesh_shape``) and ``tpu.profile``."""
+    ``tpu.profile`` traces the dispatch that runs generation 2 into
+    ``<log_dir>/profile/`` (``MasterBase._profile_hook``). Not ported yet,
+    and refused when set: a device mesh (``tpu.mesh_shape``)."""
 
     def __init__(self, exp: dict, device=None, data=None):
         """``device``: the card unless ``"cpu"`` is passed; ``data``: the
@@ -783,6 +784,7 @@ class NESMaster(MasterBase):
                 logger.info("********** Iteration %d%s **********",
                             it.iteration(),
                             f" (+{b - 1} chained)" if b > 1 else "")
+                self._profile_hook(it.iteration(), b)
 
                 sigma, bs = it.get_noise_stdev(), it.batch_size()
                 # per-generation draws in stream order, so the trajectory is
@@ -821,6 +823,7 @@ class NESMaster(MasterBase):
                     self._sampler = None  # rebuilt at the new batch size
                     break  # rebuild the epoch at the new batch size
 
+        self._profile_finalize()  # in case the run ended in its dispatch
         # skip the final snapshot when the loop's freq snapshot just wrote
         # this exact iteration
         if self._last_snapshot_iter != it.iteration():

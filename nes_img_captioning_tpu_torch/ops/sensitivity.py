@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 
 import numpy as np
 import torch
@@ -43,7 +44,8 @@ import torch
 from .mutation import MutationKind
 
 __all__ = ["PROBE_FOLD", "SENS_GROUP", "abs_sens", "calc_sensitivities",
-           "calc_sensitivity", "load_sensitivity_file", "postprocess",
+           "calc_sensitivity", "dump_all_sensitivities",
+           "load_sensitivity_file", "postprocess",
            "probe_matrix", "resolve_probes", "sm_vector_normalize",
            "subsample_batch_rows", "sum_sens", "sum_sens_probes"]
 
@@ -223,3 +225,28 @@ def calc_sensitivities(task, thetas, idx, kind: MutationKind,
         out[lo:lo + n] = postprocess(
             torch.func.vmap(raw)(rows.contiguous())[:n], underflow)
     return out
+
+
+def dump_all_sensitivities(task, theta, batch_size: int, directory: str,
+                           kind: MutationKind = MutationKind.SAFE_GRAD_SUM,
+                           underflow: float = 0.01, seed: int = 0
+                           ) -> list[str]:
+    """Whole-dataset per-batch sensitivity dump, the SM-VECTOR preparation
+    step (reference: CaptPolicy.calculate_all_sensitivities,
+    src/captioning/policies.py:74-84; JAX: ops/sensitivity.py:294-315): the
+    train items in batches of ``batch_size`` from
+    ``np.random.default_rng(seed).permutation(task.train_n)`` (a ragged
+    tail is dropped), ``calc_sensitivity`` of each, one
+    ``sens_t{i}_p0_{pid}.pt`` (a (dim,) f32 CPU tensor, which
+    ``load_sensitivity_file`` reads) per batch. Returns the paths."""
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    n = task.train_n
+    order = np.random.default_rng(seed).permutation(n)
+    for i, s in enumerate(range(0, n - batch_size + 1, batch_size)):
+        idx = torch.as_tensor(order[s:s + batch_size], device=theta.device)
+        sens = calc_sensitivity(task, theta, idx, kind, underflow)
+        path = os.path.join(directory, f"sens_t{i}_p0_{os.getpid()}.pt")
+        torch.save(sens.cpu(), path)
+        paths.append(path)
+    return paths

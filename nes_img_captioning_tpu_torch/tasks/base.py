@@ -52,6 +52,11 @@ class Task(abc.ABC):
         the process's own settings."""
         return contextlib.nullcontext()
 
+    def test_score(self, theta) -> float:
+        """Test-set score (offline eval); a task with a test split
+        overrides it (JAX: tasks/base.py:104-106)."""
+        raise NotImplementedError
+
     def host_fitness(self, artifacts, idx) -> np.ndarray:
         """The fitness array of a sweep's artifacts: the device scorer's
         ``{"fitness": ...}`` passes through. A task whose rollouts return

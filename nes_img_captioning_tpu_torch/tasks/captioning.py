@@ -43,7 +43,8 @@ writes the predictions JSON), or on the card (``validate_device`` on
 inside the master's blocks. Fused, one launch of K1 (K4 when tiled) covers
 all row blocks (``decode_rows``); eager, the rows are decoded in the JAX
 package's chunks of ``val_batch_size``, the ragged tail padded with zero
-rows, which the vbn statistics see.
+rows, which the vbn statistics see (``greedy_rows``). ``test_score`` decodes
+and scores the whole test split as ``validate`` does the val subset.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["CocoTask", "GREEDY_KINDS", "SELF_CRITICAL_KINDS"]
+__all__ = ["CocoTask", "GREEDY_KINDS", "SELF_CRITICAL_KINDS",
+           "greedy_rows", "resolve_fused"]
 
 # reference classification of fitness kinds (captioning/policies.py:40-47)
 GREEDY_KINDS = {"greedy", "greedy_logprob", "greedy_expprob", "greedy_linprob",
@@ -76,6 +78,67 @@ SELF_CRITICAL_KINDS = {"self_critical", "sc_loss"}
 _KINDS = GREEDY_KINDS | SELF_CRITICAL_KINDS | {"sample"}
 # the on-device CIDEr-D packs a token into 14 bits (JAX: captioning.py:140)
 DEVICE_CIDER_VOCAB = 1 << 14
+
+
+def resolve_fused(o: FCModelOptions, want, device: torch.device) -> bool:
+    """tpu.fused_decode (``want``: "auto", true or false) for a model of
+    options ``o`` on ``device``: "auto" takes the kernels for the no-norm
+    model and the eager decoder for the vbn, vbn_e and layer_n variants, as
+    JAX's ``can_fuse`` does; false takes the eager decoder. True with a
+    norm variant raises: JAX's fused path would decode it through
+    ``prepare_decode_params``, which drops every norm leaf, another model.
+    On the card the kernels take E = R = 128 and a feature width that is a
+    multiple of 128; a no-norm model of another width raises unless
+    fused_decode is false, where JAX would still run its kernels."""
+    if o.vbn or o.vbn_e or o.layer_n:
+        if want is True:
+            raise ValueError(
+                "tpu.fused_decode=true: the decode kernels run the "
+                "no-norm model; the vbn, vbn_e and layer_n variants "
+                "decode eagerly, so leave it at \"auto\" or false")
+        return False
+    if want is False:
+        return False
+    if device.type == "cuda" and not (
+            o.input_encoding_size == o.rnn_size == KERNEL_WIDTH
+            and o.fc_feat_size % KERNEL_WIDTH == 0):
+        raise ValueError(
+            f"tpu.fused_decode={want}: input_encoding_size="
+            f"{o.input_encoding_size}, rnn_size={o.rnn_size}, "
+            f"fc_feat_size={o.fc_feat_size}: the CUDA decode kernels take "
+            f"E = R = {KERNEL_WIDTH} and a feature width that is a "
+            f"multiple of {KERNEL_WIDTH}; set it to false to decode "
+            "eagerly")
+    return True
+
+
+def greedy_rows(model: FCCaptionModel, theta, feats, fused: bool, dtype,
+                chunk: int, vocab_tile: int = 0) -> torch.Tensor:
+    """Greedy tokens (N, T) of the flat theta on feats (N, F). Fused: one
+    launch of K1 (K4 with ``vocab_tile``) over all row blocks of 128
+    (``decode_rows``) on ``prepare_decode_params`` at ``dtype``; greedy
+    rows are independent, so the blocks change no token. Eager
+    (``FCCaptionModel.sample_members``, f32): chunks of ``chunk`` rows (at
+    most N), the ragged tail padded with zero rows, whose statistics the
+    vbn variants see (JAX: captioning.py:577-594). ``CocoTask``'s
+    validation and test split and ``eval_on_test`` decode here."""
+    if not fused:
+        N = feats.shape[0]
+        bs = min(chunk, N)
+        chunks = []
+        for lo in range(0, N, bs):
+            rows = feats[lo:lo + bs]
+            pad = bs - rows.shape[0]
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+            chunks.append(model.sample_members(
+                theta[None], rows[None])[0][0, :bs - pad])
+        return torch.cat(chunks)
+    from ..ops.decode_cuda import decode_rows, prepare_decode_params
+
+    params = prepare_decode_params(model.spec, theta, model.options,
+                                   dtype=dtype)
+    return decode_rows(params, feats, model.options.seq_length, False,
+                       vocab_tile=vocab_tile)[0]
 
 
 class CocoTask(Task):
@@ -114,7 +177,10 @@ class CocoTask(Task):
                                         device=self.device)
         self.val_fc = torch.as_tensor(self.data.split_feats("val"),
                                       device=self.device)
+        self.test_fc = torch.as_tensor(self.data.split_feats("test"),
+                                       device=self.device)
         self.train_gts = self.data.split_gts("train")
+        self.test_gts = self.data.split_gts("test")
         self._train_scorer = self._val_scorer = None
         self._val_dev_cache = None
         # (distinct rows scored, rows) of the last ``_score_dedup``
@@ -186,36 +252,8 @@ class CocoTask(Task):
                               else None)
 
     def _resolve_fused(self, want) -> bool:
-        """tpu.fused_decode: "auto" takes the kernels for the no-norm model
-        and the eager decoder for the vbn, vbn_e and layer_n variants, as
-        JAX's ``can_fuse`` does; false takes the eager decoder. True with a
-        norm variant raises: JAX's fused path would decode it through
-        ``prepare_decode_params``, which drops every norm leaf, another
-        model. On the card the kernels take E = R = 128 and a feature width
-        that is a multiple of 128; a no-norm model of another width raises
-        unless fused_decode is false, where JAX would still run its
-        kernels."""
-        o = self.model.options
-        if o.vbn or o.vbn_e or o.layer_n:
-            if want is True:
-                raise ValueError(
-                    "tpu.fused_decode=true: the decode kernels run the "
-                    "no-norm model; the vbn, vbn_e and layer_n variants "
-                    "decode eagerly, so leave it at \"auto\" or false")
-            return False
-        if want is False:
-            return False
-        if self.device.type == "cuda" and not (
-                o.input_encoding_size == o.rnn_size == KERNEL_WIDTH
-                and o.fc_feat_size % KERNEL_WIDTH == 0):
-            raise ValueError(
-                f"tpu.fused_decode={want}: input_encoding_size="
-                f"{o.input_encoding_size}, rnn_size={o.rnn_size}, "
-                f"fc_feat_size={o.fc_feat_size}: the CUDA decode kernels take "
-                f"E = R = {KERNEL_WIDTH} and a feature width that is a "
-                f"multiple of {KERNEL_WIDTH}; set it to false to decode "
-                "eagerly")
-        return True
+        """``resolve_fused`` of this task's model and device."""
+        return resolve_fused(self.model.options, want, self.device)
 
     @property
     def train_scorer(self) -> IndexedCiderScorer:
@@ -607,31 +645,13 @@ class CocoTask(Task):
         return n if num in (-1, None, 0) else min(num, n)
 
     def _decode_rows(self, theta, feats) -> torch.Tensor:
-        """Greedy tokens (N, T) of theta on feats (N, F). Fused: one launch
-        of K1 (K4 when tiled) over all row blocks of 128 (``decode_rows``);
-        greedy rows are independent, so the blocks change no token. Eager:
-        the JAX package's chunks of ``val_batch_size`` (else
-        ``batch_size``, else 64; at most N), the ragged tail padded with
-        zero rows, whose statistics the vbn variants see (JAX:
-        captioning.py:577-594)."""
-        if not self._fused:
-            N = feats.shape[0]
-            bs = min(self.config.val_batch_size or self.config.batch_size
-                     or 64, N)
-            chunks = []
-            for lo in range(0, N, bs):
-                chunk = feats[lo:lo + bs]
-                pad = bs - chunk.shape[0]
-                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, pad))
-                chunks.append(self.model.sample_members(
-                    theta[None], chunk[None])[0][0, :bs - pad])
-            return torch.cat(chunks)
-        from ..ops.decode_cuda import decode_rows, prepare_decode_params
-
-        params = prepare_decode_params(self.spec, theta, self.model.options,
-                                       dtype=self._decode_dtype)
-        return decode_rows(params, feats, self.model.options.seq_length,
-                           False, vocab_tile=self._vocab_tile)[0]
+        """Greedy tokens (N, T) of theta on feats (N, F): ``greedy_rows`` at
+        the task's precision, the eager chunks of ``val_batch_size`` (else
+        ``batch_size``, else 64)."""
+        return greedy_rows(
+            self.model, theta, feats, self._fused, self._decode_dtype,
+            self.config.val_batch_size or self.config.batch_size or 64,
+            vocab_tile=self._vocab_tile)
 
     def _decode_split(self, theta, feats, num: int) -> np.ndarray:
         """Greedy tokens of the first ``num`` rows of a split (all for -1,
@@ -663,6 +683,20 @@ class CocoTask(Task):
         self._write_predictions(seqs, "val")
         mean, _ = self.val_scorer.score(self.data.word_id_rows(seqs),
                                         np.arange(len(seqs)))
+        return float(mean)
+
+    def test_score(self, theta) -> float:
+        """Word-level plain CIDEr of theta's greedy captions over the whole
+        test split, decoded as ``_decode_rows`` decodes (fused: one
+        row-block launch at the task's precision) and scored on the host
+        by the native scorer; writes ``eval_cache_test.json`` (JAX:
+        captioning.py:726-735)."""
+        seqs = self._decode_split(theta, self.test_fc, -1)
+        self._write_predictions(seqs, "test")
+        scorer = IndexedCiderScorer(self.data.split_gts_words("test"),
+                                    variant="cider")
+        mean, _ = scorer.score(self.data.word_id_rows(seqs),
+                               np.arange(len(seqs)))
         return float(mean)
 
     def device_val_consts(self) -> dict | None:

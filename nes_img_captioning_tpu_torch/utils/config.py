@@ -12,8 +12,9 @@ the task is built: a multiple of 128 dividing the padded vocab),
 ``pop_chunk``, ``gens_per_dispatch``, ``val_freq``, ``fused_validation``
 (true, false or "auto": validation and podium on the card inside each
 block; "auto" turns it on when the run can fuse it and
-``gens_per_dispatch`` > 1, as the JAX package resolves it) and ``seed``;
-it refuses ``mesh_shape`` and ``profile``, and accepts the others without
+``gens_per_dispatch`` > 1, as the JAX package resolves it), ``profile``
+(a torch.profiler trace of generation 2, ``algorithms/master_base.py``)
+and ``seed``; it refuses ``mesh_shape``, and accepts the others without
 reading them yet. Unlike the JAX parser, ``kernel_noise``, ``fused_decode`` and
 ``device_cider`` are validated like the other tri-state knobs, so a
 near-miss such as ``"false"`` is rejected instead of read as true.

@@ -1214,3 +1214,100 @@ def test_vbn_sensitivity_rows_bitwise_repeatable(card_task, precision):
         assert torch.equal(alone[0].view(torch.int32),
                            first[i].view(torch.int32))
     assert torch.isfinite(first).all() and (first > 1).any()
+
+
+@pytest.mark.cuda
+def test_test_split_f32_row_block_matches_plain_twin(card_task, tmp_path):
+    """The test split of 300 rows (blocks of 128, 128 and 44) at f32:
+    ``test_score`` and ``evaluate_checkpoints`` each decode it in one
+    row-block launch of K1, whose tokens equal the plain twin's (lp within
+    2e-5), and evaluate_checkpoints' captions are those tokens."""
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.data.synthetic import (
+        synthetic_coco_arrays,
+    )
+    from nes_img_captioning_tpu_torch.eval_on_test import evaluate_checkpoints
+    from nes_img_captioning_tpu_torch.tasks.captioning import CocoTask
+    from nes_img_captioning_tpu_torch.utils.config import Config, TpuConfig
+
+    data = CocoData.from_arrays(synthetic_coco_arrays(
+        n_train=16, n_val=8, n_test=300, vocab_size=300, fc_feat_size=256,
+        cap_len=9, seed=1))
+    exp = {"dataset": "mscoco", "policy_options": {
+        "fitness": "greedy", "vbn": False, "model_options": {
+            "input_encoding_size": 128, "rnn_size": 128,
+            "fc_feat_size": 256}}}
+    task = CocoTask(exp, Config(batch_size=8), TpuConfig(seed=0),
+                    device="cuda", data=data)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    theta = task.spec.init_theta(g) * 3
+    params = tdc.prepare_decode_params(task.spec, theta, task.model.options,
+                                       dtype=torch.float32)
+    seq_k, lp_k = tdc.decode_rows(params, task.test_fc, need_logprobs=True)
+    seq_p, lp_p = tdc.decode_rows_plain(params, task.test_fc)
+    torch.cuda.synchronize()
+    assert torch.equal(seq_k, seq_p)
+    assert float((lp_k - lp_p).abs().max()) < 2e-5
+    before = tdc.decode_rows.launches
+    score = task.test_score(theta)
+    path = str(tmp_path / "m.pth")
+    task.spec.save_pth(theta, path)
+    out = evaluate_checkpoints({"m": path}, {}, num=300, fc_feat_size=256,
+                               data=data, device="cuda")
+    assert tdc.decode_rows.launches == before + 2
+    assert [p["caption"] for p in out["preds_per_model"]["m"]] == \
+        data.decode_sequence(seq_p.cpu().numpy())
+    assert np.isfinite(score)
+    assert out["stats"]["m"]["CIDEr"] == pytest.approx(score, abs=1e-9)
+
+
+@pytest.mark.cuda
+def test_xent_gradient_card_matches_cpu(card_task):
+    """xent_loss and its autograd gradient on 32 train images, TF32 off:
+    the card's within rtol 1e-5 of the CPU's loss and rtol 1e-4 plus 1e-6
+    of the largest element of its gradient (f32 sums in cuBLAS's order)."""
+    from nes_img_captioning_tpu_torch.pretrain import xent_loss
+
+    task = card_task("greedy")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    theta0 = task.spec.init_theta(g)
+    caps = torch.as_tensor(np.stack([np.asarray(c[0], np.int32)
+                                     for c in task.train_gts[:32]]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        theta = theta0.to(dev).clone().requires_grad_()
+        loss = xent_loss(task.model, theta, task.train_fc[:32].to(dev),
+                         caps.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), theta.grad.cpu())
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert l_card == pytest.approx(l_cpu, rel=1e-5)
+    np.testing.assert_allclose(g_card.numpy(), g_cpu.numpy(), rtol=1e-4,
+                               atol=1e-6 * float(g_cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_profile_summary_finds_a_cuda_kernel(small_members, tmp_path):
+    """A torch.profiler trace of one row-block launch, exported as the
+    masters export ``tpu.profile``'s: profile_summary lists the member
+    kernel once with its device time, and an idle share in [0, 1)."""
+    from nes_img_captioning_tpu_torch.utils import profile_summary
+
+    lay, members, _, _ = small_members
+    params = lay.prep(members[0], torch.float32)
+    feats = torch.randn((300, 256), device="cuda")
+    tdc.decode_rows(params, feats)  # build and load outside the trace
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        tdc.decode_rows(params, feats)
+        torch.cuda.synchronize()
+    path = tmp_path / "profile" / "trace_1.pt.trace.json"
+    path.parent.mkdir()
+    prof.export_chrome_trace(str(path))
+    out = profile_summary.summarize(profile_summary.find_trace(
+        str(tmp_path)))
+    rows = [r for r in out["rows"] if "member_kernel" in r[0]]
+    assert len(rows) == 1 and rows[0][2] == 1 and rows[0][1] > 0
+    assert 0.0 <= out["idle"] < 1.0
