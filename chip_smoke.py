@@ -184,7 +184,23 @@ Phases, each printed as it ends (any failure exits non-zero):
     launch missing its kernel's record; its idle share;
 30. dump_all_sensitivities (SM-G-SUM, split 400, f32) on the XENT theta
     over 4 batches of 64 rows: each file bit for bit calc_sensitivity's,
-    and the share of entries above the clamp beside random init's.
+    and the share of entries above the clamp beside random init's;
+31. experiments/mscoco_es.json and mscoco_es_smg_fast.json with
+    tpu.es_decode_layout true (children built in decode order) on the
+    plain, fused and blocked paths, 4 generations each: the paths bit for
+    bit, the layout sweep bit for bit task.rollout of its children mapped
+    back by from_dec, K1 126 times per generation and to_dec of an
+    offspring chunk in generation 1 only; a fused generation's ms and copy
+    kernels with the layout on and off; K1 on decode-ordered children
+    against its plain twin;
+32. [10]'s NESMaster and [31]'s mscoco_es.json runs as two ranks sharing
+    the card over gloo (child processes, ``--rank-phase``), then NES as one
+    rank over NCCL: the ranks in lockstep bit for bit, the artifacts in
+    rank 0's directories only, NES generation 1's fitnesses bit for bit
+    one process's and its theta Adam's step on the rank-order sum of the
+    ranks' K6 partials (within the sum-order bound of one process's
+    gradient), ES bit for bit [31]'s runs, the NCCL rank bit for bit one
+    process; K6 over a rank's 72 lanes against its plain version.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -1260,6 +1276,64 @@ def es_state(m):
     return children.cpu(), podium
 
 
+def k1_es_chunk(phase: str, task, params: dict, idx_row) -> dict:
+    """K1 at the ES launch shape: one chunk's members (params, bf16) on the
+    first 128 rows of ``idx_row``, against its plain twin (tokens but at
+    near-ties, lp within LP_BF16_TOL on the members decoded alike), its time
+    beside the plain twin's, cuBLAS products' and the bound (the bytes read
+    once, each member's 128 rows a row block of ``rows_flops``)."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    T = task.model.options.seq_length
+    chunk = params["img_w"].shape[0]
+    feats = task.train_fc[torch.as_tensor(np.asarray(idx_row[:128]),
+                                          device=task.device)]
+    feats = feats.expand(chunk, -1, -1).contiguous()
+    k1_ms = time_ms(lambda: dc.decode_fused(params, feats, T, False))
+    plain_ms = time_ms(lambda: dc.decode_fused_plain(params, feats, T,
+                                                     False), reps=1)
+    seq, lp = dc.decode_fused(params, feats, T, True)
+    seq_p, lp_p, gap_p = dc.decode_fused_plain(params, feats, T, True,
+                                               top2_gap=True)
+    torch.cuda.synchronize()
+    share, n_diff = check_near_ties(seq, seq_p, gap_p,
+                                    f"{phase} K1 bf16 at the ES shape")
+    agree = (seq == seq_p).all(-1).all(-1)  # members decoded alike
+    if not bool(agree.any()):
+        raise AssertionError(f"{phase} K1 bf16: no member agrees with the "
+                             "plain twin")
+    err = float((lp - lp_p)[agree].abs().max())
+    if err > LP_BF16_TOL:
+        raise AssertionError(f"{phase} K1 bf16: lp error {err:.3g} > "
+                             f"{LP_BF16_TOL}")
+
+    def library():
+        h = torch.bmm(feats.to(torch.bfloat16), params["img_w"]).to(
+            torch.bfloat16)
+        for step in range(T + 1):
+            torch.bmm(h, params["i2h_w"])
+            torch.bmm(h, params["h2h_w"])
+            if step:
+                torch.bmm(h, params["logit_w"]).argmax(-1)
+
+    lib_ms = time_ms(library)
+    # each member's 128 rows are one row block of rows_flops: the logits
+    # over the V + 1 real columns, no h2h product at the image step
+    Fd, V1 = feats.shape[-1], task.model.options.vocab_size + 1
+    flops = sum(rows_flops(member_seq, Fd, V1) for member_seq in seq)
+    nbytes = sum(v.numel() * v.element_size() for v in params.values()) \
+        + feats.numel() * 2 + seq.numel() * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16
+    return {"ms": k1_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "max_abs_err": err, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes, "share": share,
+            "n_diff": n_diff, "agree": int(agree.sum()),
+            "ctas": dc.member_cluster_info()["cluster"] * chunk}
+
+
 def es_phase(card: str, data) -> list:
     """Phase 19: ESMaster on experiments/mscoco_es.json at full width (1000
     offspring in chunks of 16, 50 parents, 3 elites, 2 candidates, batch
@@ -1446,59 +1520,23 @@ def es_phase(card: str, data) -> list:
         log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
 
     # K1 at the ES launch shape: 16 members x 128 rows, bf16
-    lay, T = task.decode_layout, task.model.options.seq_length
+    lay = task.decode_layout
     kids = eng.materialize(parents, sigma, seeds[:chunk], pidx[:chunk])
-    params = lay.prep(lay.to_dec(kids), torch.bfloat16)
-    feats = task.train_fc[torch.as_tensor(idx_row[:128], device=dev)]
-    feats = feats.expand(chunk, -1, -1).contiguous()
+    k1 = k1_es_chunk("[19]", task, lay.prep(lay.to_dec(kids),
+                                            torch.bfloat16), idx_row)
     del kids
-    k1_ms = time_ms(lambda: dc.decode_fused(params, feats, T, False))
-    plain_ms = time_ms(lambda: dc.decode_fused_plain(params, feats, T,
-                                                     False), reps=1)
-    seq, lp = dc.decode_fused(params, feats, T, True)
-    seq_p, lp_p, gap_p = dc.decode_fused_plain(params, feats, T, True,
-                                               top2_gap=True)
-    torch.cuda.synchronize()
-    share, n_diff = check_near_ties(seq, seq_p, gap_p,
-                                    "[19] K1 bf16 at the ES shape")
-    agree = (seq == seq_p).all(-1).all(-1)  # members decoded alike
-    if not bool(agree.any()):
-        raise AssertionError("[19] K1 bf16: no member agrees with the "
-                             "plain twin")
-    err = float((lp - lp_p)[agree].abs().max())
-    if err > LP_BF16_TOL:
-        raise AssertionError(f"[19] K1 bf16: lp error {err:.3g} > "
-                             f"{LP_BF16_TOL}")
-
-    def library():
-        h = torch.bmm(feats.to(torch.bfloat16), params["img_w"]).to(
-            torch.bfloat16)
-        for step in range(T + 1):
-            torch.bmm(h, params["i2h_w"])
-            torch.bmm(h, params["h2h_w"])
-            if step:
-                torch.bmm(h, params["logit_w"]).argmax(-1)
-
-    lib_ms = time_ms(library)
-    # each member's 128 rows are one row block of rows_flops: the logits
-    # over the V + 1 real columns, no h2h product at the image step
-    Fd, V1 = feats.shape[-1], task.model.options.vocab_size + 1
-    flops = sum(rows_flops(member_seq, Fd, V1) for member_seq in seq)
-    nbytes = sum(v.numel() * v.element_size() for v in params.values()) \
-        + feats.numel() * 2 + seq.numel() * 8
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16
-    b_ms = max(t_bytes, t_ops) * 1e3
-    b_by = "bytes" if t_bytes >= t_ops else "operations"
-    ctas = dc.member_cluster_info()["cluster"] * chunk
+    k1_ms, plain_ms, lib_ms, err = (k1["ms"], k1["plain_ms"],
+                                    k1["library_ms"], k1["max_abs_err"])
+    b_ms, b_by, ctas = k1["bound_ms"], k1["bound_by"], k1["ctas"]
     log(f"[19] K1 at the ES launch shape ({chunk} members x 128 rows, "
         f"{ctas} CTAs, bf16): {k1_ms:.3f} ms per launch (plain twin "
         f"{plain_ms:.3f} ms, cuBLAS products {lib_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by}: {flops / 1e9:.1f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB, {b_ms / k1_ms:.1%} of it); against the "
-        f"plain twin {share:.4%} of rows identical, {n_diff} differ, each "
-        f"first at a near-tie, max |lp - plain| {err:.3g} over "
-        f"{int(agree.sum())} agreeing members; {launches} launches in the "
-        f"blocked run ({card})")
+        f"{b_ms:.4f} ms by {b_by}: {k1['flops'] / 1e9:.1f} GFLOP, "
+        f"{k1['bytes'] / 1e6:.1f} MB, {b_ms / k1_ms:.1%} of it); against "
+        f"the plain twin {k1['share']:.4%} of rows identical, "
+        f"{k1['n_diff']} differ, each first at a near-tie, max |lp - plain| "
+        f"{err:.3g} over {k1['agree']} agreeing members; {launches} "
+        f"launches in the blocked run ({card})")
     shutil.rmtree(runs_dir)
     return [{
         "name": "decode_fused_es_chunk16", "route": "cuda",
@@ -3151,6 +3189,674 @@ def sens_dump_phase(card: str, data, xent: dict) -> None:
     shutil.rmtree(out_dir)
 
 
+# [31]: ES generations per path with the decode layout: the blocked path runs
+# generation 1 plain, 2 fused and 3-4 as one block (snapshot_freq 4)
+LAYOUT_ITERS = 4
+LAYOUT_CONFIGS = ("mscoco_es", "mscoco_es_smg_fast")
+# [31]: (nb_offspring, pop_chunk, batch_size) of both ES files
+LAYOUT_SHAPE = (1000, 16, 256)
+# [32]: NES iterations of each process; a rank process's time limit (s),
+# and its collectives' (each half of it)
+M16_NES_ITERS = 3
+RANK_TIMEOUT = 600
+# the Statistics series that hold no clock or memory reading
+LOCKSTEP_KEYS = ("score_stats", "acc_stats", "best_acc_so_far_stats",
+                 "norm_stats", "noise_std_stats", "bs_stats", "score_stds",
+                 "update_ratio_stats")
+
+
+def layout_experiment(cfg: str, name: str, runs_dir: str, **tpu) -> dict:
+    """experiments/{cfg}.json as it is, with tpu.es_decode_layout true,
+    snapshots every LAYOUT_ITERS generations and ``tpu``'s knobs."""
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    exp = load_experiment(f"experiments/{cfg}.json")
+    shape = (exp["nb_offspring"], exp["tpu"]["pop_chunk"],
+             exp["config"]["batch_size"])
+    if shape != LAYOUT_SHAPE:
+        raise AssertionError(f"[31] {cfg}.json changed: {shape}")
+    exp["config"]["snapshot_freq"] = LAYOUT_ITERS
+    exp["tpu"].update(es_decode_layout=True, **tpu)
+    exp["log_dir"] = os.path.join(runs_dir, cfg, name)
+    return exp
+
+
+LAYOUT_PATHS = (("plain", {"fused_es": False}),
+                ("fused", {"gens_per_dispatch": 1}), ("blocked", {}))
+
+
+def es_layout_phase(card: str, data):
+    """Phase 31: NIC-ES children built in decode order (M13b) at full
+    width. experiments/mscoco_es.json, then mscoco_es_smg_fast.json, with
+    tpu.es_decode_layout true on the plain, fused and blocked paths,
+    LAYOUT_ITERS generations each (``drive_es``): fitness vectors,
+    children, podium rows and mean|policy| bit for bit across the paths;
+    K1 launched ceil(1000 / 16) x 2 times per generation; ``to_dec`` lays
+    out offspring chunks in generation 1 only (fresh inits, in torch
+    order), never after it. Then on the blocked run's parents: the layout
+    sweep's fitnesses bit for bit those of ``task.rollout`` fed the same
+    children mapped back by ``from_dec``; ms of a fused generation with the
+    layout on and off (A B B A, host clock ending in synchronize) and its
+    copies under torch.profiler; K1 on decode-ordered children against its
+    plain twin (mscoco_es.json). Returns (its row of the kernels line,
+    mscoco_es.json's runs on the host, for phase 32)."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs_dir = os.path.join("logs", f"chip_smoke_layout_{os.getpid()}")
+    L, chunk, B = LAYOUT_SHAPE
+    k1_per_gen = -(-L // chunk) * -(-B // 128)
+    to_dec, laid = DecodeLayout.to_dec, []
+
+    def counted(self, flat, pad_scale=1.0):
+        laid.append(flat.shape[0] if flat.dim() > 1 else 1)
+        return to_dec(self, flat, pad_scale)
+
+    rows, ref = [], None
+    DecodeLayout.to_dec = counted
+    try:
+        for cfg in LAYOUT_CONFIGS:
+            runs = {}
+            for name, tpu in LAYOUT_PATHS:
+                laid.clear()
+                m, fits, calls, _, counts = drive_es(
+                    layout_experiment(cfg, name, runs_dir, **tpu), dev, data,
+                    LAYOUT_ITERS)
+                if m.engine._layout is None:
+                    raise AssertionError(f"[31] {cfg} {name}: no layout")
+                want = [LAYOUT_ITERS * k1_per_gen,
+                        2 * LAYOUT_ITERS + (2 if name != "plain" else 0),
+                        0, 0, 0, 0]
+                want_calls = {
+                    "plain": [],
+                    "fused": ["fused_generation"] * (LAYOUT_ITERS - 1),
+                    "blocked": ["fused_generation", "fused_block"]}[name]
+                chunks = laid.count(chunk)
+                if counts != want or calls != want_calls \
+                        or len(fits) != LAYOUT_ITERS \
+                        or chunks != -(-L // chunk):
+                    raise AssertionError(
+                        f"[31] {cfg} {name}: launches (K1, row-block K1, K4, "
+                        f"K3, K2, K5) {counts}, engine calls {calls}, "
+                        f"{len(fits)} fitness vectors, {chunks} to_dec calls "
+                        "of a chunk")
+                if not all(np.isfinite(f).all() for f in fits):
+                    raise AssertionError(f"[31] {cfg} {name}: non-finite "
+                                         "fitness")
+                children, podium = es_state(m)
+                ms = [round(t * 1e3, 3) for t in m.stats.time_stats()]
+                runs[name] = (m, fits, children, podium, counts, ms)
+                log(f"[31] {cfg}.json {name}, tpu.es_decode_layout true: ms "
+                    f"per generation {ms} (set-up {m.setup_s:.1f} s); K1 "
+                    f"launches {counts[0]} ({k1_per_gen} per generation), "
+                    f"row-block K1 {counts[1]}; to_dec {len(laid)} calls "
+                    f"laying out {sum(laid)} rows, {chunks} of them an "
+                    f"offspring chunk (generation 1's fresh inits), the "
+                    f"rest parents, scale rows and candidates ({card})")
+            pm, pfits, pchildren, ppodium, _, _ = runs["plain"]
+            for name in ("fused", "blocked"):
+                m, fits, children, podium, _, _ = runs[name]
+                if not all(np.array_equal(a, b) for a, b in zip(pfits, fits)) \
+                        or not torch.equal(children, pchildren) \
+                        or len(podium) != len(ppodium) \
+                        or not all(torch.equal(a[1], b[1])
+                                   for a, b in zip(podium, ppodium)) \
+                        or m.stats.to_dict()["norm_stats"] != \
+                        pm.stats.to_dict()["norm_stats"]:
+                    raise AssertionError(f"[31] {cfg} {name}: not bit for "
+                                         "bit the plain path")
+            log(f"[31] {cfg}.json with the layout: plain, fused and blocked "
+                f"paths' {LAYOUT_ITERS} fitness vectors of {L}, "
+                f"{pchildren.shape[0]} children, {len(ppodium)} podium rows "
+                f"and mean|policy| bit for bit ({card})")
+            if cfg == "mscoco_es":
+                ref = {name: {"fits": list(r[1]), "children": r[2],
+                              "podium": [row for _, row in r[3]],
+                              "stats": {k: r[0].stats.to_dict()[k]
+                                        for k in LOCKSTEP_KEYS},
+                              "ms": r[5]} for name, r in runs.items()}
+            rows += layout_checks(card, cfg, runs["blocked"][0],
+                                  runs["blocked"][4][0])
+            del runs, pm, m
+            torch.cuda.empty_cache()
+    finally:
+        DecodeLayout.to_dec = to_dec
+    shutil.rmtree(runs_dir)
+    log(f"[31] phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows, ref
+
+
+def layout_checks(card: str, cfg: str, m, launches: int) -> list:
+    """[31] on an ESMaster ``m`` with the layout after its run: the replay,
+    the on/off times and profiles of a fused generation; for mscoco_es.json
+    K1 on decode-ordered children (its row of the kernels line, with the
+    blocked run's ``launches``)."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine
+
+    dev = torch.device("cuda")
+    eng, task = m.engine, m.task
+    lay = task.decode_layout
+    L, chunk, B = LAYOUT_SHAPE
+    elites = m._device_elite_rows([p for p, _ in m.it.best_elites() if p])
+    parents = torch.cat([elites, m._selected_dev])
+    rng = np.random.default_rng(1)
+    seeds = rng.integers(0, 2**32, size=L, dtype=np.uint32)
+    pidx = rng.integers(0, parents.shape[0], size=L).astype(np.int32)
+    idx_row = rng.choice(task.train_n, size=B, replace=False)
+    sigma = m.it.noise_stdev()
+    sens = (eng.sensitivities(parents, m._sens_batch_rows(idx_row), seeds[0])
+            if m.mutation.is_gradient else None)
+    fit = eng.eval_generation(parents, sigma, seeds, pidx, idx_row,
+                              sens=sens)["fitness"]
+    build = eng._child_ctx(parents, sigma, sens)[0]
+    pidx_d = torch.as_tensor(pidx.astype(np.int64), device=dev)
+    idx_d = torch.as_tensor(idx_row, device=dev)
+    replay = torch.cat([task.rollout(lay.from_dec(build(
+        seeds[i:i + chunk], pidx_d[i:i + chunk])), idx_d)["fitness"]
+        for i in range(0, L, chunk)])
+    torch.cuda.synchronize()
+    if not torch.equal(replay, fit):
+        raise AssertionError(f"[31] {cfg}: the layout sweep differs from the "
+                             "torch-order rollout of its children")
+    log(f"[31] {cfg}.json: the layout sweep's {L} fitnesses bit for bit "
+        f"task.rollout's on the same children mapped back by from_dec "
+        f"({card})")
+
+    off = ESEngine(task, m.mutation, pop_chunk=chunk,
+                   sens_underflow=m._underflow,
+                   sens_precision=m.tpu_cfg.sensitivity_precision,
+                   sens_probes=m.tpu_cfg.sensitivity_probes)
+    if off._layout is not None:
+        raise AssertionError("[31] the default engine took the layout")
+    policy, sel = m.policy_theta, m._selected_dev
+    n_cands = m.experiment.num_elite_cands()
+    sens_idx = m._sens_batch_rows(idx_row)
+
+    def generation(e):
+        e.unpack_fused(e.fused_generation(
+            elites, elites.shape[0], sel, sigma, seeds, pidx, idx_row,
+            policy, n_cands, sens=m._sens_vector, sens_idx=sens_idx)[0],
+            L, n_cands)
+
+    def timed(e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generation(e)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    timed(off)  # its first generation
+    gen_ms = {"on": [], "off": []}
+    for name, e in (("on", eng), ("off", off), ("off", off), ("on", eng)):
+        gen_ms[name].append(timed(e))
+    prof = {}
+    for name, e in (("on", eng), ("off", off)):
+        wall, busy, krows = profile_call(lambda: generation(e))
+        cp = [r for r in krows if "copy" in r[2].lower()]
+        prof[name] = (wall, busy, sum(r[0] for r in cp),
+                      sum(r[1] for r in cp), krows)
+    log(f"[31] {cfg}.json, one fused generation on the same parents, "
+        f"seeds and batch: layout on {gen_ms['on']} ms, off {gen_ms['off']} "
+        f"ms (A B B A; host clock ending in synchronize); under "
+        f"torch.profiler on: wall {prof['on'][0]:.3f} ms, card busy "
+        f"{prof['on'][1]:.3f} (idle {1 - prof['on'][1] / prof['on'][0]:.2%}),"
+        f" copy kernels {prof['on'][2]:.3f} ms (x{prof['on'][3]}); off: wall "
+        f"{prof['off'][0]:.3f}, busy {prof['off'][1]:.3f} (idle "
+        f"{1 - prof['off'][1] / prof['off'][0]:.2%}), copy kernels "
+        f"{prof['off'][2]:.3f} ms (x{prof['off'][3]}) ({card})")
+    for name in ("on", "off"):
+        for ms, count, key in prof[name][4][:8]:
+            log(f"    {name:3s} {ms:10.3f} ms  x{count:<5d} {key[:84]}")
+    if cfg != "mscoco_es":
+        return []
+    k1 = k1_es_chunk("[31]", task, lay.prep(build(seeds[:chunk],
+                                                  pidx_d[:chunk]),
+                                            torch.bfloat16), idx_row)
+    log(f"[31] K1 on {chunk} decode-ordered children x 128 rows "
+        f"({k1['ctas']} CTAs, bf16): {k1['ms']:.3f} ms per launch (plain "
+        f"twin {k1['plain_ms']:.3f}, cuBLAS products {k1['library_ms']:.3f}, "
+        f"bound {k1['bound_ms']:.4f} ms by {k1['bound_by']}, "
+        f"{k1['bound_ms'] / k1['ms']:.1%} of it); {k1['share']:.4%} of rows "
+        f"as the plain twin's, {k1['n_diff']} differ at near-ties, max "
+        f"|lp - plain| {k1['max_abs_err']:.3g}; {launches} launches in the "
+        f"blocked run ({card})")
+    return [{
+        "name": "decode_fused_es_layout_chunk16", "route": "cuda",
+        "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+        "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py:658",
+        "launches": launches, "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"], "ctas_per_launch": k1["ctas"],
+        "fused_generation_ms_layout_on": gen_ms["on"],
+        "fused_generation_ms_layout_off": gen_ms["off"],
+        "copy_kernel_ms_layout_on": prof["on"][2],
+        "copy_kernel_ms_layout_off": prof["off"][2],
+    }]
+
+
+def m16_nes(exp: dict, dev, data):
+    """[32]'s NES work in one process (a rank, or one process with no
+    group) on [10]'s cut of mscoco_nes.json: generation 1 from the
+    master's initial theta on ``generation_inputs``' draws (its packed
+    vector and theta after the Adam step), then M16_NES_ITERS iterations of
+    the master. Returns (results on the host, the master)."""
+    import copy
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.nes import NESMaster
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    m = NESMaster(copy.deepcopy(exp), device=dev, data=data)
+    eng = m.engine
+    seeds, batches = generation_inputs(m.task, 1)
+    theta0 = m.theta.clone()
+    th1, _, packed = eng.generation(
+        theta0, eng.optimizer.init(eng.dim, dev), torch.ones_like(theta0),
+        m.config.noise_stdev, seeds[0], batches[0], m.optimizer.stepsize,
+        m.config.l2coeff or 0.0)
+    counters = (dc.decode_pair_rng, dc.pair_grad_rng)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    m.run_master(max_iterations=M16_NES_ITERS)
+    torch.cuda.synchronize()
+    return {"theta0": theta0.cpu(), "packed1": packed.cpu(),
+            "theta1": th1.cpu(), "theta": m.theta.cpu(),
+            "stats": {k: m.stats.to_dict()[k] for k in LOCKSTEP_KEYS},
+            "ms": [round(t * 1e3, 3) for t in m.stats.time_stats()],
+            "run_s": time.perf_counter() - t0,
+            "launches": [c.launches for c in counters],
+            "log_dir": m.exp["log_dir"]}, m
+
+
+def m16_es(exps: dict, dev, data) -> dict:
+    """[32]'s ES runs in a rank: each path's experiment for LAYOUT_ITERS
+    generations, with the fitness vectors as the master reads them
+    (gathered), the children, podium rows and stats on the host."""
+    import copy
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine, ESMaster
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    out = {}
+    unpack_block = ESEngine.unpack_block
+    for path, exp in exps.items():
+        m = ESMaster(copy.deepcopy(exp), device=dev, data=data)
+        eng, fits = m.engine, []
+        hf, uf = eng.host_fitness, eng.unpack_fused
+
+        def hf_spy(*a, hf=hf, fits=fits):
+            fits.append(hf(*a))
+            return fits[-1]
+
+        def uf_spy(*a, uf=uf, fits=fits):
+            res = uf(*a)
+            fits.append(res[0])
+            return res
+
+        def ub_spy(*a, fits=fits):
+            res = unpack_block(*a)
+            fits.extend(res[0])
+            return res
+
+        eng.host_fitness, eng.unpack_fused = hf_spy, uf_spy
+        ESEngine.unpack_block = staticmethod(ub_spy)
+        torch.cuda.synchronize()
+        dc.decode_fused.launches = 0
+        try:
+            m.run_master(max_iterations=LAYOUT_ITERS)
+        finally:
+            ESEngine.unpack_block = staticmethod(unpack_block)
+        torch.cuda.synchronize()
+        children, podium = es_state(m)
+        out[path] = {"fits": fits, "children": children,
+                     "podium": [row for _, row in podium],
+                     "stats": {k: m.stats.to_dict()[k]
+                               for k in LOCKSTEP_KEYS},
+                     "ms": [round(t * 1e3, 3) for t in m.stats.time_stats()],
+                     "k1": dc.decode_fused.launches,
+                     "log_dir": m.exp["log_dir"]}
+        del m
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_main(argv: list) -> int:
+    """A process of phase 32 (``chip_smoke.py --rank-phase DIR WORLD RANK
+    PORT``): joins a group of WORLD ranks through ``init_multihost`` as
+    ``main.py`` does (rendezvous at 127.0.0.1:PORT, the card rank %
+    device_count), builds the in-memory fixtures, runs ``m16_nes`` and, in
+    a group of more than one, ``m16_es`` on DIR/inputs.json's experiments,
+    and saves the results as DIR/rank_WORLD_RANK.pt."""
+    import datetime
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.data.synthetic import (
+        synthetic_coco_arrays,
+    )
+    from nes_img_captioning_tpu_torch.parallel import make_mesh
+    from nes_img_captioning_tpu_torch.parallel.multihost import (
+        init_multihost,
+        shutdown_multihost,
+    )
+
+    work, world, rank, port = argv[0], int(argv[1]), int(argv[2]), \
+        int(argv[3])
+    with open(os.path.join(work, "inputs.json")) as f:
+        inputs = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_multihost(f"127.0.0.1:{port}", world, rank,
+                   timeout=datetime.timedelta(seconds=RANK_TIMEOUT // 2))
+    mesh = make_mesh()
+    tag = f"[32] rank {rank} of {world} ({mesh.backend}, {mesh.device})"
+    out = {"backend": mesh.backend, "device": str(mesh.device)}
+    try:
+        t0 = time.perf_counter()
+        nes_data = bench_task(mesh.device).data
+        out["nes"], _ = m16_nes(inputs["nes"], mesh.device, nes_data)
+        log(f"{tag}: NES {M16_NES_ITERS} iterations, ms "
+            f"{out['nes']['ms']}, K5 and K6 launches "
+            f"{out['nes']['launches']} ({time.perf_counter() - t0:.1f} s "
+            "with the fixture)")
+        if world > 1:
+            t0 = time.perf_counter()
+            es_data = CocoData.from_arrays(synthetic_coco_arrays(
+                n_train=2048, n_val=VAL_ITEMS, n_test=8, vocab_size=9487,
+                fc_feat_size=2048, cap_len=9, seed=0))
+            out["es"] = m16_es(inputs["es"], mesh.device, es_data)
+            log(f"{tag}: ES " + "; ".join(
+                f"{p} ms {r['ms']}, K1 {r['k1']}"
+                for p, r in out["es"].items())
+                + f" ({time.perf_counter() - t0:.1f} s with the fixture)")
+    finally:
+        shutdown_multihost()
+    torch.save(out, os.path.join(work, f"rank_{world}_{rank}.pt"))
+    return 0
+
+
+def run_ranks(work: str, world: int) -> list:
+    """Start WORLD rank processes of phase 32 at once, wait for all within
+    RANK_TIMEOUT (killing any left), echo their [32] lines, and return
+    their results; a rank that fails fails the phase with its output's
+    tail."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.parallel.multihost import free_port
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-phase", work,
+         str(world), str(r), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("[32]") or "collectives over" in line:
+                log(line if line.startswith("[32]") else f"    {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"[32] rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return [torch.load(os.path.join(work, f"rank_{world}_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def primary_only(log_dir: str, replica_dir: str, what: str):
+    """The run's directory holds one z_info whose files are all under it;
+    the non-primary rank's scratch directory was a private one and is
+    gone."""
+    (path,) = [os.path.join(log_dir, "snapshot", f)
+               for f in os.listdir(os.path.join(log_dir, "snapshot"))
+               if f.startswith("z_info_")]
+    with open(path) as f:
+        text = f.read()
+    infos = json.loads(text)
+    files = [p for _, p in infos.get("parents", [])
+             + infos.get("elites_to_evaluate", [])]
+    files += [p for p, _ in infos["best_elites"] if p]
+    if "current_model" in infos:
+        files.append(infos["current_model"])
+    if "nes_replica_logdir_" in text or "nes_replica_logdir_" not in \
+            replica_dir or os.path.exists(replica_dir) or not files or \
+            not all(p.startswith(log_dir) and os.path.isfile(p)
+                    for p in files):
+        raise AssertionError(f"[32] {what}: artifacts outside rank 0's "
+                             f"directory ({path}, rank 1 in {replica_dir})")
+    return len(files)
+
+
+def m16_phase(card: str, task, es_ref: dict, kernels: list) -> list:
+    """Phase 32: the population over ranks (M16) on the one card. [10]'s
+    cut of mscoco_nes.json (kernel noise) for M16_NES_ITERS iterations and
+    [31]'s mscoco_es.json with the layout on its three paths, as 2 ranks
+    in child processes sharing cuda:0 over gloo (``init_multihost``'s rule)
+    with the fixtures built in each; then NES alone as 1 rank over NCCL.
+    Gates: the ranks' stat series and final theta bit for bit each other's;
+    the artifacts in rank 0's directory only; NES generation 1 from the
+    same theta: fitnesses bit for bit one process's, theta exactly Adam's
+    step on the rank-order sum of the ranks' K6 partial gradients, which is
+    within the sum-order bound 2 gamma_F sum |w_i||delta_i| of one
+    process's K6 gradient (gamma_n = n u / (1 - n u), u = 2^-24, |delta_i|
+    from K7's dumps); every ES trajectory bit for bit [31]'s one-process
+    run; the NCCL rank bit for bit one process. Returns the kernels line's
+    rows for K5 and K6 on a rank's half of the lanes."""
+    import copy
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    work = os.path.abspath(os.path.join("logs",
+                                        f"chip_smoke_m16_{os.getpid()}"))
+    os.makedirs(work)
+    nes_exp = nes_experiment(work, "nes", "bf16", gens_per_dispatch=2,
+                             kernel_noise=True)
+    nes_exp["config"]["snapshot_freq"] = 2
+    es_exps = {name: layout_experiment("mscoco_es", name,
+                                       os.path.join(work, "es"), **tpu)
+               for name, tpu in LAYOUT_PATHS}
+    with open(os.path.join(work, "inputs.json"), "w") as f:
+        json.dump({"nes": nes_exp, "es": es_exps}, f)
+
+    # one process, no group: the reference of NES generation 1
+    ref_exp = copy.deepcopy(nes_exp)
+    ref_exp["log_dir"] = os.path.join(work, "nes_one_process")
+    ref, m = m16_nes(ref_exp, dev, task.data)
+    eng, lay = m.engine, task.decode_layout
+    theta0 = ref["theta0"].to(dev)
+    log(f"[32] one process, no group: NES {M16_NES_ITERS} iterations, ms "
+        f"{ref['ms']}, K5 and K6 launches {ref['launches']} ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    two = run_ranks(work, 2)
+    nccl = run_ranks(work, 1)[0]
+    if [r["backend"] for r in two] != ["gloo", "gloo"] or \
+            nccl["backend"] != "nccl":
+        raise AssertionError(f"[32] backends {[r['backend'] for r in two]}"
+                             f", {nccl['backend']}: expected gloo for two "
+                             "ranks on one card, nccl for one")
+    F = BENCH["pairs"]
+    half = -(-F // 2)
+    n_chunks_rank = -(-half // BENCH["pop_chunk"])
+
+    # lockstep and the artifacts
+    a, b = two[0]["nes"], two[1]["nes"]
+    if a["stats"] != b["stats"] or not torch.equal(a["theta"], b["theta"]):
+        raise AssertionError("[32] NES: the ranks' stat series or final "
+                             "theta differ")
+    if a["launches"] != [M16_NES_ITERS * n_chunks_rank, M16_NES_ITERS] \
+            or a["launches"] != b["launches"]:
+        raise AssertionError(f"[32] NES: K5 and K6 launches per rank "
+                             f"{a['launches']}, {b['launches']}")
+    n_files = primary_only(a["log_dir"], b["log_dir"], "NES")
+    L, chunk, B = LAYOUT_SHAPE
+    k1_want = LAYOUT_ITERS * -(-(-(-L // 2)) // chunk) * -(-B // 128)
+    for path in es_ref:
+        ra, rb = two[0]["es"][path], two[1]["es"][path]
+        n_files += primary_only(ra["log_dir"], rb["log_dir"], f"ES {path}")
+        want = es_ref[path]
+        for r in (ra, rb):
+            if not (all(np.array_equal(x, y) for x, y in
+                        zip(r["fits"], want["fits"]))
+                    and len(r["fits"]) == len(want["fits"])
+                    and torch.equal(r["children"], want["children"])
+                    and len(r["podium"]) == len(want["podium"])
+                    and all(torch.equal(x, y) for x, y in
+                            zip(r["podium"], want["podium"]))
+                    and r["stats"] == want["stats"]):
+                raise AssertionError(f"[32] ES {path}: a rank's trajectory "
+                                     "is not [31]'s one-process run")
+            if r["k1"] != k1_want:
+                raise AssertionError(f"[32] ES {path}: K1 launches "
+                                     f"{r['k1']} != {k1_want}")
+    log(f"[32] two ranks over gloo on one card: NES stat series and final "
+        f"theta bit for bit across the ranks; ES on the plain, fused and "
+        f"blocked paths ({LAYOUT_ITERS} generations each) bit for bit [31]'s "
+        f"one-process runs on both ranks (fitness vectors, children, "
+        f"podium rows, stats); {n_files} artifacts, all in rank 0's "
+        f"directories; rank 1's scratch directories removed ({card})")
+    log(f"[32] ms per iteration on one card: NES one process {ref['ms']}, "
+        f"2 ranks {a['ms']} (rank 0) {b['ms']} (rank 1), 1 rank over NCCL "
+        f"{nccl['nes']['ms']}; ES one process ([31]) "
+        + "; ".join(f"{p} {es_ref[p]['ms']}" for p in es_ref)
+        + ", 2 ranks (rank 0) "
+        + "; ".join(f"{p} {two[0]['es'][p]['ms']}" for p in es_ref)
+        + f" ({card}; no claim: both ranks share the card and validate "
+        "whole)")
+
+    # NES generation 1: fitnesses bit for bit, theta within the bound
+    packed1 = ref["packed1"]
+    for who, r in (("rank 0", a), ("rank 1", b), ("NCCL", nccl["nes"])):
+        if not torch.equal(r["packed1"][:2 * F], packed1[:2 * F]):
+            raise AssertionError(f"[32] NES generation 1, {who}: fitnesses "
+                                 "differ from one process's")
+    if not (torch.equal(nccl["nes"]["packed1"], packed1)
+            and torch.equal(nccl["nes"]["theta1"], ref["theta1"])):
+        raise AssertionError("[32] the NCCL rank's generation 1 is not one "
+                             "process's bit for bit")
+    seeds, _ = generation_inputs(task, 1)
+    seeds = seeds[0]
+    scale_dec = lay.to_dec(eng._scale_vec(theta0, torch.ones_like(theta0),
+                                          m.config.noise_stdev),
+                           pad_scale=0.0)
+    w = eng._pair_weights(packed1[:2 * F].reshape(F, 2).to(dev),
+                          (1, F)).reshape(-1)
+    g_one = dc.pair_grad_rng_flat(scale_dec, seeds, w)
+    parts = [dc.pair_grad_rng_flat(scale_dec, seeds[lo:lo + half],
+                                   w[lo:lo + half]) for lo in (0, half)]
+    g_two = parts[0] + parts[1]
+    absum = torch.zeros_like(scale_dec, dtype=torch.float64)
+    P = BENCH["pop_chunk"]
+    for lo in range(0, F, P):
+        d = dc.pair_delta_dump_flat(scale_dec, seeds[lo:lo + P])
+        absum += (w[lo:lo + P, None].abs() * d.abs()).double().sum(0)
+    u = 2.0 ** -24
+    gamma = F * u / (1 - F * u)
+    bound = 2 * gamma * absum
+    diff = (g_two - g_one).abs().double()
+
+    def step(g):
+        return eng._apply_grad(theta0, eng.optimizer.init(eng.dim, dev),
+                               lay.from_dec(g), 2 * F, m.optimizer.stepsize,
+                               m.config.l2coeff or 0.0)[1].cpu()
+
+    torch.cuda.synchronize()
+    if not torch.equal(step(g_one), ref["theta1"]):
+        raise AssertionError("[32] one process's theta is not Adam's step "
+                             "on its K6 gradient")
+    if not all(torch.equal(step(g_two), r["theta1"]) for r in (a, b)):
+        raise AssertionError("[32] a rank's theta is not Adam's step on the "
+                             "rank-order sum of the K6 partials")
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"[32] the ranks' gradient is beyond the "
+                             f"sum-order bound: max excess "
+                             f"{float((diff - bound).max()):.3g}")
+    dth = (a["theta1"] - ref["theta1"]).abs()
+    log(f"[32] NES generation 1 from the same theta: fitnesses of {F} pairs "
+        f"bit for bit one process's on both ranks and over NCCL; the ranks' "
+        f"theta is Adam's step on the rank-order sum of their K6 partials "
+        f"({half} lanes each), whose gradient is within 2 gamma_{F} "
+        f"sum|w||delta| of one process's: {int((diff > 0).sum())} of "
+        f"{diff.numel()} elements differ, max |diff| {float(diff.max()):.3g} "
+        f"(at most {float((diff / bound.clamp_min(1e-300)).max()):.3g} of "
+        f"its bound); theta: {int((dth > 0).sum())} elements differ, max "
+        f"|diff| {float(dth.max()):.3g} (Adam step "
+        f"{m.optimizer.stepsize}); the NCCL rank bit for bit ({card})")
+
+    # K6 on a rank's half of the lanes, and K5's rank row
+    scale_params = lay.prep(scale_dec, torch.float32)
+    k6 = dc.pair_grad_rng_flat(scale_dec, seeds[:half], w[:half])
+    k6_plain_out = lay.flat_dec(dc.pair_grad_rng_plain(
+        scale_params, seeds[:half], w[:half]))
+    torch.cuda.synchronize()
+    k6_err = float((k6 - k6_plain_out).abs().max())
+    if not torch.equal(k6, k6_plain_out):
+        raise AssertionError(f"[32] K6 over {half} lanes: not bitwise its "
+                             f"plain version (max {k6_err:.3g})")
+    k6_ms = time_ms(lambda: dc.pair_grad_rng_flat(scale_dec, seeds[:half],
+                                                  w[:half]), reps=10)
+    k6_plain = time_ms(lambda: dc.pair_grad_rng_plain(
+        scale_params, seeds[:half], w[:half]), reps=1)
+    normals = half * lay.dim_dec
+    t_bytes = (2 * lay.dim_dec * 4 + half * 8) / HBM_BYTES_PER_S
+    t_ops = max(NORMAL_INT_OPS * normals / PEAK_INT32,
+                (NORMAL_F32_OPS + GRAD_SUM_OPS) * normals / PEAK_F32)
+    k6_bound = max(t_bytes, t_ops) * 1e3
+    (k5,) = [k for k in kernels if k["name"] == "decode_pair_rng"]
+    log(f"[32] K6 over a rank's {half} lanes: {k6_ms:.3f} ms per launch "
+        f"(plain {k6_plain:.3f} ms, bound {k6_bound:.4f} ms by "
+        f"{'bytes' if t_bytes >= t_ops else 'operations'}, "
+        f"{k6_bound / k6_ms:.1%} of it), bitwise its plain version; K5 at "
+        f"the rank's launch shape ({P} pairs, as [11]) {k5['ms']:.3f} ms; "
+        f"rank 0 launched K5 {a['launches'][0]} and K6 {a['launches'][1]} "
+        f"times in its {M16_NES_ITERS} iterations ({card})")
+    shutil.rmtree(work)
+    log(f"[32] phase: {time.perf_counter() - t_phase:.1f} s")
+    return [
+        {**{k: k5[k] for k in ("route", "source", "replaces", "max_abs_err",
+                               "ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+         "name": "decode_pair_rng_rank_half", "launches": a["launches"][0],
+         "pairs_per_rank": half, "launch_shape_as": "decode_pair_rng"},
+        {"name": "pair_grad_rng_rank_half", "route": "cuda",
+         "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+         "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py:587",
+         "launches": a["launches"][1], "max_abs_err": k6_err, "ms": k6_ms,
+         "plain_ms": k6_plain, "bound_ms": k6_bound,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": None, "lanes": half,
+         "theta_max_abs_diff_one_process": float(dth.max()),
+         "grad_max_share_of_sum_order_bound": float(
+             (diff / bound.clamp_min(1e-300)).max())},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -3827,6 +4533,9 @@ def main() -> int:
     profile_phase()
     sens_dump_phase(card, data, xent)
     shutil.rmtree(xent["runs_dir"])
+    layout_rows, es_ref = es_layout_phase(card, data)
+    kernels += layout_rows
+    kernels += m16_phase(card, task, es_ref, kernels)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3836,5 +4545,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profile_main() if sys.argv[1:] == ["--profile-phase"]
-             else main())
+    if sys.argv[1:] == ["--profile-phase"]:
+        sys.exit(profile_main())
+    if sys.argv[1:2] == ["--rank-phase"]:
+        sys.exit(rank_main(sys.argv[2:]))
+    sys.exit(main())

@@ -20,6 +20,22 @@ decoder (the norm variants), MNIST evaluates them as they are
 (``MnistTask.rollout``). Generation 0 is fresh random inits, one
 per seed.
 
+With ``tpu.es_decode_layout: true`` (M13b; "auto" resolves off, as in the
+JAX package) and a task with a decode layout, the children are built in
+decode order instead: ``parent_dec + scale_dec * N(0, 1)`` over the padded
+decode-ordered axis (``ops/mutation.build_children_dec``; the parents and
+the scale rows laid out once per generation, pad lanes at scale 0), go
+straight into ``CocoTask.rollout_dec`` with no per-offspring ``to_dec``,
+and come back to torch order through the exact ``from_dec`` where they are
+kept. The noise is drawn over dim_dec, not dim: another stream than the
+torch-order path's for the same seeds, as in the JAX package.
+
+Under a process group (``tpu.mesh_shape``, ``parallel/``) every rank
+draws the same seeds, parents and batches, sweeps its shard of the
+offspring, and selects from the gathered fitnesses; the fused paths then
+rebuild the winners from their seeds (``_gen_core``). Trajectories are
+bitwise those of one process.
+
 Three ways to run a generation, as in the JAX package:
 
 * plain (``ESMaster._plain_step``): host validation of the previous
@@ -52,7 +68,6 @@ sweep returns the children's tokens and the master scores them
 (``task.host_fitness``); the fused paths need the device scorer (JAX:
 es.py:856-870).
 
-Not ported, and refused: ``tpu.es_decode_layout: true`` and a device mesh.
 ``tpu.profile`` traces the dispatch that runs generation 2
 (``MasterBase._profile_hook``).
 """
@@ -73,6 +88,7 @@ from .snapshot import save_snapshot
 from ..ops.mutation import (
     MutationKind,
     build_children,
+    build_children_dec,
     normal_from_seed,
     proportional_factor,
 )
@@ -83,6 +99,10 @@ from ..utils.files import remove_all_files_but
 logger = logging.getLogger(__name__)
 
 __all__ = ["ESEngine", "ESMaster", "podium_merge"]
+
+
+def _identity(x):
+    return x
 
 
 def podium_merge(e_rows: torch.Tensor, e_scores: torch.Tensor,
@@ -103,25 +123,36 @@ def podium_merge(e_rows: torch.Tensor, e_scores: torch.Tensor,
 
 
 class ESEngine(PopulationEngine):
-    """Device-side math for NIC-ES generations on one card."""
+    """Device-side math for NIC-ES generations: one card, or this rank's
+    shard of the population under a process group (``mesh``)."""
 
     def __init__(self, task, mutation: MutationKind, pop_chunk: int = 0,
-                 use_layout: object = "auto", **sens):
-        """``sens``: the SM-G settings of ``PopulationEngine``."""
+                 use_layout: object = "auto", mesh=None, **sens):
+        """``use_layout``: only True builds the children in decode order
+        (``tpu.es_decode_layout``; "auto" resolves off, as in the JAX
+        package, es.py:583-591), and only where the task has a decode
+        layout (fused decode, device scoring); ``mesh``: this rank's
+        ``RankGroup``; ``sens``: the SM-G settings of ``PopulationEngine``."""
         super().__init__(task, pop_chunk=pop_chunk, mutation=mutation,
-                         **sens)
-        if use_layout is True:
-            raise NotImplementedError(
-                "tpu.es_decode_layout=true (children built in decode order) "
-                "is not ported yet; leave it at its default")
+                         mesh=mesh, **sens)
+        # an identity check: a truthy near-miss such as 1 stays off
+        self._layout = (getattr(task, "decode_layout", None)
+                        if use_layout is True else None)
+        # kinds whose noise scale differs per parent: the SM-G rows and the
+        # SM-PROPORTIONAL factors; the others share one scale row
+        self._per_parent_scale = (mutation.is_gradient
+                                  or mutation.is_proportional)
         self.device = task.device
 
     # ---- the test seams: what a child's randomness is -------------------------
 
     def normal_of(self, seed: int) -> torch.Tensor:
-        """The N(0, 1) noise of offspring ``seed`` (dim,), f32 on the
-        device. Tests replace this with the JAX package's realized noise."""
-        return normal_from_seed(seed, self.dim, self.device)
+        """The N(0, 1) noise of offspring ``seed``, f32 on the device:
+        (dim,) in torch order, (dim_dec,) over the padded decode-ordered
+        axis with the layout. Tests replace this with the JAX package's
+        realized noise."""
+        n = self.dim if self._layout is None else self._layout.dim_dec
+        return normal_from_seed(seed, n, self.device)
 
     def fresh_of(self, seed: int) -> torch.Tensor:
         """Generation 0's child of ``seed``: a random init from its own
@@ -154,20 +185,70 @@ class ESEngine(PopulationEngine):
             return None
         return torch.stack([proportional_factor(p) for p in parents])
 
-    def _children(self, parents, factors, sigma, seeds, pidx_d, sens=None):
-        """(len(seeds), dim) children; ``parents`` None: fresh inits."""
+    def _scale_rows_dec(self, parents, sigma, sens):
+        """The layout's noise-scale rows (R, dim_dec): a child's delta is
+        its row times N(0, 1), the row ``shape_noise``'s factors of
+        (sigma, parent, sensitivity), laid out with pads 0 (JAX: es.py:
+        145-170). Per-parent rows for SM-G (``sens`` (P, dim)) and
+        SM-PROPORTIONAL; one shared row otherwise (SM-VECTOR's ``sens``
+        (dim,))."""
+        scale = torch.full((self.dim,), float(sigma), dtype=torch.float32,
+                           device=self.device)
+        if self.mutation.is_safe:
+            scale = scale / sens
+        if self.mutation.is_proportional:
+            scale = scale * self._factors(parents)
+        return self._layout.to_dec(scale.reshape(-1, self.dim),
+                                   pad_scale=0.0)
+
+    def _child_ctx(self, parents, sigma, sens=None):
+        """(build, rollout, finish) of one generation's children (JAX:
+        es.py:172-200). ``build(seeds, pidx_d)`` makes the children of host
+        seeds and device parent rows in rollout space: decode order with
+        the layout, torch order otherwise; ``rollout(children, seeds,
+        idx_d, consts)`` is the matching task entry; ``finish`` maps built
+        children back to torch order (the exact ``from_dec`` with the
+        layout). The parents and scale rows are laid out once here, never
+        per offspring. ``parents`` None: generation 0's fresh inits."""
         if parents is None:
-            return torch.stack([self.fresh_of(s) for s in seeds])
-        noise = torch.stack([self.normal_of(int(s)) for s in seeds])
-        return build_children(parents, pidx_d, noise, float(sigma), factors,
-                              sens)
+            return (lambda seeds, _: torch.stack([self.fresh_of(s)
+                                                  for s in seeds]),
+                    self._rollout, _identity)
+        lay = self._layout
+        if lay is None:
+            factors = self._factors(parents)
+
+            def build(seeds, pidx_d):
+                noise = torch.stack([self.normal_of(int(s)) for s in seeds])
+                return build_children(parents, pidx_d, noise, float(sigma),
+                                      factors, sens)
+
+            return build, self._rollout, _identity
+        parents_dec = lay.to_dec(parents)
+        scale_dec = self._scale_rows_dec(parents, sigma, sens)
+
+        def build_dec(seeds, pidx_d):
+            noise = torch.stack([self.normal_of(int(s)) for s in seeds])
+            return build_children_dec(parents_dec, scale_dec, pidx_d, noise)
+
+        return build_dec, self._rollout_dec, lay.from_dec
+
+    def _lanes(self, seeds):
+        return (self.lanes_of(seeds) if getattr(self.task, "samples", False)
+                else None)
 
     def _rollout(self, children, seeds, idx_d, consts) -> dict:
-        """The children's artifact: ``{"fitness"}`` from a device-scored
-        task, the tokens of a host-scored one."""
-        lanes = (self.lanes_of(seeds) if getattr(self.task, "samples", False)
-                 else None)
-        return self.task.rollout(children, idx_d, consts=consts, lanes=lanes)
+        """Torch-order children's artifact: ``{"fitness"}`` from a
+        device-scored task, the tokens of a host-scored one."""
+        return self.task.rollout(children, idx_d, consts=consts,
+                                 lanes=self._lanes(seeds))
+
+    def _rollout_dec(self, children, seeds, idx_d, consts) -> dict:
+        """Decode-ordered children's ``{"fitness"}``: straight into the
+        kernels (``CocoTask.rollout_dec``), no per-offspring ``to_dec``."""
+        idx = idx_d.reshape(1, -1).expand(children.shape[0], -1)
+        return {"fitness": self.task.rollout_dec(
+            children, idx, consts=consts, lanes=self._lanes(seeds))}
 
     def _chunks(self, seeds, pidx):
         """(n_chunks, chunk, host seed rows (n_chunks, chunk), device pidx
@@ -181,6 +262,19 @@ class ESEngine(PopulationEngine):
                 self.device)
         return n_chunks, chunk, seeds_l, pidx_l
 
+    def _sweep(self, ctx, plan, seeds, pidx, idx_row, consts):
+        """Yields (real members of the chunk, children in rollout space,
+        artifact) for each chunk of this rank's shard of the sweep."""
+        build, rollout, _ = ctx
+        n_chunks, chunk, seeds_l, pidx_l = self._chunks(
+            plan.local(seeds), None if pidx is None else plan.local(pidx))
+        idx_d = to_device(np.asarray(idx_row, np.int64), self.device)
+        for c in range(n_chunks):
+            children = build(seeds_l[c], None if pidx_l is None
+                             else pidx_l[c])
+            yield (min(chunk, plan.per_rank - c * chunk), children,
+                   rollout(children, seeds_l[c], idx_d, consts))
+
     def _gen_core(self, parents, sigma, seeds, pidx, idx_row, consts, vconsts,
                   n_keep: int, n_cands: int, sens=None, sens_idx=None):
         """One generation on the card given the assembled (P, dim) parents:
@@ -188,28 +282,50 @@ class ESEngine(PopulationEngine):
         the sweep, truncation selection, the kept children and the
         candidates' validation (JAX: es.py:279-353). ``sens``: SM-VECTOR's
         vector (SM-G computes its own; other kinds ignore ``sens_idx``).
-        Returns (fitness (L,), selected
-        (n_keep, dim) best first, candidates (n_cands, dim) = its prefix,
-        candidate scores (n_cands,)), with no host sync."""
+        One rank keeps the winners from the sweep in a pool of n_keep +
+        chunk rows (in rollout space) with no host sync; several ranks
+        gather the fitnesses and rebuild the winners from their seeds, the
+        same bits (``materialize``), since each rank's pool holds its own
+        shard only. SM-G rows and the validation are whole on every rank.
+        Returns (fitness (L,), selected (n_keep, dim) best first,
+        candidates (n_cands, dim) = its prefix, candidate scores
+        (n_cands,))."""
         L = len(seeds)
         if self.mutation.is_gradient:
             sens = self.sensitivities(parents, sens_idx, seeds[0])
-        n_chunks, chunk, seeds_l, pidx_l = self._chunks(seeds, pidx)
-        idx_d = to_device(np.asarray(idx_row, np.int64), self.device)
-        factors = self._factors(parents)
-        S = n_keep + chunk
-        pool = torch.empty((S, self.dim), dtype=torch.float32,
-                           device=self.device)
-        pool_fit = torch.empty(S, dtype=torch.float32, device=self.device)
-        kept = torch.empty(0, dtype=torch.int64, device=self.device)
-        free = torch.arange(S, device=self.device)
+        ctx = self._child_ctx(parents, sigma, sens)
+        plan = self._shard(L)
+        sweep = self._sweep(ctx, plan, seeds, pidx, idx_row, consts)
+        if plan.world > 1:
+            fitness = self._gather(torch.cat(
+                [art["fitness"][:n] for n, _, art in sweep]), plan)
+            keep = torch.argsort(-fitness, stable=True)[:n_keep].cpu().numpy()
+            build, _, finish = ctx
+            selected = finish(build(np.asarray(seeds, np.uint32)[keep],
+                                    to_device(np.asarray(pidx, np.int64)[keep],
+                                              self.device)))
+        else:
+            fitness, selected = self._keep_best(sweep, ctx[2], n_keep)
+        cands = selected[:n_cands]
+        cand_scores = torch.stack([self.task.validate_device(th, vconsts)
+                                   for th in cands])
+        return fitness, selected, cands, cand_scores
+
+    def _keep_best(self, sweep, finish, n_keep: int):
+        """(fitness (L,), the best n_keep children best first in torch
+        order) of a whole sweep, with no host sync: after each chunk a
+        stable merge keeps the best n_keep children seen so far in a pool of
+        n_keep + chunk rows."""
+        pool = pool_fit = kept = free = None
         fits = []
-        for c in range(n_chunks):
-            n = min(chunk, L - c * chunk)  # real members of the chunk
-            children = self._children(parents, factors, sigma, seeds_l[c],
-                                      pidx_l[c], sens)
-            fit = self._rollout(children, seeds_l[c], idx_d,
-                                consts)["fitness"]
+        for n, children, art in sweep:
+            fit = art["fitness"]
+            if pool is None:
+                S = n_keep + children.shape[0]
+                pool = children.new_empty((S, children.shape[1]))
+                pool_fit = fit.new_empty(S)
+                kept = torch.empty(0, dtype=torch.int64, device=self.device)
+                free = torch.arange(S, device=self.device)
             fits.append(fit[:n])
             slots = free[:n]
             pool.index_copy_(0, slots, children[:n])
@@ -223,12 +339,7 @@ class ESEngine(PopulationEngine):
                                  stable=True))
             kept, free = order[:n_keep], torch.cat([order[n_keep:],
                                                     free[n:]])
-        fitness = torch.cat(fits)
-        selected = pool.index_select(0, kept)
-        cands = selected[:n_cands]
-        cand_scores = torch.stack([self.task.validate_device(th, vconsts)
-                                   for th in cands])
-        return fitness, selected, cands, cand_scores
+        return torch.cat(fits), finish(pool.index_select(0, kept))
 
     # ---- host entry points ------------------------------------------------------
 
@@ -238,38 +349,35 @@ class ESEngine(PopulationEngine):
         """The plain path's sweep: seeds (L,) uint32, pidx (L,) parent rows
         (ignored when ``fresh``), idx_row (B,), ``sens`` the safe kinds'
         sensitivity (``build_children``) -> the artifact with a leading
-        (L,) axis on the device: ``{"fitness"}``, or a host-scored task's
-        tokens (JAX: es.py:423-441)."""
-        L = len(seeds)
-        n_chunks, _, seeds_l, pidx_l = self._chunks(
-            seeds, None if fresh else pidx)
-        idx_d = to_device(np.asarray(idx_row, np.int64), self.device)
-        consts = self.task.device_consts()
+        member axis on the device: ``{"fitness"}``, or a host-scored task's
+        tokens (JAX: es.py:423-441). Under a group the rank's shard's
+        (``ShardPlan.per_rank`` members); ``host_fitness`` gathers."""
         parents = None if fresh else parents
-        factors = self._factors(parents)
-        arts = [self._rollout(self._children(
-                    parents, factors, sigma, seeds_l[c],
-                    None if pidx_l is None else pidx_l[c], sens),
-                    seeds_l[c], idx_d, consts)
-                for c in range(n_chunks)]
-        return {k: torch.cat([a[k] for a in arts])[:L] for k in arts[0]}
+        plan = self._shard(len(seeds))
+        arts = [art for _, _, art in self._sweep(
+            self._child_ctx(parents, sigma, sens), plan, seeds,
+            None if fresh else pidx, idx_row, self.task.device_consts())]
+        return {k: torch.cat([a[k] for a in arts])[:plan.per_rank]
+                for k in arts[0]}
 
     def materialize(self, parents, sigma, seeds, pidx, fresh: bool = False,
                     sens=None) -> torch.Tensor:
-        """Rebuild the children of (seeds, pidx) from their lineage: the
-        same builder as the sweep, so the same bits (JAX: es.py:544-555)."""
-        seeds = np.asarray(seeds, np.uint32)
-        if fresh:
-            return self._children(None, None, sigma, seeds, None)
-        return self._children(parents, self._factors(parents), sigma, seeds,
-                              to_device(np.asarray(pidx, np.int64),
-                                         self.device), sens)
+        """Rebuild the children of (seeds, pidx) from their lineage, in
+        torch order: the same builder as the sweep, so the same bits (JAX:
+        es.py:544-555); with the layout, the decode-ordered children mapped
+        back by the exact ``from_dec``."""
+        build, _, finish = self._child_ctx(None if fresh else parents, sigma,
+                                           sens)
+        pidx_d = None if fresh else to_device(np.asarray(pidx, np.int64),
+                                              self.device)
+        return finish(build(np.asarray(seeds, np.uint32), pidx_d))
 
     def fused_generation(self, elite_rows, n_valid: int, selected_prev, sigma,
                          seeds: np.ndarray, pidx: np.ndarray,
                          idx_row: np.ndarray, policy, n_cands: int,
                          sens=None, sens_idx=None):
-        """One generation with no host sync (JAX: es.py:240-277,443-475).
+        """One generation, with no host sync in one process (JAX: es.py:
+        240-277,443-475; under a group the fitnesses' gather syncs).
         Parents: row i = elite_rows[i] for i < n_valid, then the previous
         selected children, rows past the true count repeating the last
         child (never drawn: pidx < n_parents). ``sens``: SM-VECTOR's
@@ -346,8 +454,8 @@ class ESEngine(PopulationEngine):
 class ESMaster(MasterBase):
     """The NIC-ES training loop (port of ``ESMaster`` in
     ``nes_img_captioning_tpu/algorithms/es.py``): parents, candidates and
-    the podium's rows on the card, bookkeeping on the host. One process on
-    one card.
+    the podium's rows on the card, bookkeeping on the host; one card, or
+    one rank of a process group (``MasterBase``).
 
     The host numpy RNG is drawn as the JAX package draws it (candidate
     seeds of generation 0; per generation the batch, the offspring seeds,
@@ -358,20 +466,20 @@ class ESMaster(MasterBase):
 
     Every mutation kind runs: SM-G-SUM and SM-G-ABS with their per-parent
     sensitivities (``tpu.sensitivity_*``), SM-VECTOR with the vector of
-    ``safe_mutation_vector``; a host-scored task on the plain path. Not
-    ported yet, and refused: a device mesh and ``tpu.es_decode_layout:
-    true``."""
+    ``safe_mutation_vector``; a host-scored task on the plain path.
+    ``tpu.es_decode_layout: true`` builds the children in decode order."""
 
-    def __init__(self, exp: dict, device=None, data=None):
-        """``device``: the card unless ``"cpu"`` is passed; ``data``: the
-        task's in-memory data (``make_task``)."""
-        super().__init__(exp, device=device, data=data)
+    def __init__(self, exp: dict, device=None, data=None, mesh=None):
+        """``device``, ``data`` and ``mesh`` as ``MasterBase`` takes
+        them."""
+        super().__init__(exp, device=device, data=data, mesh=mesh)
         tpu = self.tpu_cfg
         self.experiment = ESExperiment(exp, self.config, self.task)
         # "auto" resolves off, as in the JAX package (es.py:587-591)
         self.engine = ESEngine(self.task, self.mutation,
                                pop_chunk=tpu.pop_chunk,
                                use_layout=tpu.es_decode_layout,
+                               mesh=self.mesh,
                                sens_underflow=self._underflow,
                                sens_precision=tpu.sensitivity_precision,
                                sens_probes=tpu.sensitivity_probes)
@@ -602,8 +710,7 @@ class ESMaster(MasterBase):
         artifacts = self.engine.eval_generation(
             self.parents_mat, sigma, seeds, pidx, idx_row, fresh=fresh,
             sens=sens)
-        fitness = np.asarray(
-            self.task.host_fitness(artifacts, idx_row)).reshape(L)
+        fitness = self.engine.host_fitness(artifacts, idx_row, L).reshape(L)
 
         # 3. truncation selection (reference: nic_es_master.py:155-167)
         order = np.argsort(-fitness, kind="stable")

@@ -1,8 +1,8 @@
 """What the NES and ES training loops share (``NESMaster``, ``ESMaster``):
-the experiment's parse and refusals, the task, the host RNG and its batch
-sampler, a resume from a z_info file, the podium's deferred slot files and
-the cadence of a block of chained generations, and ``tpu.profile``'s
-trace.
+the experiment's parse and refusals, the process group, the task, the host
+RNG and its batch sampler, a resume from a z_info file, the podium's
+deferred slot files and the cadence of a block of chained generations, and
+``tpu.profile``'s trace.
 
 The snapshot's loader sidecar carries the seed stream's position
 (``seed_rng_state``) beside the sampler's, so a resumed run continues the
@@ -12,9 +12,12 @@ sampler, and its resumed run draws the seeds of generation 1 again.
 
 from __future__ import annotations
 
+import atexit
 import json
 import logging
 import os
+import shutil
+import tempfile
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from .snapshot import load_loader_state
 from .statistics import Statistics
 from ..data.core import build_sampler
 from ..ops.mutation import MutationKind
+from ..parallel.mesh import make_mesh, pop_axis_size
 from ..ops.sensitivity import (
     load_sensitivity_file,
     sm_vector_normalize,
@@ -37,41 +41,67 @@ logger = logging.getLogger(__name__)
 __all__ = ["MasterBase", "setup_log_dir"]
 
 
-def setup_log_dir(exp: dict) -> str:
+def setup_log_dir(exp: dict, primary: bool = True) -> str:
     """logs/{algo}_{dataset}_{net}_{pid} unless the experiment names one
-    (reference: tools/setup.py:22-25)."""
-    log_dir = exp.get("log_dir") or "logs/{}_{}_{}_{}".format(
-        exp["algorithm"], exp["dataset"], exp["policy_options"]["net"],
-        os.getpid())
-    mkdir_p(log_dir)
+    (reference: tools/setup.py:22-25). A non-primary rank keeps its whole
+    bookkeeping in a private scratch directory, removed when the process
+    exits: its host logic (podium files, model writes, snapshots) stays the
+    primary's bit for bit, and only the primary's directory holds the run's
+    artifacts (JAX: nes.py:662-684)."""
+    if primary:
+        log_dir = exp.get("log_dir") or "logs/{}_{}_{}_{}".format(
+            exp["algorithm"], exp["dataset"], exp["policy_options"]["net"],
+            os.getpid())
+        mkdir_p(log_dir)
+    else:
+        log_dir = tempfile.mkdtemp(prefix="nes_replica_logdir_")
+        atexit.register(shutil.rmtree, log_dir, ignore_errors=True)
     exp["log_dir"] = log_dir
     return log_dir
 
 
 class MasterBase:
-    """One process on one card. Refused when set: a device mesh
-    (``tpu.mesh_shape``). A subclass sets
+    """One process on one card, or one rank of a process group
+    (``parallel/``): every rank runs the whole loop on the same draws and
+    sweeps its shard of the population. A subclass sets
     ``self.experiment`` before a resume and keeps the podium's device rows
     in ``self._elites_dev``."""
 
-    def __init__(self, exp: dict, device=None, data=None):
-        """``device``: the card unless ``"cpu"`` is passed; ``data``: the
-        task's in-memory data instead of its files (``make_task``: a
-        CocoData, or ``load_mnist``'s arrays)."""
+    def __init__(self, exp: dict, device=None, data=None, mesh=None):
+        """``device``: the card unless ``"cpu"`` is passed (a rank's own
+        card in a group: ``RankGroup.device``); ``data``: the task's
+        in-memory data instead of its files (``make_task``: a CocoData, or
+        ``load_mnist``'s arrays); ``mesh``: this rank's ``RankGroup``, by
+        default the process's (``parallel.make_mesh``). ``tpu.mesh_shape``
+        must hold as many ranks as the group, and a group needs
+        ``tpu.seed``."""
         from ..tasks import make_task
 
         self.exp = exp
         self.config = parse_config(exp)
         self.tpu_cfg = tpu = parse_tpu_config(exp)
-        if tpu.mesh_shape is not None:
-            raise NotImplementedError(
-                "tpu.mesh_shape is not ported yet; leave it at its default")
+        self.mesh = mesh if mesh is not None else make_mesh()
+        world = pop_axis_size(self.mesh)
+        if tpu.mesh_shape is not None and int(np.prod(tpu.mesh_shape)) \
+                != world:
+            n = int(np.prod(tpu.mesh_shape))
+            raise ValueError(
+                f"tpu.mesh_shape {list(tpu.mesh_shape)} holds {n} ranks and "
+                f"this process is one of {world}: start the run with "
+                f"nes_img_captioning_tpu_torch/main.py, which starts {n} "
+                f"local ranks, or with --num_processes {n} on each")
+        if self.mesh is not None and tpu.seed is None:
+            raise ValueError(
+                "a process group needs tpu.seed: every rank must draw the "
+                "same seeds and batches")
+        if self.mesh is not None and device is None:
+            device = self.mesh.device
         popts = exp.get("policy_options", {})
         mopts = popts.get("model_options", {})
         self.mutation = MutationKind(mopts.get("safe_mutations", "") or "")
         # the safe kinds' clamp (reference: safe_mutations.py:28-32,62-63)
         self._underflow = float(mopts.get("safe_mutation_underflow", 0.01))
-        setup_log_dir(exp)
+        setup_log_dir(exp, primary=self.mesh is None or self.mesh.rank == 0)
 
         self.task = make_task(exp, self.config, tpu, device=device,
                               data=data)

@@ -57,6 +57,15 @@ with the validation on the card: each first validates its pre-update theta
 (``CocoTask.validate_device``) and merges it into the device podium
 (``es.podium_merge``), with no host sync until the block's rows are read.
 
+Under a process group (``tpu.mesh_shape``, ``parallel/``) every rank
+draws the same seeds and batches and rolls out its contiguous shard of the
+pairs; the fitnesses are gathered, every rank computes the same
+centered-rank weights, and each rank's lanes give a partial gradient (K6
+over its lanes, or the delta operands' ordered sum) summed over the ranks
+in rank order. The fitnesses are bitwise one process's; the gradient is
+one process's sum in another order (its rank-order sum of partial sums),
+so theta agrees within that rounding, and is the same on every rank.
+
 The eval paths feed the fitness scorer the same tensors laid out the same
 way, and every gradient sums ``w_i * delta_i`` in pair order with each
 product rounded to f32 first (K6's order), so with equal tokens and equal
@@ -90,7 +99,8 @@ __all__ = ["NESEngine", "NESMaster", "setup_log_dir"]
 
 
 class NESEngine(PopulationEngine):
-    """Device-side math for NES generations on one card."""
+    """Device-side math for NES generations: one card, or this rank's
+    shard of the pairs under a process group (``mesh``)."""
 
     # eval_generation hands its deltas to update while the (F, dim) f32
     # matrix fits (JAX: nes.py:176)
@@ -100,15 +110,16 @@ class NESEngine(PopulationEngine):
                  pop_chunk: int = 0, kernel_perturb: object = "auto",
                  kernel_noise: object = "auto", delta_dtype: str = "f32",
                  sens_batch: int = 0, inline_sens: bool | None = None,
-                 **sens):
-        """``sens``: the SM-G settings of ``PopulationEngine``;
+                 mesh=None, **sens):
+        """``mesh``: this rank's ``RankGroup`` (None: one process);
+        ``sens``: the SM-G settings of ``PopulationEngine``;
         ``sens_batch``: the sweep's batch rows (``tpu.sensitivity_batch``).
         ``inline_sens``: each generation computes its SM-G sensitivity from
         its own theta; None (auto) turns it on for SM-G on a device-scored
         task, as the JAX package does (nes.py:76-104); a host-scored task's
         master computes it (``NESMaster._maybe_sensitivity``)."""
         super().__init__(task, pop_chunk=pop_chunk, mutation=mutation,
-                         **sens)
+                         mesh=mesh, **sens)
         self.optimizer = optimizer
         self.inline_sens = (mutation.is_gradient and task.fitness_on_device
                             if inline_sens is None else bool(inline_sens))
@@ -240,11 +251,14 @@ class NESEngine(PopulationEngine):
         return self.optimizer.step(opt_state, theta, globalg, stepsize)
 
     @staticmethod
-    def _pair_weights(fitnesses, lanes_shape):
-        """Per-pair weights from the (F, 2) fitnesses, zero-padded to the
-        (n_chunks, chunk) lane layout (pad lanes repeat a real seed)."""
+    def _pair_weights(fitnesses, lanes_shape, plan=None):
+        """Per-pair weights from the (F, 2) fitnesses of all the pairs, the
+        rank's of ``plan`` (pads 0), zero-padded to the (n_chunks, chunk)
+        lane layout of its sweep (pad lanes repeat a real seed)."""
         ranked = compute_centered_ranks(fitnesses)
         w = ranked[:, 0] - ranked[:, 1]
+        if plan is not None:
+            w = plan.local_weights(w)
         n_lanes = lanes_shape[0] * lanes_shape[1]
         w = torch.nn.functional.pad(w, (0, n_lanes - w.shape[0]))
         return w.reshape(lanes_shape)
@@ -259,16 +273,20 @@ class NESEngine(PopulationEngine):
         Returns (theta, opt_state, packed) with packed = [fitnesses (2F) |
         ratio | mean|theta|] on theta's device. A device-scored task's
         generation; a host-scored one runs ``eval_generation`` and
-        ``update``."""
+        ``update``. Under a group the rank rolls out its shard of the pairs,
+        the fitnesses are gathered, and its lanes' partial gradient (K6, or
+        the delta operands' sum) is summed over the ranks in rank order:
+        the same theta on every rank, within the sum order's rounding of one
+        process's (JAX: a psum of partial sums, nes.py:18-21)."""
         task, lay = self.task, self._layout
         if not task.fitness_on_device:
             raise ValueError("a host-scored task's generation is "
                              "eval_generation, host_fitness, then update")
         if self.inline_sens:
             sens = self.sensitivity(theta, idx[0], seeds[0])
-        F = seeds.shape[0]
-        n_chunks, chunk, seeds_l, idx_l = self._chunked(seeds, idx,
-                                                        theta.device)
+        plan = self._shard(seeds.shape[0])
+        n_chunks, chunk, seeds_l, idx_l = self._chunked(
+            plan.local(seeds), plan.local(idx), theta.device)
         consts = task.device_consts()
 
         scale = self._scale_vec(theta, sens, sigma)
@@ -298,9 +316,10 @@ class NESEngine(PopulationEngine):
                 fits.append(self._rollout_members(
                     base_vec, deltas, idx_l[c], seeds_l[c],
                     consts)["fitness"].reshape(chunk, 2))
-        fitnesses = torch.cat(fits).reshape(-1, 2)[:F]
+        fitnesses = self._gather(
+            torch.cat(fits).reshape(-1, 2)[:plan.per_rank], plan)
 
-        weights = self._pair_weights(fitnesses, seeds_l.shape)
+        weights = self._pair_weights(fitnesses, seeds_l.shape, plan)
         if self._kernel_noise:
             from ..ops.decode_cuda import pair_grad_rng_flat
 
@@ -312,8 +331,8 @@ class NESEngine(PopulationEngine):
                 grad = self._accumulate(grad, weights[c],
                                         self._deltas(scale_dec, seeds_l[c]))
         opt_state, theta, ratio = self._apply_grad(
-            theta, opt_state, from_dec(grad), fitnesses.numel(), stepsize,
-            l2coeff)
+            theta, opt_state, from_dec(self._reduce(grad)),
+            fitnesses.numel(), stepsize, l2coeff)
         packed = torch.cat([fitnesses.reshape(-1), ratio.reshape(1),
                             theta.abs().mean().reshape(1)])
         return theta, opt_state, packed
@@ -377,14 +396,16 @@ class NESEngine(PopulationEngine):
         [pos, neg] per pair; the deltas (n_chunks, chunk, dim) f32 in torch
         order, or None when they exceed ``DELTA_BYTES_LIMIT``). Each pair's
         delta is ``scale * N(0, 1)`` of ``normal_of``; pass the deltas to
-        ``update`` to skip drawing them again. The decode-layout path
-        (fused decode, device scoring) runs ``generation`` instead."""
+        ``update`` to skip drawing them again. Under a group, both are the
+        rank's shard's (``ShardPlan.per_rank`` pairs; ``host_fitness``
+        gathers the fitnesses). The decode-layout path (fused decode, device
+        scoring) runs ``generation`` instead."""
         if self._layout is not None:
             raise ValueError("eval_generation rolls out torch-order members;"
                              " the decode-layout path runs generation")
-        F = seeds.shape[0]
-        n_chunks, chunk, seeds_l, idx_l = self._chunked(seeds, idx,
-                                                        theta.device)
+        plan = self._shard(seeds.shape[0])
+        n_chunks, chunk, seeds_l, idx_l = self._chunked(
+            plan.local(seeds), plan.local(idx), theta.device)
         carry = n_chunks * chunk * self.dim * 4 <= self.DELTA_BYTES_LIMIT
         consts = self.task.device_consts()
         scale = self._scale_vec(theta, sens, sigma)
@@ -395,8 +416,9 @@ class NESEngine(PopulationEngine):
                 kept.append(deltas)
             arts.append(self._rollout_members(theta, deltas, idx_l[c],
                                               seeds_l[c], consts))
-        art = {k: torch.cat([a[k] for a in arts])[:2 * F].reshape(
-            F, 2, *arts[0][k].shape[1:]) for k in arts[0]}
+        n = plan.per_rank
+        art = {k: torch.cat([a[k] for a in arts])[:2 * n].reshape(
+            n, 2, *arts[0][k].shape[1:]) for k in arts[0]}
         return art, (torch.stack(kept) if carry else None)
 
     def update(self, theta, opt_state, sens, sigma, seeds: np.ndarray,
@@ -405,12 +427,16 @@ class NESEngine(PopulationEngine):
         (JAX: nes.py:633-650): the centered-rank weights, the gradient
         summed over the pairs in order (``_accumulate``, K6's order) from
         eval_generation's ``deltas``, or from deltas drawn again from the
-        seeds (the same bits), then the optimizer. Returns (opt_state,
+        seeds (the same bits), then the optimizer. Under a group
+        ``fitnesses`` are all the pairs', ``deltas`` the rank's shard's, and
+        the partial sums are summed over the ranks. Returns (opt_state,
         theta, ratio)."""
-        n_chunks, chunk, seeds_l, _ = self._chunked(seeds, None, None)
+        plan = self._shard(seeds.shape[0])
+        n_chunks, chunk, seeds_l, _ = self._chunked(plan.local(seeds), None,
+                                                    None)
         fitnesses = torch.as_tensor(np.asarray(fitnesses, np.float32),
                                     device=theta.device)
-        weights = self._pair_weights(fitnesses, (n_chunks, chunk))
+        weights = self._pair_weights(fitnesses, (n_chunks, chunk), plan)
         if deltas is None:
             scale = self._scale_vec(theta, sens, sigma)
         grad = torch.zeros_like(theta)
@@ -418,8 +444,8 @@ class NESEngine(PopulationEngine):
             grad = self._accumulate(
                 grad, weights[c], deltas[c] if deltas is not None
                 else self._deltas(scale, seeds_l[c]))
-        return self._apply_grad(theta, opt_state, grad, fitnesses.numel(),
-                                stepsize, l2coeff)
+        return self._apply_grad(theta, opt_state, self._reduce(grad),
+                                fitnesses.numel(), stepsize, l2coeff)
 
     @staticmethod
     def unpack_val(rows, F: int, E: int):
@@ -464,19 +490,21 @@ class NESMaster(MasterBase):
     per dispatch then.
 
     ``tpu.profile`` traces the dispatch that runs generation 2 into
-    ``<log_dir>/profile/`` (``MasterBase._profile_hook``). Not ported yet,
-    and refused when set: a device mesh (``tpu.mesh_shape``)."""
+    ``<log_dir>/profile/`` (``MasterBase._profile_hook``). Under a process
+    group every rank runs this loop on the same draws and the engine
+    shards the pairs (``NESEngine.generation``)."""
 
-    def __init__(self, exp: dict, device=None, data=None):
-        """``device``: the card unless ``"cpu"`` is passed; ``data``: the
-        task's in-memory data (``make_task``)."""
-        super().__init__(exp, device=device, data=data)
+    def __init__(self, exp: dict, device=None, data=None, mesh=None):
+        """``device``, ``data`` and ``mesh`` as ``MasterBase`` takes
+        them."""
+        super().__init__(exp, device=device, data=data, mesh=mesh)
         tpu = self.tpu_cfg
         self.experiment = NESExperiment(exp, self.config, self.task)
         self.optimizer = self.experiment.optimizer
         self.engine = NESEngine(
             self.task, self.optimizer, self.mutation,
-            pop_chunk=tpu.pop_chunk, kernel_perturb=tpu.kernel_perturb,
+            pop_chunk=tpu.pop_chunk, mesh=self.mesh,
+            kernel_perturb=tpu.kernel_perturb,
             kernel_noise=tpu.kernel_noise, delta_dtype=tpu.delta_dtype,
             sens_underflow=self._underflow,
             sens_precision=tpu.sensitivity_precision,
@@ -747,7 +775,7 @@ class NESMaster(MasterBase):
         the pre-update theta, then the step with the carried deltas."""
         artifacts, deltas = self.engine.eval_generation(
             self.theta, sens, sigma, seeds, idx)
-        fitnesses = self.task.host_fitness(artifacts, idx)
+        fitnesses = self.engine.host_fitness(artifacts, idx, len(seeds))
         del artifacts
         eval_score, fresh = self._fresh_eval()
         self._record_eval(eval_score, fresh=fresh)

@@ -2,8 +2,16 @@
 
 The reference splits a run into ``master`` and ``workers`` subcommands wired
 through Redis (reference: src/main.py:24-50); here the whole population loop
-is one process on one card, so ``master`` runs the experiment outright and
-``workers`` only explains that.
+is one program, so ``master`` runs the experiment outright and ``workers``
+only explains that.
+
+A run on n ranks (``parallel/``): every process runs this same command
+with its own ``--process_id``, ``--num_processes n`` and rank 0's
+``--coordinator host:port``; the experiment must set ``tpu.seed``. An
+experiment whose ``tpu.mesh_shape`` holds n > 1 ranks, run without
+``--num_processes``, starts its n ranks on this host itself (a local
+rendezvous), so one command runs on n cards. A rank takes the card
+``rank % device_count`` unless ``--device`` names one.
 
 Usage:
     python -m nes_img_captioning_tpu_torch.main master \\
@@ -11,14 +19,19 @@ Usage:
                                                  # mnist_nes.json, mnist_es.json
     python -m nes_img_captioning_tpu_torch.main master --device cpu \\
         --exp_file <experiment.json> --max_iterations 3
+    python -m nes_img_captioning_tpu_torch.main master --exp_file <exp.json> \\
+        --coordinator 10.0.0.1:29500 --num_processes 2 --process_id 0
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import sys
 
-from .utils.config import load_experiment
+import numpy as np
+
+from .utils.config import load_experiment, parse_tpu_config
 from .utils.logger import setup_logging
 
 
@@ -33,10 +46,17 @@ def run(argv=None):
     parser.add_argument("--plot", action="store_true", default=False)
     parser.add_argument("--max_iterations", type=int, default=None,
                         help="override config.max_nb_iterations")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on (default: the card; "
-                        "'cpu' runs the kernels' plain versions)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device to run on (default: the card, a "
+                        "rank's card rank %% device_count; 'cpu' runs the "
+                        "kernels' plain versions)")
+    # a multi-process run (replaces the reference's Redis TCP + shared-FS
+    # transport, src/dist.py:33-65): every process runs this command with
+    # its own --process_id; the experiment must set tpu.seed
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="host:port of process 0 (the tcp rendezvous)")
     parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     # accepted for reference-script compatibility; unused here
     parser.add_argument("--master_socket_path", type=str, default=None)
     parser.add_argument("--master_host", type=str, default=None)
@@ -46,28 +66,45 @@ def run(argv=None):
     args = parser.parse_args(argv)
 
     setup_logging()
-    if args.num_processes and args.num_processes > 1:
-        raise NotImplementedError(
-            "--num_processes > 1 (multi-card runs) is not ported yet")
     if args.who == "workers":
         logging.info(
-            "This framework runs the population loop in one process; there "
-            "is no separate worker fleet to start. Run `master`.")
+            "This framework runs the population loop as one program on "
+            "every rank; there is no separate worker fleet to start. Run "
+            "`master` (scaling comes from tpu.mesh_shape or "
+            "--num_processes).")
         return None
 
     exp = load_experiment(args.exp_file)
+    shape = parse_tpu_config(exp).mesh_shape
+    n_ranks = int(np.prod(shape)) if shape else 1
+    if args.num_processes is None and n_ranks > 1:
+        return _start_local_ranks(sys.argv[1:] if argv is None else argv,
+                                  n_ranks)
+
+    from .parallel import make_mesh
+    from .parallel.multihost import init_multihost, shutdown_multihost
+
+    init_multihost(args.coordinator, args.num_processes, args.process_id,
+                   device=args.device)
+    try:
+        return _run_master(args, exp, make_mesh(shape))
+    finally:
+        shutdown_multihost()
+
+
+def _run_master(args, exp: dict, mesh):
     algo = args.algo or exp["algorithm"]
     exp["algorithm"] = algo
     if algo == "nic_es":
         from .algorithms.es import ESMaster
 
         logging.info("RUNNING NIC-ES")
-        master = ESMaster(exp, device=args.device)
+        master = ESMaster(exp, device=args.device, mesh=mesh)
     elif algo == "nic_nes":
         from .algorithms.nes import NESMaster
 
         logging.info("RUNNING NIC-NES")
-        master = NESMaster(exp, device=args.device)
+        master = NESMaster(exp, device=args.device, mesh=mesh)
     else:
         raise ValueError(f"unknown algorithm {algo!r}")
 
@@ -81,6 +118,26 @@ def run(argv=None):
         if args.plot:
             master.stats.plot_stats(master.experiment.snapshot_dir())
     return master
+
+
+def _rank_main(rank: int, argv: list, n: int, port: int):
+    run(list(argv) + ["--coordinator", f"127.0.0.1:{port}",
+                      "--num_processes", str(n), "--process_id", str(rank)])
+
+
+def _start_local_ranks(argv: list, n: int):
+    """Run this command as ``n`` ranks on this host, each in a spawned
+    process that joins a local rendezvous; returns when all have ended (a
+    rank that fails ends the run with its error)."""
+    import torch.multiprocessing as mp
+
+    from .parallel.multihost import free_port
+
+    logging.info("tpu.mesh_shape holds %d ranks: starting them on this host",
+                 n)
+    mp.start_processes(_rank_main, args=(argv, n, free_port()), nprocs=n,
+                       join=True, start_method="spawn")
+    return None
 
 
 if __name__ == "__main__":

@@ -85,20 +85,26 @@ class DecodeLayout:
         return torch.cat(parts, -1)
 
     def from_dec(self, flat_dec: torch.Tensor) -> torch.Tensor:
-        """Flat decode-ordered vector -> flat torch order (pads dropped,
-        transposes undone). Linear."""
+        """Flat decode-ordered vector(s) (..., dim_dec) -> flat torch order
+        (..., dim), with the same leading axes (pads dropped, transposes
+        undone). Linear, and every step a copy: a row's bits do not depend
+        on the rows beside it, and ``to_dec`` restores the pads of a vector
+        whose pads hold their pad values."""
+        lead = flat_dec.shape[:-1]
         shaped = {}
         for name, leaf, shape, transposed, _, pad_axis in self.tensors:
             off = self._offsets[name]
-            t = flat_dec[off:off + int(np.prod(shape))].view(shape)
+            t = flat_dec[..., off:off + int(np.prod(shape))].reshape(
+                *lead, *shape)
             if pad_axis == 1:
-                t = t[:, : self.V1]
+                t = t[..., : self.V1]
             elif pad_axis == 0:
-                t = t[: self.V1]
+                t = t[..., : self.V1, :]
             if transposed:
-                t = t.t()
+                t = t.transpose(-1, -2)
             shaped[leaf] = t
-        return torch.cat([shaped[l.name].reshape(-1) for l in self.spec.leaves])
+        return torch.cat([shaped[l.name].reshape(*lead, -1)
+                          for l in self.spec.leaves], -1)
 
     def flat_dec(self, params: dict) -> torch.Tensor:
         """Inverse of ``prep``'s shaping: a params dict -> the flat

@@ -18,8 +18,8 @@ import enum
 
 import torch
 
-__all__ = ["MutationKind", "build_children", "normal_from_seed",
-           "proportional_factor", "shape_noise"]
+__all__ = ["MutationKind", "build_children", "build_children_dec",
+           "normal_from_seed", "proportional_factor", "shape_noise"]
 
 
 class MutationKind(enum.Enum):
@@ -99,3 +99,20 @@ def build_children(parents: torch.Tensor, pidx: torch.Tensor,
     if factors is not None:
         delta = delta * factors.index_select(0, pidx)
     return parents.index_select(0, pidx) + delta
+
+
+def build_children_dec(parents_dec: torch.Tensor, scale_dec: torch.Tensor,
+                       pidx: torch.Tensor, noise: torch.Tensor
+                       ) -> torch.Tensor:
+    """NIC-ES's children in decode order (``tpu.es_decode_layout``; JAX:
+    es.py:172-199): row i is ``parents_dec[pidx[i]] + scale * noise_i``
+    with scale the parent's row of ``scale_dec`` (SM-G and SM-PROPORTIONAL:
+    one row per parent) or its one shared row. parents_dec (P, dim_dec)
+    and scale_dec (P or 1, dim_dec) are laid out by ``to_dec``, the scale
+    with its pads at 0, so a child's pad lanes keep the parent's pad values;
+    noise (M, dim_dec) N(0, 1) drawn over the padded axis. Elementwise
+    after the row picks, as ``build_children``: a child's bits do not depend
+    on the children built with it."""
+    scale = (scale_dec[0] if scale_dec.shape[0] == 1
+             else scale_dec.index_select(0, pidx))
+    return parents_dec.index_select(0, pidx) + scale * noise

@@ -163,26 +163,36 @@ def test_sampling_kind_runs_on_both_paths(coco, tmp_path):
 
 
 @pytest.mark.parametrize("case,error,match", [
-    ("es_decode_layout", NotImplementedError, "es_decode_layout"),
-    ("mesh_shape", NotImplementedError, "mesh_shape"),
+    ("group_without_seed", ValueError, "tpu.seed"),
+    ("mesh_shape_outside_group", ValueError, "main.py"),
     ("default_device", RuntimeError, "device='cpu'"),
 ])
 def test_es_master_refuses_what_is_not_ported(coco, tmp_path, case, error,
                                               match):
-    """tpu.es_decode_layout true and a mesh raise; without
+    """A process group without tpu.seed raises (its ranks must draw the
+    same streams), and so does tpu.mesh_shape [2] in a process outside a
+    group (the message names main.py, which starts the ranks); without
     ``device="cpu"`` the master asks for the card, which this machine
     lacks."""
     from nes_img_captioning_tpu_torch.algorithms.es import ESMaster
+    from nes_img_captioning_tpu_torch.parallel.multihost import (
+        init_multihost,
+        shutdown_multihost,
+    )
 
     if case == "default_device" and torch.cuda.is_available():
         pytest.skip("this machine has a card")
     exp = es_exp(coco, tmp_path / case)
     device = "cpu"
-    if case == "es_decode_layout":
-        exp["tpu"]["es_decode_layout"] = True
-    elif case == "mesh_shape":
-        exp["tpu"]["mesh_shape"] = [1]
+    if case == "group_without_seed":
+        del exp["tpu"]["seed"]
+        init_multihost(num_processes=1, process_id=0, device="cpu")
+    elif case == "mesh_shape_outside_group":
+        exp["tpu"]["mesh_shape"] = [2]
     else:
         device = None
-    with pytest.raises(error, match=match):
-        ESMaster(exp, device=device)
+    try:
+        with pytest.raises(error, match=match):
+            ESMaster(exp, device=device)
+    finally:
+        shutdown_multihost()

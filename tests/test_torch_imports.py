@@ -17,10 +17,12 @@ def _modules():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with ``jax`` blocked, and no module
-    of nes_img_captioning_tpu gets loaded."""
+    """Every module of the port, ``parallel/`` included, imports with
+    ``jax`` blocked, and no module of nes_img_captioning_tpu gets loaded."""
     mods = _modules()
     assert len(mods) > 20
+    assert {f"{PKG}.parallel", f"{PKG}.parallel.mesh",
+            f"{PKG}.parallel.multihost"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
