@@ -200,7 +200,26 @@ Phases, each printed as it ends (any failure exits non-zero):
     one process's and its theta Adam's step on the rank-order sum of the
     ranks' K6 partials (within the sum-order bound of one process's
     gradient), ES bit for bit [31]'s runs, the NCCL rank bit for bit one
-    process; K6 over a rank's 72 lanes against its plain version.
+    process; K6 over a rank's 72 lanes against its plain version;
+33. experiments/mscoco_nes.json at its own settings, nothing cut but depth
+    (2000 pairs, batch 64, pop_chunk 48, bf16 compute, f32 deltas, 5000
+    val images, blocks of 8) on an in-memory fixture at the Karpathy
+    split's size (82,783 train and 30,504 restval images, 5000 val, 5000
+    test; vocab 9487, 2048-d features): the set-up's seconds and bytes
+    (arrays, CocoData, the train matrix's upload, DeviceCider's builds,
+    NESMaster) and the card's peak memory; NESMaster for 2 blocks of 8 on
+    the delta-operand pair path (K2 42 times and the row-block K1 once per
+    generation, no K5 or K6; fitnesses and theta finite; ms per
+    generation); generation 1's first and padded last chunk: K2 on the f32
+    deltas bitwise K1 on prep(base ± delta) and held to its plain twin; the
+    same generation at pop_chunk 40 (no pad lane): fitnesses bit for bit,
+    theta Adam's step on a gradient within the sum-order bound; one block
+    with tpu.kernel_noise (K5 42 times and K6 once per generation), K5
+    bitwise K2 fed K7's dump, K6 over 2016 lanes bitwise its plain version
+    and the ordered sum of K7's dumps; one generation of each run under
+    torch.profiler (idle share, normal_ kernels); K2, K5 and K6 timed at
+    these shapes with their bounds, plain and library times and the pair
+    kernel's occupancy.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -3536,10 +3555,11 @@ def m16_es(exps: dict, dev, data) -> dict:
 def rank_main(argv: list) -> int:
     """A process of phase 32 (``chip_smoke.py --rank-phase DIR WORLD RANK
     PORT``): joins a group of WORLD ranks through ``init_multihost`` as
-    ``main.py`` does (rendezvous at 127.0.0.1:PORT, the card rank %
-    device_count), builds the in-memory fixtures, runs ``m16_nes`` and, in
-    a group of more than one, ``m16_es`` on DIR/inputs.json's experiments,
-    and saves the results as DIR/rank_WORLD_RANK.pt."""
+    ``main.py``'s local ranks do (the store that ``run_ranks`` holds at
+    127.0.0.1:PORT, the card rank % device_count), builds the in-memory
+    fixtures, runs ``m16_nes`` and, in a group of more than one,
+    ``m16_es`` on DIR/inputs.json's experiments, and saves the results as
+    DIR/rank_WORLD_RANK.pt."""
     import datetime
 
     import torch
@@ -3561,7 +3581,8 @@ def rank_main(argv: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     init_multihost(f"127.0.0.1:{port}", world, rank,
-                   timeout=datetime.timedelta(seconds=RANK_TIMEOUT // 2))
+                   timeout=datetime.timedelta(seconds=RANK_TIMEOUT // 2),
+                   launcher_store=True)
     mesh = make_mesh()
     tag = f"[32] rank {rank} of {world} ({mesh.backend}, {mesh.device})"
     out = {"backend": mesh.backend, "device": str(mesh.device)}
@@ -3593,15 +3614,17 @@ def run_ranks(work: str, world: int) -> list:
     """Start WORLD rank processes of phase 32 at once, wait for all within
     RANK_TIMEOUT (killing any left), echo their [32] lines, and return
     their results; a rank that fails fails the phase with its output's
-    tail."""
+    tail. This process holds their rendezvous (``hold_rendezvous``)."""
     import torch
 
-    from nes_img_captioning_tpu_torch.parallel.multihost import free_port
+    from nes_img_captioning_tpu_torch.parallel.multihost import (
+        hold_rendezvous,
+    )
 
-    port = free_port()
+    store = hold_rendezvous(world)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank-phase", work,
-         str(world), str(r), str(port)], stdout=subprocess.PIPE,
+         str(world), str(r), str(store.port)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     outs = []
     try:
@@ -3857,6 +3880,582 @@ def m16_phase(card: str, task, es_ref: dict, kernels: list) -> list:
     ]
 
 
+# ---- [33] experiments/mscoco_nes.json at its own settings -------------------
+
+# the Karpathy split's shape (reference: src/captioning/dataloader.py:56-98):
+# 82,783 train images and 30,504 restval images, which join train, 5000
+# val and 5000 test; cocotalk's vocabulary, 2048-d features, 9-token
+# synthetic captions
+REGIME_DATA = dict(train=82783, restval=30504, val=5000, test=5000,
+                   vocab=9487, feat=2048, cap_len=9)
+# mscoco_nes.json's settings as the file gives them, checked before each
+# run: nb_offspring (pairs), batch_size, pop_chunk, precision, delta_dtype
+# (resolved: the file leaves "_delta_dtype" commented out), kernel_noise,
+# gens_per_dispatch, num_val_items, val_batch_size
+REGIME_SETTINGS = (2000, 64, 48, "bf16", "f32", "auto", 8, 5000, 256)
+REGIME_BLOCKS = 2          # dispatch blocks of the delta-operand run
+REGIME_CHUNK_ALT = 40      # 2000 = 50 x 40: the same generation, no pad lane
+REGIME_COUNTERS = ("decode_pair_perturb", "decode_rows", "decode_pair_rng",
+                   "pair_grad_rng", "decode_fused", "pair_delta_dump")
+
+
+def regime_fixture():
+    """[33]'s in-memory MSCOCO at the Karpathy split's size from seed 0:
+    the restval images are a fixed draw among the train block's, so
+    CocoData joins them to train in image order. Returns (data, setup
+    seconds and bytes)."""
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.data.synthetic import (
+        synthetic_coco_arrays,
+    )
+
+    d = REGIME_DATA
+    n_train = d["train"] + d["restval"]
+    t0 = time.perf_counter()
+    arrays = synthetic_coco_arrays(
+        n_train=n_train, n_val=d["val"], n_test=d["test"],
+        vocab_size=d["vocab"], fc_feat_size=d["feat"], cap_len=d["cap_len"],
+        seed=0)
+    for i in np.random.default_rng(1).choice(n_train, size=d["restval"],
+                                             replace=False):
+        arrays["info"]["images"][int(i)]["split"] = "restval"
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = CocoData.from_arrays(arrays)
+    t_data = time.perf_counter() - t0
+    sizes = {s: data.split_len(s) for s in ("train", "val", "test")}
+    if sizes != {"train": n_train, "val": d["val"], "test": d["test"]}:
+        raise AssertionError(f"[33] split sizes {sizes}")
+    nbytes = {k: arrays[k].nbytes for k in ("feats", "labels")}
+    log(f"[33] fixture: {d['train']:,} train + {d['restval']:,} restval = "
+        f"{n_train:,} train images, {d['val']} val, {d['test']} test; vocab "
+        f"{d['vocab']}, {d['feat']}-d features ({nbytes['feats'] / 1e9:.3f} "
+        f"GB f32), {arrays['labels'].shape[0]:,} captions "
+        f"({nbytes['labels'] / 1e6:.1f} MB); arrays in {t_arrays:.1f} s, "
+        f"CocoData in {t_data:.2f} s")
+    return data, {"arrays_s": t_arrays, "data_s": t_data}
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (model name, or vendor,
+    family and model where a virtual machine gives the name as unknown)
+    and its core count: the set-up's clock is the host's."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = fields.get("model name", "unknown")
+    if name == "unknown":
+        name = " ".join(f"{k} {fields[k]}" for k in
+                        ("vendor_id", "cpu family", "model", "cpu MHz")
+                        if k in fields) or platform.machine()
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def regime_bound(nbytes: float, flops: float = 0.0, normals: int = 0,
+                 f32_ops: int = 0) -> tuple:
+    """(bound ms, what bounds it, bytes ms, operations ms): bytes read and
+    written once over HBM_BYTES_PER_S; the products on the tensor cores and
+    per normal NORMAL_INT_OPS integer and ``f32_ops`` f32 operations, each
+    type at its own rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(flops / PEAK_BF16, NORMAL_INT_OPS * normals / PEAK_INT32,
+                f32_ops * normals / PEAK_F32)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes * 1e3, t_ops * 1e3)
+
+
+def true_regime_phase(card: str) -> list:
+    """Phase 33: experiments/mscoco_nes.json at its own settings (2000
+    pairs, batch 64, pop_chunk 48, bf16 compute, f32 deltas, 5000 val
+    images at val_batch_size 256, blocks of 8) on REGIME_DATA's 113,287
+    train images. Set-up seconds and bytes; NESMaster for REGIME_BLOCKS
+    blocks on the delta-operand pair path (K2 42 times per generation, the
+    row-block K1 once, no K5 or K6); generation 1's first and padded last
+    chunk against K1 and the plain twin; the same generation at pop_chunk
+    40; one block with tpu.kernel_noise (K5 42 times, K6 once per
+    generation), K5 against K2 fed K7's dump and K6 over 2016 lanes
+    against its plain version and the ordered sum of K7's dumps; one
+    generation of each run under torch.profiler; the three kernels' rows at
+    these shapes. Returns them."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch import tasks
+    from nes_img_captioning_tpu_torch.algorithms.nes import (
+        NESEngine,
+        NESMaster,
+    )
+    from nes_img_captioning_tpu_torch.algorithms.optimizers import Adam
+    from nes_img_captioning_tpu_torch.ops import cider_device
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
+    from nes_img_captioning_tpu_torch.utils.config import (
+        load_experiment,
+        parse_config,
+        parse_tpu_config,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    data, setup = regime_fixture()
+    runs_dir = os.path.join("logs", f"chip_smoke_regime_{os.getpid()}")
+
+    def experiment(name: str, **tpu) -> dict:
+        """mscoco_nes.json as it is but for where it writes and its
+        snapshot cadence (one snapshot, at the end of the delta run)."""
+        exp = load_experiment("experiments/mscoco_nes.json")
+        cfg, tcfg = parse_config(exp), parse_tpu_config(exp)
+        got = (exp["nb_offspring"], cfg.batch_size, tcfg.pop_chunk,
+               tcfg.precision, tcfg.delta_dtype, tcfg.kernel_noise,
+               tcfg.gens_per_dispatch, cfg.num_val_items, cfg.val_batch_size)
+        if got != REGIME_SETTINGS:
+            raise AssertionError(f"[33] mscoco_nes.json's settings {got} != "
+                                 f"{REGIME_SETTINGS}")
+        exp["config"]["snapshot_freq"] = REGIME_BLOCKS * tcfg.gens_per_dispatch
+        exp["tpu"].update(tpu)
+        exp["log_dir"] = os.path.join(runs_dir, name)
+        return exp
+
+    F, B, P = REGIME_SETTINGS[:3]
+    gpd = REGIME_SETTINGS[6]
+    n_chunks = -(-F // P)
+    real_last = F - (n_chunks - 1) * P
+
+    # the upload the task makes, alone: the train matrix to the card
+    train = data.split_feats("train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    up = torch.as_tensor(train, device=dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    gb = train.nbytes / 1e9
+    log(f"[33] the train matrix {tuple(train.shape)} f32, {gb:.3f} GB, to "
+        f"the card in {t_up:.3f} s ({gb / t_up:.2f} GB/s) ({card})")
+    del up, train
+    torch.cuda.empty_cache()
+
+    # the master's set-up, the CIDEr-D tables' builds timed inside it
+    built = []
+    init = cider_device.DeviceCider.__init__
+
+    def timed_init(self, gts_list, *a, **k):
+        t = time.perf_counter()
+        init(self, gts_list, *a, **k)
+        built.append((len(gts_list), k.get("variant", "cider-d"),
+                      time.perf_counter() - t))
+
+    cider_device.DeviceCider.__init__ = timed_init
+    try:
+        t0 = time.perf_counter()
+        master = NESMaster(experiment("delta"), device=dev, data=data)
+        master.task.device_val_consts()
+        torch.cuda.synchronize()
+        t_master = time.perf_counter() - t0
+    finally:
+        cider_device.DeviceCider.__init__ = init
+    eng, task = master.engine, master.task
+    lay, T = task.decode_layout, task.model.options.seq_length
+    Fd, Vpad = task.model.options.fc_feat_size, lay.Vpad
+    refs = sum(g.shape[0] for g in task.train_gts)
+    log(f"[33] NESMaster set-up {t_master:.1f} s: "
+        + "; ".join(f"DeviceCider ({v}) over {n:,} images {s:.1f} s"
+                    for n, v, s in built)
+        + f" ({refs:,} train references; host CPU {host_cpu()})")
+    resolved = {"fused_validation": master._val_fused_mode(),
+                "kernel_perturb": eng._kernel_perturb,
+                "kernel_noise": eng._kernel_noise,
+                "device_cider": task._device_cider is not None,
+                "delta_dtype": eng._delta_dtype}
+    if resolved != {"fused_validation": True, "kernel_perturb": True,
+                    "kernel_noise": False, "device_cider": True,
+                    "delta_dtype": torch.float32}:
+        raise AssertionError(f"[33] mscoco_nes.json resolved to {resolved}")
+    log(f"[33] mscoco_nes.json resolves to {resolved}; {F} pairs in "
+        f"{n_chunks} chunks of {P}, the last with {real_last} real pairs "
+        f"and {n_chunks * P - F} pad lanes")
+
+    # generation 1's operands, as the master hands them to the engine
+    first = {}
+    block = eng.generation_val_block
+
+    def spy(theta, opt_state, sens, sigma, seeds, idx, *rest):
+        if not first:
+            first.update(theta=theta.clone(), sens=sens, sigma=sigma,
+                         seeds=seeds[0].copy(), idx=idx[0].copy())
+        return block(theta, opt_state, sens, sigma, seeds, idx, *rest)
+
+    eng.generation_val_block = spy
+    counters = tuple(getattr(dc, n) for n in REGIME_COUNTERS)
+
+    def counted(fn) -> tuple:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (dict(zip(REGIME_COUNTERS, (c.launches for c in counters))),
+                time.perf_counter() - t0)
+
+    def want(**n) -> dict:
+        return {k: n.get(k, 0) for k in REGIME_COUNTERS}
+
+    # ---- the delta-operand run: REGIME_BLOCKS blocks of gpd generations ----
+    gens = REGIME_BLOCKS * gpd
+    c_d, t_d = counted(lambda: master.run_master(max_iterations=gens))
+    if c_d != want(decode_pair_perturb=n_chunks * gens, decode_rows=gens):
+        raise AssertionError(f"[33] delta-operand launches {c_d}")
+    scores = np.asarray(master.stats.score_stats(), np.float64)
+    if master.it.iteration() != gens or scores.shape[1] != gens or \
+            not np.isfinite(scores).all() or \
+            not bool(torch.isfinite(master.theta).all()):
+        raise AssertionError("[33] the delta-operand run: iterations, "
+                             "finite fitnesses and theta")
+    ms_d = master.stats.time_stats()
+    log(f"[33] NESMaster, delta operands: {gens} generations in {t_d:.1f} s "
+        f"({REGIME_BLOCKS} blocks of {gpd}); ms per generation (time_stats, "
+        f"a block split evenly) {[round(t * 1e3, 3) for t in ms_d]}; K2 "
+        f"{c_d['decode_pair_perturb']} ({n_chunks} per generation), "
+        f"row-block K1 {c_d['decode_rows']}, K5 0, K6 0; mean fitness "
+        f"{[round(float(m), 4) for m in scores[1]]}; validation CIDEr "
+        f"{[round(a, 4) for a in master.stats.acc_stats()]} ({card})")
+
+    # ---- generation 1's chunks against K1 and the plain twin ----------------
+    theta0, sens, sigma = first["theta"], first["sens"], first["sigma"]
+    seeds1, idx1 = first["seeds"], first["idx"]
+    stepsize, l2 = master.optimizer.stepsize, master.config.l2coeff or 0.0
+    scale_dec = lay.to_dec(eng._scale_vec(theta0, sens, sigma),
+                           pad_scale=0.0)
+    base_vec = lay.to_dec(theta0)
+    base = task.pair_base_params(base_vec)
+    _, _, seeds_l, idx_l = eng._chunked(seeds1, idx1, dev)
+    k2_err, keep = 0.0, {}
+    for c, real in ((0, P), (n_chunks - 1, real_last)):
+        deltas = eng._deltas(scale_dec, seeds_l[c])
+        if deltas.dtype != torch.float32:
+            raise AssertionError(f"[33] the delta is {deltas.dtype}")
+        dparams = lay.prep(deltas, torch.float32)
+        feats = task.train_fc[idx_l[c]]
+        feats2 = feats.repeat_interleave(2, 0)
+        members = torch.stack([base_vec + deltas, base_vec - deltas],
+                              1).reshape(2 * P, -1)
+        n = 2 * real
+        for dt in (torch.float32, torch.bfloat16):
+            seq2, lp2 = (x.reshape(2 * P, B, T)[:n] for x in
+                         dc.decode_pair_perturb(base, dparams, feats, T, dt,
+                                                True))
+            mp = lay.prep(members, dt)
+            seq1, lp1 = (x[:n] for x in dc.decode_fused(mp, feats2, T, True))
+            lp_k1 = float((lp2 - lp1).abs().max())
+            if not torch.equal(seq2, seq1) or lp_k1 > 2e-5:
+                raise AssertionError(
+                    f"[33] K2 {dt}, chunk {c}: tokens not bitwise K1's on "
+                    f"prep(base ± delta), or lp {lp_k1:.3g} from K1's > 2e-5")
+            seq_p, lp_p = (x.reshape(2 * P, B, T)[:n] for x in
+                           dc.decode_pair_perturb_plain(base, dparams, feats,
+                                                        T, dt, True))
+            if dt == torch.float32:
+                err = float((lp2 - lp_p).abs().max())
+                if not torch.equal(seq2, seq_p) or err > 2e-5:
+                    raise AssertionError(f"[33] K2 f32, chunk {c}: tokens "
+                                         f"or lp ({err:.3g}) differ from the "
+                                         "plain twin")
+                k2_err = max(k2_err, err)
+                how = (f"tokens equal the plain twin, max |lp - plain| "
+                       f"{err:.3g}")
+            else:
+                gap = dc.decode_fused_plain(mp, feats2, T, True,
+                                            top2_gap=True)[2][:n]
+                share, n_diff = check_near_ties(seq2, seq_p, gap,
+                                                f"[33] K2 bf16, chunk {c}")
+                how = (f"{share:.4%} of rows identical to the plain twin, "
+                       f"{n_diff} differ at near-ties")
+            log(f"[33] K2 {dt}, f32 delta, chunk {c} ({real} real pairs x "
+                f"{B} rows): tokens bitwise K1's on prep(base ± delta), max "
+                f"|lp - K1 lp| {lp_k1:.3g}; {how}")
+            del mp, seq1, lp1, seq_p, lp_p
+        if c == 0:
+            keep = {"dparams": dparams, "feats": feats, "feats2": feats2,
+                    "members": members, "seq": seq2}
+        del deltas, members
+
+    # ---- the same generation at pop_chunk REGIME_CHUNK_ALT -----------------
+    def one_generation(p: int):
+        e = NESEngine(task, Adam(stepsize), MutationKind.DEFAULT, pop_chunk=p,
+                      kernel_perturb=True, delta_dtype="f32")
+        th, _, packed = e.generation(theta0, e.optimizer.init(e.dim, dev),
+                                     sens, sigma, seeds1, idx1, stepsize, l2)
+        return e, th, packed
+
+    def gradient(e, packed, absum=None):
+        """The engine's gradient of its generation (``_accumulate`` over its
+        chunks); adds sum_i |w_i| |delta_i| into ``absum`` in f64."""
+        nc, _, s_l, _ = e._chunked(seeds1, None, None)
+        w = e._pair_weights(packed[:2 * F].reshape(F, 2), s_l.shape)
+        g = torch.zeros_like(scale_dec)
+        for c in range(nc):
+            d = e._deltas(scale_dec, s_l[c])
+            g = e._accumulate(g, w[c], d)
+            if absum is not None:
+                absum += (w[c][:, None].abs() * d.abs()).double().sum(0)
+        return g
+
+    runs = {p: one_generation(p) for p in (P, REGIME_CHUNK_ALT)}
+    (e48, th48, pk48), (e40, th40, pk40) = runs[P], runs[REGIME_CHUNK_ALT]
+    if e40._plan(F) != (F // REGIME_CHUNK_ALT, REGIME_CHUNK_ALT):
+        raise AssertionError(f"[33] pop_chunk 40 plan {e40._plan(F)}")
+    if not torch.equal(pk48[:2 * F], pk40[:2 * F]):
+        raise AssertionError("[33] fitnesses differ between pop_chunk 48 "
+                             "and 40")
+    absum = torch.zeros_like(scale_dec, dtype=torch.float64)
+    g48 = gradient(e48, pk48, absum)
+    g40, t_gdelta = events_ms(lambda: gradient(e40, pk40))
+    u = 2.0 ** -24
+    bound = 2 * (F * u / (1 - F * u)) * absum
+    gdiff = (g48 - g40).abs().double()
+
+    def adam_step(g):
+        return e48._apply_grad(theta0, e48.optimizer.init(e48.dim, dev),
+                               lay.from_dec(g), 2 * F, stepsize, l2)[1]
+
+    if not (torch.equal(adam_step(g48), th48)
+            and torch.equal(adam_step(g40), th40)):
+        raise AssertionError("[33] a generation's theta is not Adam's step "
+                             "on its own gradient")
+    if not bool((gdiff <= bound).all()):
+        raise AssertionError(f"[33] pop_chunk 40 against 48: the gradient "
+                             f"is beyond the sum-order bound by "
+                             f"{float((gdiff - bound).max()):.3g}")
+    dth = (th48 - th40).abs()
+    log(f"[33] generation 1 at pop_chunk {P} ({n_chunks} chunks, "
+        f"{n_chunks * P - F} pad lanes) and {REGIME_CHUNK_ALT} "
+        f"({F // REGIME_CHUNK_ALT} chunks, none): fitnesses of {F} pairs bit "
+        f"for bit; gradients differ in {int((gdiff > 0).sum())} of "
+        f"{gdiff.numel():,} elements (max {float(gdiff.max()):.3g}, within "
+        f"2 gamma_{F} sum|w||delta|); theta differs in "
+        f"{int((dth > 0).sum())} elements (max {float(dth.max()):.3g}); "
+        f"each theta is Adam's step on its gradient")
+    del g40, absum, bound, gdiff, runs, e40, th40, pk40
+
+    # ---- one block with tpu.kernel_noise (the same task) -----------------
+    make_task = tasks.make_task
+    # the same data and settings as the delta run's task: its scorer over
+    # the 113,287 train images is built once
+    tasks.make_task = lambda *a, **k: task
+    try:
+        master_n = NESMaster(experiment("kernel_noise", kernel_noise=True),
+                             device=dev, data=data)
+    finally:
+        tasks.make_task = make_task
+    if not master_n.engine._kernel_noise or master_n.task is not task:
+        raise AssertionError("[33] tpu.kernel_noise did not resolve on")
+    c_n, t_n = counted(lambda: master_n.run_master(max_iterations=gpd))
+    if c_n != want(decode_pair_rng=n_chunks * gpd, pair_grad_rng=gpd,
+                   decode_rows=gpd):
+        raise AssertionError(f"[33] kernel-noise launches {c_n}")
+    scores_n = np.asarray(master_n.stats.score_stats(), np.float64)
+    if not np.isfinite(scores_n).all() or \
+            not bool(torch.isfinite(master_n.theta).all()):
+        raise AssertionError("[33] the kernel-noise run: non-finite output")
+    ms_n = master_n.stats.time_stats()
+    log(f"[33] NESMaster, tpu.kernel_noise: {gpd} generations in {t_n:.1f} "
+        f"s (one block); ms per generation {[round(t * 1e3, 3) for t in ms_n]}"
+        f"; K5 {c_n['decode_pair_rng']} ({n_chunks} per generation), K6 "
+        f"{c_n['pair_grad_rng']} (one per generation over {n_chunks * P} "
+        f"lanes), row-block K1 {c_n['decode_rows']}, K2 0 ({card})")
+
+    # ---- K5 against K2 fed K7's dump; K6 over the generation's lanes ----
+    scale_params = lay.prep(scale_dec, torch.float32)
+    feats0, feats2 = keep["feats"], keep["feats2"]
+    dump = dc.pair_delta_dump(scale_params, seeds_l[0])
+    k5_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        seq5, lp5 = dc.decode_pair_rng(base, scale_params, seeds_l[0], feats0,
+                                       T, dt, True)
+        seq2, lp2 = dc.decode_pair_perturb(base, dump, feats0, T, dt, True)
+        if not (torch.equal(seq5, seq2) and torch.equal(lp5, lp2)):
+            raise AssertionError(f"[33] K5 {dt}: not bitwise K2 fed K7's "
+                                 "dump")
+        seq_p, lp_p = (x.reshape(2 * P, B, T) for x in
+                       dc.decode_pair_rng_plain(base, scale_params,
+                                                seeds_l[0], feats0, T, dt,
+                                                True))
+        dflat = dc.pair_delta_dump_flat(scale_dec, seeds_l[0])
+        pert = torch.stack([base_vec + dflat, base_vec - dflat],
+                           1).reshape(2 * P, -1)
+        gap = dc.decode_fused_plain(lay.prep(pert, dt), feats2, T, True,
+                                    top2_gap=True)[2]
+        seq5 = seq5.reshape(2 * P, B, T)
+        share, n_diff = check_near_ties(seq5, seq_p, gap, f"[33] K5 {dt}")
+        if dt == torch.float32:
+            ok = (seq5 == seq_p).all(-1)
+            k5_err = float((lp5.reshape(2 * P, B, T) - lp_p).abs()[ok].max())
+        log(f"[33] K5 {dt}, chunk 0 ({P} pairs x {B} rows): tokens and lp "
+            f"bitwise K2's fed K7's dump; {share:.4%} of rows identical to "
+            f"the plain version, {n_diff} differ at near-ties"
+            + (f", max |lp - plain| {k5_err:.3g} on identical rows"
+               if dt == torch.float32 else ""))
+        del pert, gap, seq_p, lp_p, dflat
+    del dump
+
+    w_all = e48._pair_weights(pk48[:2 * F].reshape(F, 2),
+                              seeds_l.shape).reshape(-1)
+    seeds_all = seeds_l.reshape(-1)
+    grad6 = dc.pair_grad_rng_flat(scale_dec, seeds_all, w_all)
+    ordered = torch.zeros_like(grad6)
+    for c in range(n_chunks):
+        dumps = dc.pair_delta_dump_flat(scale_dec, seeds_l[c])
+        for i in range(P):
+            ordered = ordered + w_all[c * P + i] * dumps[i]
+    del dumps
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    if not torch.equal(bits(grad6), bits(ordered)):
+        raise AssertionError("[33] K6: not bitwise the ordered sum of K7's "
+                             "dumps")
+    grad6_plain, k6_plain = events_ms(lambda: lay.flat_dec(
+        dc.pair_grad_rng_plain(scale_params, seeds_all, w_all)))
+    k6_err = float((grad6 - grad6_plain).abs().max())
+    if not torch.equal(bits(grad6), bits(grad6_plain)):
+        raise AssertionError(f"[33] K6: not bitwise its plain version (max "
+                             f"{k6_err:.3g})")
+    log(f"[33] K6 over {seeds_all.shape[0]} lanes ({n_chunks * P - F} pads "
+        f"weighted 0): bitwise the ordered f32 sum of K7's dumps and its "
+        f"plain version on the card (the plain version {k6_plain:.1f} ms)")
+    del ordered, grad6_plain
+
+    # ---- one generation of each run under torch.profiler -------------------
+    profiled = {}
+    for name, e in (("delta operands", eng), ("kernel noise",
+                                              master_n.engine)):
+        wall, busy, rows = profile_call(lambda: e.generation(
+            theta0, e.optimizer.init(e.dim, dev), sens, sigma, seeds1, idx1,
+            stepsize, l2))
+        normals = sum(n for _, n, key in rows if "normal" in key.lower())
+        profiled[name] = (wall, busy, normals)
+        log(f"[33] one {name} generation under torch.profiler: wall "
+            f"{wall:.3f} ms, card busy {busy:.3f} ms (idle "
+            f"{1 - busy / wall:.2%}); normal_ kernels {normals} (expected: "
+            f"{2 * n_chunks * P if e is eng else 0}, the delta path drawing "
+            f"each of its {n_chunks * P} lanes twice) ({card})")
+        for ms, count, key in rows[:10]:
+            log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+
+    # ---- the three kernels at these shapes --------------------------------
+    dparams0, members0 = keep["dparams"], keep["members"]
+    info = dc.pair_cluster_info(torch.bfloat16, torch.float32)
+    ctas, waves = info["cluster"] * P, P / info["max_active_clusters"]
+    log(f"[33] the pair kernel at {P} pairs, f32 delta: {P} clusters of "
+        f"{info['cluster']} CTAs ({ctas} CTAs, {info['smem_bytes']} B shared "
+        f"memory each), cudaOccupancyMaxActiveClusters "
+        f"{info['max_active_clusters']}: {waves:.2f} waves on the card's "
+        f"SMs; {B} rows fill {B / 128:.0%} of each 128-row tile")
+    k2_ms = time_ms(lambda: dc.decode_pair_perturb(
+        base, dparams0, feats0, T, torch.bfloat16, False))
+    _, k2_plain = events_ms(lambda: dc.decode_pair_perturb_plain(
+        base, dparams0, feats0, T, torch.bfloat16, False))
+    k5_ms = time_ms(lambda: dc.decode_pair_rng(
+        base, scale_params, seeds_l[0], feats0, T, torch.bfloat16, False))
+    _, k5_plain = events_ms(lambda: dc.decode_pair_rng_plain(
+        base, scale_params, seeds_l[0], feats0, T, torch.bfloat16, False))
+    k6_ms = time_ms(lambda: dc.pair_grad_rng_flat(scale_dec, seeds_all,
+                                                  w_all))
+    mp16 = lay.prep(members0, torch.bfloat16)
+
+    def library():
+        # cuBLAS for the decode's products (bf16 in, f32 out) and argmax on
+        # the chunk's 2P members: image step, 17 gate products, 16 logits
+        h = torch.bmm(feats2.to(torch.bfloat16), mp16["img_w"]).to(
+            torch.bfloat16)
+        for step in range(T + 1):
+            torch.bmm(h, mp16["i2h_w"])
+            torch.bmm(h, mp16["h2h_w"])
+            if step:
+                torch.bmm(h, mp16["logit_w"]).argmax(-1)
+
+    lib_ms = time_ms(library)
+    del mp16
+    steps2 = executed_steps(keep["seq"], T)
+    flops = decode_flops(steps2, B, Fd, Vpad)
+    nb = lambda d: sum(v.numel() * v.element_size()  # noqa: E731
+                       for v in d.values())
+    out_bytes = 2 * P * B * T * 8
+    feat_bytes = P * B * Fd * 2
+    # this design's floor: a pair runs until both signs' rows end and its
+    # f32 delta tiles cross from HBM on every step (48 deltas, 556 MB, do
+    # not fit the 50 MB L2): img_w once, the gates on every LSTM step, the
+    # logits on every token step
+    per = {k: v[0].numel() * 4 for k, v in dparams0.items()}
+    pair_steps = steps2.reshape(P, 2).max(-1).values.double()
+    floor_ms = float((per["img_w"] + (pair_steps + 1) * (per["i2h_w"]
+                      + per["h2h_w"]) + pair_steps * per["logit_w"]).sum()
+                     ) / HBM_BYTES_PER_S * 1e3
+    n5 = P * lay.dim_dec
+    n6 = seeds_all.shape[0] * lay.dim_dec
+    shape = {"ctas_per_launch": ctas, "clusters": P,
+             "max_active_clusters": info["max_active_clusters"],
+             "waves": waves}
+    rows = []
+    for name, replaces, ms, plain, b, launches, err, lib, extra, note in (
+        ("decode_pair_perturb_regime",
+         "nes_img_captioning_tpu/ops/decode_pallas.py:325", k2_ms, k2_plain,
+         regime_bound(nb(base) + nb(dparams0) + feat_bytes + out_bytes,
+                      flops),
+         c_d["decode_pair_perturb"], k2_err, lib_ms, shape,
+         f"; this design's floor (f32 delta tiles re-read from HBM on every "
+         f"step) {floor_ms:.4f} ms"),
+        ("decode_pair_rng_regime",
+         "nes_img_captioning_tpu/ops/decode_pallas.py:488", k5_ms, k5_plain,
+         regime_bound(2 * nb(base) + feat_bytes + out_bytes + P * 4, flops,
+                      n5, NORMAL_F32_OPS),
+         c_n["decode_pair_rng"], k5_err, lib_ms, shape, ""),
+        ("pair_grad_rng_regime",
+         "nes_img_captioning_tpu/ops/decode_pallas.py:587", k6_ms, k6_plain,
+         regime_bound(2 * lay.dim_dec * 4 + seeds_all.shape[0] * 8, 0.0, n6,
+                      NORMAL_F32_OPS + GRAD_SUM_OPS),
+         c_n["pair_grad_rng"], k6_err, None, {"delta_path_ms": t_gdelta},
+         f"; the delta-operand gradient {t_gdelta:.3f} ms"),
+    ):
+        b_ms, b_by, t_bytes, t_ops = b
+        rows.append({"name": name, "route": "cuda",
+                     "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                     **extra})
+        log(f"[33] {name}: {ms:.3f} ms per launch (plain {plain:.3f} ms, "
+            + (f"cuBLAS products {lib:.3f} ms" if lib is not None else
+               "no library call")
+            + f"; bound {b_ms:.4f} ms by {b_by}: bytes {t_bytes:.4f}, "
+            f"operations {t_ops:.4f} ms, {b_ms / ms:.1%} of it){note}; "
+            f"{launches} launches in its run ({card})")
+
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    shutil.rmtree(runs_dir)
+    del master, master_n, eng, task, keep, base, scale_params, grad6
+    torch.cuda.empty_cache()
+    log(f"[33] set-up: arrays {setup['arrays_s']:.1f} s, CocoData "
+        f"{setup['data_s']:.2f} s, upload {t_up:.3f} s, NESMaster "
+        f"{t_master:.1f} s; peak card memory {peak:.2f} GiB above what "
+        f"earlier phases hold ({held / 2**30:.2f} GiB); phase: "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3871,6 +4470,7 @@ def main() -> int:
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
     from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
 
+    t_smoke = time.time()
     dev = torch.device("cuda")
     card = nvidia_smi()
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
@@ -4536,6 +5136,9 @@ def main() -> int:
     layout_rows, es_ref = es_layout_phase(card, data)
     kernels += layout_rows
     kernels += m16_phase(card, task, es_ref, kernels)
+    kernels += true_regime_phase(card)
+    log(f"[end] phases [1]-[33] in {time.time() - t_smoke:.1f} s with the "
+        f"kernels' build ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

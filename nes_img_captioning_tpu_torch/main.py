@@ -10,8 +10,10 @@ with its own ``--process_id``, ``--num_processes n`` and rank 0's
 ``--coordinator host:port``; the experiment must set ``tpu.seed``. An
 experiment whose ``tpu.mesh_shape`` holds n > 1 ranks, run without
 ``--num_processes``, starts its n ranks on this host itself (a local
-rendezvous), so one command runs on n cards. A rank takes the card
-``rank % device_count`` unless ``--device`` names one.
+rendezvous held by this process, ``multihost.hold_rendezvous``), so one
+command runs on n cards; each of those ranks runs on its share of the
+host's CPU cores (``os.cpu_count() // n`` intra-op threads). A rank takes
+the card ``rank % device_count`` unless ``--device`` names one.
 
 Usage:
     python -m nes_img_captioning_tpu_torch.main master \\
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import argparse
 import logging
-import sys
+import os
 
 import numpy as np
 
@@ -78,16 +80,21 @@ def run(argv=None):
     shape = parse_tpu_config(exp).mesh_shape
     n_ranks = int(np.prod(shape)) if shape else 1
     if args.num_processes is None and n_ranks > 1:
-        return _start_local_ranks(sys.argv[1:] if argv is None else argv,
-                                  n_ranks)
+        return _start_local_ranks(args, exp, n_ranks)
+    return _run_rank(args, exp)
 
+
+def _run_rank(args, exp: dict, launcher_store: bool = False):
+    """This process's part of the run: join the group that the arguments
+    name (none without ``--num_processes``), run the master, leave."""
     from .parallel import make_mesh
     from .parallel.multihost import init_multihost, shutdown_multihost
 
     init_multihost(args.coordinator, args.num_processes, args.process_id,
-                   device=args.device)
+                   device=args.device, launcher_store=launcher_store)
     try:
-        return _run_master(args, exp, make_mesh(shape))
+        return _run_master(args, exp,
+                           make_mesh(parse_tpu_config(exp).mesh_shape))
     finally:
         shutdown_multihost()
 
@@ -120,22 +127,38 @@ def _run_master(args, exp: dict, mesh):
     return master
 
 
-def _rank_main(rank: int, argv: list, n: int, port: int):
-    run(list(argv) + ["--coordinator", f"127.0.0.1:{port}",
-                      "--num_processes", str(n), "--process_id", str(rank)])
+def _rank_main(rank: int, args, exp: dict, n: int, port: int,
+               threads: int):
+    """A local rank (a spawned process): joins the store its starter holds
+    at ``port`` and runs on ``threads`` intra-op threads."""
+    import torch
+
+    setup_logging()
+    torch.set_num_threads(threads)
+    logging.info("local rank %d of %d: %d intra-op threads", rank, n,
+                 threads)
+    args = argparse.Namespace(**vars(args))
+    args.coordinator = f"127.0.0.1:{port}"
+    args.num_processes, args.process_id = n, rank
+    _run_rank(args, exp, launcher_store=True)
 
 
-def _start_local_ranks(argv: list, n: int):
+def _start_local_ranks(args, exp: dict, n: int):
     """Run this command as ``n`` ranks on this host, each in a spawned
-    process that joins a local rendezvous; returns when all have ended (a
-    rank that fails ends the run with its error)."""
+    process that joins the rendezvous this process holds and runs on its
+    share of the host's cores (``n`` ranks each running as many threads
+    as there are cores would contend for every core); returns when all
+    have ended (a rank that fails ends the run with its error)."""
     import torch.multiprocessing as mp
 
-    from .parallel.multihost import free_port
+    from .parallel.multihost import hold_rendezvous
 
+    threads = max(1, (os.cpu_count() or 1) // n)
     logging.info("tpu.mesh_shape holds %d ranks: starting them on this host",
                  n)
-    mp.start_processes(_rank_main, args=(argv, n, free_port()), nprocs=n,
+    store = hold_rendezvous(n)
+    mp.start_processes(_rank_main,
+                       args=(args, exp, n, store.port, threads), nprocs=n,
                        join=True, start_method="spawn")
     return None
 

@@ -30,7 +30,7 @@ import logging
 import numpy as np
 import torch
 
-from ..fitness.ciderd import CiderScorer
+from ..fitness.ciderd import CiderScorer, cut_at_eos
 from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -113,6 +113,44 @@ def _pack_tuple(g: tuple) -> tuple[int, int]:
     return s[0] + (s[1] << _SHIFT), s[2] + (s[3] << _SHIFT)
 
 
+def _ref_windows(gts: list, n: int) -> dict:
+    """The reference rows of every image packed into windows: rows padded
+    to the most refs (M) and the widest row (T), ``ref_mask`` marking the
+    real ones; ``lo``, ``hi``, ``valid`` and the EOS-inclusive ``lens`` per
+    (image x M) row, and ``df_lens``, the lengths of the rows as
+    ``cut_at_eos`` cuts them before the padding."""
+    n_img = len(gts)
+    M = max((g.shape[0] for g in gts), default=1)
+    T = max((g.shape[1] for g in gts), default=1)
+    starts, orders = _window_meta(T, n)
+    rows = np.zeros((n_img, M, T), np.int64)
+    ref_mask = np.zeros((n_img, M), bool)
+    width = np.full((n_img, M), T, np.int64)
+    for i, g in enumerate(gts):
+        rows[i, : g.shape[0], : g.shape[1]] = g
+        ref_mask[i, : g.shape[0]] = True
+        width[i] = g.shape[1]
+    flat = rows.reshape(-1, T)
+    lens = _lens_np(flat)
+    lo, hi, valid = _pack_np(flat, lens, starts, orders)
+    return {"n_img": n_img, "M": M, "T": T, "starts": starts,
+            "orders": orders, "ref_mask": ref_mask, "lens": lens,
+            "df_lens": np.minimum(lens, width.reshape(-1)), "lo": lo,
+            "hi": hi, "valid": valid}
+
+
+def _set_ranks(refs: np.ndarray, n: int) -> dict:
+    """{n-gram: its place in the iteration order of the image's set of
+    order-n n-grams}, the set built by the insertions ``CiderScorer.
+    fit_df`` makes, so its order is fit_df's."""
+    seen = set()
+    for row in np.asarray(refs):
+        toks = cut_at_eos(row)
+        for i in range(len(toks) - n + 1):
+            seen.add(toks[i: i + n])
+    return {g: r for r, g in enumerate(seen)}
+
+
 class DeviceCider:
     """Fit once on the per-image ground-truth token lists; ``score_rows``
     returns the host oracle's per-caption scores (CiderScorer) to f32
@@ -138,81 +176,128 @@ class DeviceCider:
         if not all(g.max(initial=0) <= _MAX_TOKEN for g in gts):
             raise ValueError("vocab too large for 14-bit window packing")
 
+        refs = _ref_windows(gts, n)
         if frozen_df is not None:
             fitted = CiderScorer(n=n, sigma=sigma, variant=variant).set_df(
                 *frozen_df)
+            self.ref_len = float(fitted.ref_len)
+            keys, idf, stored = self._frozen_tables(fitted.df)
         else:
-            fitted = CiderScorer(n=n, sigma=sigma, variant=variant).fit_df(gts)
-        self.ref_len = float(fitted.ref_len)
-        idf_by_key: dict[tuple[int, int], float] = {}
-        stored = []
-        for order_df in fitted.df:
-            for g, df in order_df.items():
-                idf = self.ref_len - np.log(max(df, 1.0))
-                idf_by_key[_pack_tuple(g)] = idf
-                # frozen tables carry float counts, so the test is > 1.0
-                if df > 1.0:
-                    stored.append((*_pack_tuple(g), idf))
-        self._build_table(stored)
-        self._build_refs(gts, idf_by_key)
+            # CiderScorer.fit_df's ref_len and document frequencies
+            self.ref_len = float(np.log(max(len(gts), 1)))
+            keys, idf, stored = self._fitted_tables(refs, gts)
+        self._build_table(*stored)
+        self._build_refs(refs, keys, idf)
 
     # ---- host-side builders ---------------------------------------------------
 
     BUCKET = 8  # slots per bucket; one row gather covers the whole bucket
 
-    def _build_table(self, stored: list):
-        """Bucketed idf table: key -> bucket by hash, all slots of a bucket
-        in one row. The bucket count doubles until no bucket overflows."""
-        n_keys = max(len(stored), 1)
+    def _frozen_tables(self, df_list: list) -> tuple:
+        """(every n-gram's packed key, its idf, the stored n-grams (df > 1)
+        as (lo, hi, idf)) of a frozen DF table, in its dicts' order: frozen
+        tables carry float counts, so the test is > 1.0."""
+        keys, idf, stored = [], [], []
+        for order_df in df_list:
+            for g, df in order_df.items():
+                lo, hi = _pack_tuple(g)
+                v = self.ref_len - np.log(max(df, 1.0))
+                keys.append((lo << 32) | hi)
+                idf.append(v)
+                if df > 1.0:
+                    stored.append((lo, hi, v))
+        arr = np.asarray(stored, np.float64).reshape(-1, 3)
+        return (np.asarray(keys, np.int64), np.asarray(idf, np.float64),
+                (arr[:, 0].astype(np.int64), arr[:, 1].astype(np.int64),
+                 arr[:, 2]))
+
+    def _fitted_tables(self, refs: dict, gts: list) -> tuple:
+        """``_frozen_tables`` of the DF that ``CiderScorer.fit_df`` fits on
+        ``gts``, as array operations over the reference windows: an n-gram's
+        df is the number of images whose references hold it (each ref row
+        cut after its first 0, ``cut_at_eos``). The stored n-grams come in
+        fit_df's dict order wherever it decides a bucket's slot order: by
+        order, then the first image holding the n-gram, then, for n-grams
+        first seen in the same image, that image's n-gram set's iteration
+        order, rebuilt as fit_df builds it."""
+        M, N = refs["M"], max(len(gts), 1)
+        starts, orders = refs["starts"], refs["orders"]
+        ok = (starts + orders)[None, :] <= refs["df_lens"][:, None]
+        r, w = np.nonzero(ok & refs["ref_mask"].reshape(-1)[:, None])
+        key = ((refs["lo"][r, w].astype(np.int64) << 32)
+               | (refs["hi"][r, w].astype(np.int64) & _M32))
+        keys, kinv = np.unique(key, return_inverse=True)
+        # distinct (n-gram, image) pairs, ordered by n-gram then image
+        pairs = np.unique(kinv.reshape(-1).astype(np.int64) * N + r // M)
+        kk = pairs // N
+        df = np.bincount(kk, minlength=keys.shape[0])
+        first = pairs[np.searchsorted(kk, np.arange(keys.shape[0]))] % N
+        idf = self.ref_len - np.log(np.maximum(df, 1).astype(np.float64))
+
+        s = df > 1
+        lo, hi, idf_s, first = keys[s] >> 32, keys[s] & _M32, idf[s], first[s]
+        slots = [(lo & 0x3FFF), lo >> _SHIFT, (hi & 0x3FFF), hi >> _SHIFT]
+        order = sum((f > 0).astype(np.int64) for f in slots)
+        rank, sets = np.zeros(lo.shape[0], np.int64), {}
+        if lo.shape[0]:
+            bucket = _hash_np(lo, hi).astype(np.int64) & (
+                self._bucket_count(lo, hi) - 1)
+            group = (bucket * 5 + order) * N + first
+            _, ginv, gcount = np.unique(group, return_inverse=True,
+                                        return_counts=True)
+            for j in np.nonzero(gcount[ginv] > 1)[0]:
+                n_j, img = int(order[j]), int(first[j])
+                if (img, n_j) not in sets:
+                    sets[img, n_j] = _set_ranks(gts[img], n_j)
+                rank[j] = sets[img, n_j][tuple(int(f[j]) - 1
+                                               for f in slots[:n_j])]
+        srt = np.lexsort((rank, first, order))
+        return keys, idf, (lo[srt], hi[srt], idf_s[srt])
+
+    def _bucket_count(self, lo: np.ndarray, hi: np.ndarray) -> int:
+        """Buckets for the stored keys: the count doubles until no bucket
+        overflows."""
         S = self.BUCKET
-        n_buckets = 1 << max(int(np.ceil(np.log2(4 * n_keys / S))), 1)
+        n_buckets = 1 << max(int(np.ceil(np.log2(
+            4 * max(lo.shape[0], 1) / S))), 1)
+        h = _hash_np(lo, hi).astype(np.int64)
+        while np.bincount(h & (n_buckets - 1),
+                          minlength=n_buckets).max() > S:
+            if n_buckets > (1 << 28):
+                raise RuntimeError(
+                    f"idf bucket table cannot settle: >{S} keys share one "
+                    "32-bit hash; raise DeviceCider.BUCKET")
+            n_buckets *= 2
+        return n_buckets
+
+    def _build_table(self, lo: np.ndarray, hi: np.ndarray, idf: np.ndarray):
+        """Bucketed idf table of the stored keys: key -> bucket by hash, all
+        slots of a bucket in one row, filled in the keys' order."""
+        S = self.BUCKET
+        n_buckets = self._bucket_count(lo, hi)
         table = np.zeros((n_buckets, S, 3), np.int32)  # lo=0 => empty
-        if stored:
-            arr = np.asarray(stored, np.float64)
-            lo = arr[:, 0].astype(np.int64)
-            hi = arr[:, 1].astype(np.int64)
-            idf = arr[:, 2].astype(np.float32)
-            h = _hash_np(lo, hi).astype(np.int64)
-            while True:
-                bucket = h & (n_buckets - 1)
-                if np.bincount(bucket, minlength=n_buckets).max() <= S:
-                    break
-                if n_buckets > (1 << 28):
-                    raise RuntimeError(
-                        f"idf bucket table cannot settle: >{S} keys share "
-                        "one 32-bit hash; raise DeviceCider.BUCKET")
-                n_buckets *= 2
-            table = np.zeros((n_buckets, S, 3), np.int32)
-            fill = np.zeros(n_buckets, np.int64)
-            for j in np.argsort(bucket, kind="stable"):
-                b = bucket[j]
-                table[b, fill[b], 0] = lo[j]
-                table[b, fill[b], 1] = hi[j]
-                table[b, fill[b], 2] = idf[j: j + 1].view(np.int32)[0]
-                fill[b] += 1
+        if lo.shape[0]:
+            bucket = _hash_np(lo, hi).astype(np.int64) & (n_buckets - 1)
+            j = np.argsort(bucket, kind="stable")
+            b = bucket[j]
+            slot = np.arange(b.shape[0]) - np.searchsorted(b, b)
+            table[b, slot, 0] = lo[j]
+            table[b, slot, 1] = hi[j]
+            table[b, slot, 2] = idf[j].astype(np.float32).view(np.int32)
         self._bucket_mask = n_buckets - 1
         self.dev["table"] = torch.as_tensor(
             table.reshape(n_buckets, 3 * S), device=self.device)
         logger.info("device CIDEr idf table: %d keys, %d buckets x %d slots",
-                    len(stored), n_buckets, S)
+                    lo.shape[0], n_buckets, S)
 
-    def _build_refs(self, gts: list, idf_by_key: dict):
-        n_img = len(gts)
-        M = max((g.shape[0] for g in gts), default=1)
-        T = max((g.shape[1] for g in gts), default=1)
+    def _build_refs(self, refs: dict, keys: np.ndarray, idf: np.ndarray):
+        """The per-image reference tables: packed windows, per-order norms,
+        EOS-inclusive lengths and masks; ``keys`` / ``idf`` every n-gram of
+        the DF table with its idf (a window outside it takes ref_len)."""
+        M, T, n_img = refs["M"], refs["T"], refs["n_img"]
         self._ref_T = T
-        starts, orders = _window_meta(T, self.n)
-        W = starts.shape[0]
-
-        rows = np.zeros((n_img, M, T), np.int64)
-        ref_mask = np.zeros((n_img, M), bool)
-        for i, g in enumerate(gts):
-            rows[i, : g.shape[0], : g.shape[1]] = g
-            ref_mask[i, : g.shape[0]] = True
-
-        flat = rows.reshape(-1, T)
-        lens = _lens_np(flat)
-        lo, hi, valid = _pack_np(flat, lens, starts, orders)
+        W = refs["starts"].shape[0]
+        lo, hi, valid = refs["lo"], refs["hi"], refs["valid"]
         # ref sentinel -3 never collides with candidate invalid (-1)
         lo = np.where(valid, lo, -3)
         hi = np.where(valid, hi, -3)
@@ -220,32 +305,26 @@ class DeviceCider:
         # per-ref per-order norms ||g_n(r)||^2 = sum_j tf_j * idf_j^2
         key = (lo.astype(np.int64) << 32) | (hi.astype(np.int64) & _M32)
         uniq, inv = np.unique(key, return_inverse=True)
-        if idf_by_key:
-            dk = np.fromiter(
-                ((np.int64(l) << 32) | (np.int64(h) & _M32)
-                 for (l, h) in idf_by_key.keys()),
-                np.int64, count=len(idf_by_key))
-            dv = np.fromiter(idf_by_key.values(), np.float64,
-                             count=len(idf_by_key)).astype(np.float32)
-            srt = np.argsort(dk)
-            dk, dv = dk[srt], dv[srt]
+        if keys.shape[0]:
+            srt = np.argsort(keys)
+            dk, dv = keys[srt], idf[srt].astype(np.float32)
             pos = np.clip(np.searchsorted(dk, uniq), 0, len(dk) - 1)
             uvals = np.where(dk[pos] == uniq, dv[pos],
                              np.float32(self.ref_len))
         else:
             uvals = np.full(len(uniq), self.ref_len, np.float32)
-        idf = uvals.astype(np.float32)[inv.reshape(-1)].reshape(
-            flat.shape[0], W)
+        rows_n = lo.shape[0]
+        idf_w = uvals.astype(np.float32)[inv.reshape(-1)].reshape(rows_n, W)
 
-        norm2 = np.zeros((flat.shape[0], self.n), np.float32)
+        norm2 = np.zeros((rows_n, self.n), np.float32)
         CH = 8192
         off = 0
         for ni in range(1, self.n + 1):
             w = T - ni + 1
             sl = slice(off, off + w)
             off += w
-            for s in range(0, flat.shape[0], CH):
-                e = min(s + CH, flat.shape[0])
+            for s in range(0, rows_n, CH):
+                e = min(s + CH, rows_n)
                 lo_n, hi_n = lo[s:e, sl], hi[s:e, sl]
                 valid_n = valid[s:e, sl]
                 tf = (
@@ -254,17 +333,19 @@ class DeviceCider:
                     & valid_n[:, None, :]
                 ).sum(axis=2)
                 norm2[s:e, ni - 1] = (
-                    tf * idf[s:e, sl] ** 2 * valid_n
+                    tf * idf_w[s:e, sl] ** 2 * valid_n
                 ).sum(axis=1)
 
         def put(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
+        ref_mask = refs["ref_mask"]
         self.dev["ref_lo"] = put(lo.reshape(n_img, M, W))
         self.dev["ref_hi"] = put(hi.reshape(n_img, M, W))
         self.dev["ref_norm"] = put(
             np.sqrt(norm2).reshape(n_img, M, self.n).astype(np.float32))
-        self.dev["ref_lens"] = put(lens.reshape(n_img, M).astype(np.int32))
+        self.dev["ref_lens"] = put(
+            refs["lens"].reshape(n_img, M).astype(np.int32))
         self.dev["ref_mask"] = put(ref_mask)
         self.dev["ref_count"] = put(ref_mask.sum(axis=1).astype(np.float32))
 

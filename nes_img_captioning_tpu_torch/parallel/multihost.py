@@ -16,6 +16,13 @@ What a run needs:
   bookkeeping in a private scratch directory (``master_base.
   setup_log_dir``), so its host logic stays the primary's bit for bit.
 
+The rendezvous is a ``TCPStore``. Ranks joined by ``--coordinator`` meet
+at rank 0's address, where rank 0 binds the store. Ranks that one process
+starts on its host (``main.py`` with ``tpu.mesh_shape``) meet at a store
+that the starting process binds to port 0 and holds until they end
+(``hold_rendezvous``): no port is chosen, released and bound again, so no
+other process can take it in between. A group of one needs no socket.
+
 Each rank's device is explicit: ``cuda:{rank % device_count}`` unless the
 caller names one. The backend follows one rule, logged at start: NCCL when
 every rank has a card of its own; gloo on the CPU, or when two ranks share
@@ -41,8 +48,8 @@ from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["current_group", "free_port", "init_multihost", "is_primary",
-           "process_count", "shutdown_multihost"]
+__all__ = ["current_group", "hold_rendezvous", "init_multihost",
+           "is_primary", "process_count", "shutdown_multihost"]
 
 # a collective or the rendezvous waiting this long fails the run
 TIMEOUT = datetime.timedelta(seconds=600)
@@ -50,11 +57,15 @@ TIMEOUT = datetime.timedelta(seconds=600)
 _GROUP: RankGroup | None = None
 
 
-def free_port() -> int:
-    """A free TCP port on this host for a local rendezvous."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def hold_rendezvous(world: int, timeout: datetime.timedelta = TIMEOUT):
+    """The store of a group of ``world`` ranks that this process starts on
+    its host, bound to a port the system picks and held while the returned
+    object lives: pass ``store.port`` to the ranks, which join it with
+    ``init_multihost(f"127.0.0.1:{port}", ..., launcher_store=True)``."""
+    import torch.distributed as dist
+
+    return dist.TCPStore("127.0.0.1", 0, world, is_master=True,
+                         timeout=timeout, wait_for_workers=False)
 
 
 def _rank_device(device, rank: int) -> torch.device:
@@ -70,10 +81,13 @@ def _rank_device(device, rank: int) -> torch.device:
 def init_multihost(coordinator: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None, device=None,
-                   timeout: datetime.timedelta = TIMEOUT) -> int:
+                   timeout: datetime.timedelta = TIMEOUT,
+                   launcher_store: bool = False) -> int:
     """Join the group of ``num_processes`` ranks as rank ``process_id``,
-    rendezvous at ``coordinator`` ("host:port" of rank 0; a free local port
-    for a group of one). No-op without ``num_processes``. ``device``: as
+    rendezvous at ``coordinator`` ("host:port": rank 0 binds the store
+    there, or with ``launcher_store`` the process that started the ranks
+    holds it, ``hold_rendezvous``, and every rank connects; none for a
+    group of one). No-op without ``num_processes``. ``device``: as
     ``_rank_device``; ``timeout`` bounds the rendezvous and every
     collective. Returns this process's rank."""
     global _GROUP
@@ -88,15 +102,19 @@ def init_multihost(coordinator: str | None = None,
             or not 0 <= process_id < num_processes:
         raise ValueError(f"process_id {process_id!r} of {num_processes} "
                          "processes")
-    if coordinator is None:
-        if num_processes > 1:
-            raise ValueError("--coordinator host:port (rank 0's) is needed "
-                             "for more than one process")
-        coordinator = f"127.0.0.1:{free_port()}"
+    if coordinator is None and num_processes > 1:
+        raise ValueError("--coordinator host:port (rank 0's) is needed for "
+                         "more than one process")
     dev = _rank_device(device, process_id)
-    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id,
-                            timeout=timeout)
+    if coordinator is None:
+        store = dist.HashStore()
+    else:
+        host, port = coordinator.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), num_processes,
+                              is_master=process_id == 0 and not launcher_store,
+                              timeout=timeout)
+    dist.init_process_group("gloo", store=store, world_size=num_processes,
+                            rank=process_id, timeout=timeout)
     peers = [None] * num_processes
     dist.all_gather_object(peers, (socket.gethostname(), str(dev)))
     own_cards = (all(d.startswith("cuda") for _, d in peers)

@@ -18,20 +18,27 @@ and ES trajectories bit for bit the one process's; NES theta within 1e-6
 of it (the partial gradients are summed in another order).
 """
 
+import datetime
 import glob
 import json
 import os
 import re
 import signal
+import socket
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 120  # seconds: a subprocess, and a rendezvous or collective
+# seconds: a subprocess, and a rendezvous or collective. The local-rank CLI
+# test takes 10-19 s alone and 53-66 s beside five busy 8-thread processes
+# on 8 cores; a loaded test host once held it past 120 s after its ranks
+# had met.
+TIMEOUT = 300
 F_PAIRS, B, SIGMA, STEP, L2 = 5, 4, 0.05, 0.01, 1e-7
 ES_PATHS = {"plain": {"fused_es": False}, "fused": {},
             "blocked": {"gens_per_dispatch": 2}}
@@ -144,11 +151,17 @@ def _es_case(inputs: dict, mesh, tag: str) -> dict:
     return out
 
 
+def _meet_case(inputs: dict, mesh, tag: str) -> dict:
+    """The group's ranks, gathered from each rank with its pid."""
+    from nes_img_captioning_tpu_torch.parallel.mesh import all_gather
+
+    own = torch.tensor([[mesh.rank, os.getpid()]])
+    return {"world": mesh.world, "ranks": all_gather(mesh, own).numpy()}
+
+
 def worker_main(case: str, world: int, rank: int, port: int, out_dir: str):
     """One rank (world 0: one process, no group): run ``case`` on the
     inputs in out_dir and save what it read back beside them."""
-    import datetime
-
     from nes_img_captioning_tpu_torch.parallel import make_mesh
     from nes_img_captioning_tpu_torch.parallel.multihost import (
         init_multihost,
@@ -160,10 +173,11 @@ def worker_main(case: str, world: int, rank: int, port: int, out_dir: str):
                         weights_only=False)
     if world:
         init_multihost(f"127.0.0.1:{port}", world, rank, device="cpu",
-                       timeout=datetime.timedelta(seconds=TIMEOUT))
+                       timeout=datetime.timedelta(seconds=TIMEOUT),
+                       launcher_store=True)
     try:
-        out = {"nes": _nes_case, "es": _es_case}[case](inputs, make_mesh(),
-                                                       f"w{world}")
+        out = {"nes": _nes_case, "es": _es_case, "meet": _meet_case}[case](
+            inputs, make_mesh(), f"w{world}")
     finally:
         shutdown_multihost()
     torch.save(out, os.path.join(out_dir, f"{case}_w{world}_r{rank}.pt"))
@@ -193,16 +207,27 @@ def _run(procs_args, timeout=TIMEOUT):
     return [err for _, err in outs]
 
 
+def _free_port() -> int:
+    """A port that was free a moment ago, for rank 0 of a ``--coordinator``
+    group to bind (the CLI's multi-host form)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _ranks(case: str, out_dir: str) -> dict:
     """Run ``case`` as one process (key 0) and as 2 ranks (keys 1, 2 for
-    ranks 0, 1), all at once; returns their results."""
-    from nes_img_captioning_tpu_torch.parallel.multihost import free_port
+    ranks 0, 1), all at once, the ranks meeting at a store this process
+    holds; returns their results."""
+    from nes_img_captioning_tpu_torch.parallel.multihost import (
+        hold_rendezvous,
+    )
 
-    port = free_port()
+    store = hold_rendezvous(2, datetime.timedelta(seconds=TIMEOUT))
     me = os.path.abspath(__file__)
     runs = [(0, 0)] + [(2, r) for r in range(2)]
-    _run([[sys.executable, me, case, str(w), str(r), str(port), out_dir]
-          for w, r in runs])
+    _run([[sys.executable, me, case, str(w), str(r), str(store.port),
+           out_dir] for w, r in runs])
     return {i: torch.load(os.path.join(out_dir, f"{case}_w{w}_r{r}.pt"),
                           weights_only=False)
             for i, (w, r) in enumerate(runs)}
@@ -394,14 +419,12 @@ def test_cli_two_processes_nes_and_resume(tmp_path):
     UpdateRatio lines; one z_info, the primary's, whose files are in the
     run's directory. Its snapshot resumes in one process for one more
     iteration."""
-    from nes_img_captioning_tpu_torch.parallel.multihost import free_port
-
     exp = _mnist_exp(tmp_path, "nes")
     exp["policy_options"]["model_options"]["safe_mutations"] = ""
     exp["tpu"] = {"seed": 11}
     exp_file = tmp_path / "exp.json"
     exp_file.write_text(json.dumps(exp))
-    port = free_port()
+    port = _free_port()
     errs = _run([_cli(exp_file, 2, "--coordinator", f"127.0.0.1:{port}",
                       "--num_processes", "2", "--process_id", str(r))
                  for r in range(2)])
@@ -421,6 +444,49 @@ def test_cli_two_processes_nes_and_resume(tmp_path):
     _run([_cli(tmp_path / "resume.json", 3)])
     _, infos = _one_zinfo(tmp_path / "resumed")
     assert infos["iter"] == 3
+
+
+def test_local_ranks_meet_while_ports_race(tmp_path):
+    """Two ranks meet at the store their starter holds while another
+    thread of the starter keeps trying to bind that store's port and churns
+    through the system's free ports: the port is never free (the store holds
+    it from the start, no port is released and bound again), and the ranks
+    gather each other's rank and pid."""
+    from nes_img_captioning_tpu_torch.parallel.multihost import (
+        hold_rendezvous,
+    )
+
+    store = hold_rendezvous(2, datetime.timedelta(seconds=TIMEOUT))
+    stop, taken, tries = threading.Event(), [], [0]
+
+    def race():
+        while not stop.is_set():
+            with socket.socket() as a, socket.socket() as b:
+                b.bind(("127.0.0.1", 0))  # another process's free port
+                try:
+                    a.bind(("127.0.0.1", store.port))
+                    taken.append(store.port)
+                except OSError:
+                    pass
+            tries[0] += 1
+
+    racer = threading.Thread(target=race, daemon=True)
+    torch.save({}, tmp_path / "meet_inputs.pt")
+    racer.start()
+    try:
+        me = os.path.abspath(__file__)
+        _run([[sys.executable, me, "meet", "2", str(r), str(store.port),
+               str(tmp_path)] for r in range(2)])
+    finally:
+        stop.set()
+        racer.join(timeout=10)
+    assert not racer.is_alive() and not taken and tries[0] > 0
+    outs = [torch.load(tmp_path / f"meet_w2_r{r}.pt", weights_only=False)
+            for r in range(2)]
+    for out in outs:
+        assert out["world"] == 2
+        assert out["ranks"][:, 0].tolist() == [0, 1]
+    np.testing.assert_array_equal(outs[0]["ranks"], outs[1]["ranks"])
 
 
 def test_cli_mesh_shape_starts_its_ranks(tmp_path):
