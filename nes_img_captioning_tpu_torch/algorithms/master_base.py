@@ -102,6 +102,12 @@ class MasterBase:
         # the safe kinds' clamp (reference: safe_mutations.py:28-32,62-63)
         self._underflow = float(mopts.get("safe_mutation_underflow", 0.01))
         setup_log_dir(exp, primary=self.mesh is None or self.mesh.rank == 0)
+        if tpu.rng_impl:
+            logger.warning(
+                "tpu.rng_impl=%r has no counterpart in the port: every "
+                "stream is the port's own (Philox per seed, torch "
+                "generators; README, \"Deviation: the noise stream\")",
+                tpu.rng_impl)
 
         self.task = make_task(exp, self.config, tpu, device=device,
                               data=data)

@@ -9,8 +9,8 @@ per-image caption comparisons.
 Each checkpoint is decoded greedily at f32, as the JAX package's
 ``model.sample`` does: on the card one row-block launch of K1 over the
 split (``tasks/captioning.greedy_rows``, the decode of ``CocoTask``'s
-validation). The kernels take E = R = 128 and a feature width that is a
-multiple of 128; other widths are refused on the card unless
+validation). The kernels take E = R in 128, 256 or 512 and a feature
+width that is a multiple of 128; other widths are refused on the card unless
 ``--eager_decode`` (``eager=True``) asks for the eager decoder, which then
 decodes in chunks of ``batch_size``.
 
@@ -178,7 +178,7 @@ def run(argv=None, data: CocoData | None = None):
     parser.add_argument("--eager_decode", action="store_true",
                         help="decode with the eager decoder instead of the "
                         "kernels (tpu.fused_decode: false); needed on the "
-                        "card for widths other than E = R = 128")
+                        "card for widths other than E = R in 128, 256, 512")
     args = parser.parse_args(argv)
 
     setup_logging()

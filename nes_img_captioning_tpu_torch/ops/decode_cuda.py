@@ -50,14 +50,20 @@ kernel's design.
 
 Kernel sources: ``csrc/decode.cu``, built with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (loaded with ``ctypes``) on first
-use, into ``_build/`` inside this package. One ``nvcc`` with
-``--split-compile=0`` runs the optimiser and ``ptxas`` on the file's many
-kernel instantiations in parallel over the machine's cores.
+use, into ``_build/`` inside this package: one library per width E = R in
+``KERNEL_WIDTHS`` (128, 256, 512; ``-DNES_W``), each built at the first
+launch of its width, so a run at 128 does not pay for the others. One
+``nvcc`` with ``--split-compile=0`` runs the optimiser and ``ptxas`` on the
+file's many kernel instantiations in parallel over the machine's cores.
 
-What bounds them on an H100, and the design. A cluster holds all B <= 128
-rows of its member, lane or pair, so the batch-wide early exit stays inside
-it; callers split a larger batch (``tasks/captioning.py``). The 17-step recurrence is serial; the work per step is
-three products (i2h, h2h: 128x128x640 each; logits: 128x128xVpad) whose
+What bounds them on an H100, and the design. A launch takes at most 128
+rows of each member, lane or pair (callers split a larger batch,
+``tasks/captioning.py``); a cluster holds ``cluster_rows(width)`` of them
+(all 128 at E = R = 128, blocks of 64 and 32 at 256 and 512, one cluster
+per block, so x_t and h fit its shared memory), and the batch-wide early
+exit stays inside each cluster. The figures below are those of 128. The
+17-step recurrence is serial; the work per step is three products (i2h,
+h2h: 128x128x640 each; logits: 128x128xVpad) whose
 weights (~5.8 MB per member in bf16, far above an SM's 227 KB of shared
 memory) stream as tiles into shared memory. K1, K3 and K4 give each member
 (K3: each member and sample lane) a cluster of 2 CTAs (one per column half,
@@ -97,7 +103,6 @@ tensors; for CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -124,9 +129,13 @@ __all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
 PAD_LANE = 128
 NEG = -1e9
 
-# the kernels' fixed widths: E = R = 128, B <= 128 rows per CTA, feature
-# width a multiple of 128
-KERNEL_WIDTH = 128
+# the widths the kernels are built for, E = R (one library each, built at
+# the first launch of that width); a launch takes at most MAX_ROWS rows of
+# each member or pair, a cluster cluster_rows(width) of them; the feature
+# width is a multiple of 128 at every width
+KERNEL_WIDTHS = (128, 256, 512)
+MAX_ROWS = 128
+FEAT_MULTIPLE = 128
 
 PAIR_TENSORS = ("img_w", "img_b", "i2h_w", "i2h_b", "h2h_w", "h2h_b",
                 "logit_w", "logit_b", "embed")
@@ -139,6 +148,22 @@ _BUILD_DIR = _PKG / "_build"
 
 def pad_vocab(v1: int) -> int:
     return ((v1 + PAD_LANE - 1) // PAD_LANE) * PAD_LANE
+
+
+def cluster_rows(width: int) -> int:
+    """The image rows a cluster of the kernels holds at E = R = ``width``:
+    128 * 128 / width (128, 64, 32), so that a CTA's f32 x_t and h fit its
+    shared memory (csrc/decode.cu, the note on W and ROWS)."""
+    _check(width in KERNEL_WIDTHS, f"E = R = {width}: the kernels take "
+           f"E = R in {KERNEL_WIDTHS}")
+    return MAX_ROWS * MAX_ROWS // width
+
+
+def _exit_rows(width: int, B: int) -> int:
+    """The rows that share a batch-wide early exit in a plain twin: the
+    kernel's cluster at the widths past 128 it is built for, else the whole
+    launch (the JAX kernel's)."""
+    return cluster_rows(width) if width in KERNEL_WIDTHS[1:] else max(B, 1)
 
 
 def prepare_decode_params(spec, theta: torch.Tensor, options,
@@ -219,7 +244,8 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
     """The plain decode shared by the twins of K1, K3 and K4. params: a
     batch of M members (leading axis), feats (M, B, F). Each member decodes
     ``lanes`` copies of its B rows, lane-major ((M, lanes * B) rows), each
-    copy with its own batch-wide early exit, as one CTA of the kernels.
+    copy with its own batch-wide early exit, as one cluster of the kernels
+    (at E = R = 256 and 512 each block of ``cluster_rows`` of them).
     ``gumbel_at(t)``: the (M, lanes * B, Vpad) noise of step t; the token is
     then argmax(logits + G) and lp = logit[token] - lse (K3). ``vocab_tile``:
     K4's tiled reduction. Returns (seq, lp[, gap]), each (M, lanes * B, T);
@@ -254,13 +280,18 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
     rows = torch.arange(M, device=dev)[:, None]
     tok = torch.zeros((M, N), dtype=torch.long, device=dev)
     unfin = torch.ones((M, N), dtype=torch.bool, device=dev)
-    alive = torch.ones((M, lanes, 1), dtype=torch.bool, device=dev)
+    # the rows of each early exit: a cluster's block of a lane's B
+    step = _exit_rows(R, B)
+    blocks = [(lo, min(lo + step, B)) for lo in range(0, B, step)]
+    alive = torch.ones((M, lanes, len(blocks)), dtype=torch.bool, device=dev)
+    size = torch.tensor([hi - lo for lo, hi in blocks], device=dev)
     seq, lps, gaps = [], [], []
     for t in range(seq_length):
         h, c = lstm(params["embed"][rows, tok], h, c)
         logits = dott(h.to(dt), params["logit_w"]) + params["logit_b"]
         key = logits if gumbel_at is None else logits + gumbel_at(t)
-        row_alive = alive.expand(M, lanes, B).reshape(M, N)
+        row_alive = alive.repeat_interleave(size, dim=-1,
+                                            output_size=B).reshape(M, N)
         if top2_gap:
             top = key.topk(2, dim=-1).values
             gaps.append(torch.where(row_alive, top[..., 0] - top[..., 1], 0.0))
@@ -281,11 +312,13 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
             lp_tok = logits.gather(-1, new[..., None])[..., 0] - lse
         unfin = unfin & (new > 0)
         tok = new * unfin
-        # a CTA whose rows have all finished skips its remaining steps: its
-        # outputs stay 0, as in the kernel
+        # a cluster whose rows have all finished skips its remaining steps:
+        # its outputs stay 0, as in the kernel
         seq.append(torch.where(row_alive, tok, 0).to(torch.int32))
         lps.append(torch.where(row_alive, lp_tok, 0.0))
-        alive = alive & unfin.view(M, lanes, B).any(-1, keepdim=True)
+        u = unfin.view(M, lanes, B)
+        alive = alive & torch.stack([u[..., lo:hi].any(-1)
+                                     for lo, hi in blocks], -1)
     out = [torch.stack(seq, -1), torch.stack(lps, -1)]
     if top2_gap:
         out.append(torch.stack(gaps, -1))
@@ -328,13 +361,14 @@ def decode_rows_plain(params: dict, feats: torch.Tensor,
                       seq_length: int = 16, need_logprobs: bool = True, *,
                       vocab_tile: int = 0, top2_gap: bool = False):
     """Plain twin of ``decode_rows``: K1's (K4's) plain twin on each block
-    of 128 rows of feats (N, F), one member's params; (seq, lp[, gap]),
-    each (N, T). Blocks as the kernel's, so the early exits, and with them
-    lp, are the kernel's too."""
-    outs = [decode_fused_plain(params, feats[lo:lo + KERNEL_WIDTH],
+    of 128 rows of feats (N, F) (``cluster_rows`` at E = R = 256 and 512),
+    one member's params; (seq, lp[, gap]), each (N, T). Blocks as the
+    kernel's, so the early exits, and with them lp, are the kernel's too."""
+    step = _exit_rows(params["h2h_w"].shape[-2], MAX_ROWS)
+    outs = [decode_fused_plain(params, feats[lo:lo + step],
                                seq_length, need_logprobs,
                                vocab_tile=vocab_tile, top2_gap=top2_gap)
-            for lo in range(0, feats.shape[0], KERNEL_WIDTH)]
+            for lo in range(0, feats.shape[0], step)]
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
@@ -512,19 +546,23 @@ def _nvcc() -> str:
     return found
 
 
-def build_kernels() -> tuple[Path, str]:
-    """Compile ``csrc/decode.cu`` for sm_90a into ``_build/`` unless a
+def build_kernels(width: int = 128) -> tuple[Path, str]:
+    """Compile ``csrc/decode.cu`` at E = R = ``width`` (``-DNES_W``) for
+    sm_90a into ``_build/libnes_decode_w<width>_<digest>.so`` unless a
     library built from the same sources is already there. Returns (library
     path, the compiler's ptxas report; empty when nothing was compiled)."""
+    _check(width in KERNEL_WIDTHS,
+           f"E = R = {width}: the kernels are built for {KERNEL_WIDTHS}")
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in _SOURCES))
-    lib = _BUILD_DIR / f"libnes_decode_{digest.hexdigest()[:12]}.so"
+    lib = _BUILD_DIR / f"libnes_decode_w{width}_{digest.hexdigest()[:12]}.so"
     if lib.is_file():
         return lib, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), *map(str, _SOURCES)]
+           f"-DNES_W={width}", "-Xptxas", "-v", "-o", str(tmp),
+           *map(str, _SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -533,9 +571,25 @@ def build_kernels() -> tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernels()[0]))
+_LIBS: dict[int, ctypes.CDLL] = {}
+
+
+def _kernels(width: int | None = None) -> ctypes.CDLL:
+    """The library of E = R = ``width``, built and bound at its first use;
+    ``width=None`` (the width-free noise kernels, which every library
+    holds): one already loaded, else the one of 128."""
+    if width is None:
+        width = next(iter(_LIBS), KERNEL_WIDTHS[0])
+    if width not in _LIBS:
+        _LIBS[width] = _bind(ctypes.CDLL(str(build_kernels(width)[0])), width)
+    return _LIBS[width]
+
+
+def _bind(lib: ctypes.CDLL, width: int) -> ctypes.CDLL:
+    rows = ctypes.c_int()
+    _check(lib.nes_width(ctypes.byref(rows)) == width
+           and rows.value == cluster_rows(width),
+           f"the library of E = R = {width} reports another width")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nes_decode_fused.argtypes = [ci] * 7 + [vp] * 10 + [vp] * 2 + [vp]
     lib.nes_decode_fused.restype = ci
@@ -585,8 +639,11 @@ def _check(cond: bool, msg: str):
 def _check_params(params: dict, M: int, F: int, dt, what="params"):
     """Shapes, dtypes, device and contiguity of a batched params dict:
     weights in ``dt``, biases f32 (DecodeLayout.prep keeps every bias f32,
-    a delta's too)."""
-    W = KERNEL_WIDTH
+    a delta's too), E = R in KERNEL_WIDTHS. Returns (Vpad, the width)."""
+    W = params["img_w"].shape[-1]
+    _check(W == params["h2h_w"].shape[-2] and W in KERNEL_WIDTHS,
+           f"{what}: E = {W}, R = {params['h2h_w'].shape[-2]}: the kernels "
+           f"take E = R in {KERNEL_WIDTHS}")
     Vpad = params["logit_w"].shape[-1]
     expect = {"img_w": (M, F, W), "img_b": (M, 1, W),
               "i2h_w": (M, W, 5 * W), "i2h_b": (M, 1, 5 * W),
@@ -595,7 +652,8 @@ def _check_params(params: dict, M: int, F: int, dt, what="params"):
               "embed": (M, Vpad, W)}
     _check(Vpad % PAD_LANE == 0, f"{what}: padded vocab {Vpad} is not a "
            f"multiple of {PAD_LANE}")
-    _check(F % W == 0, f"{what}: feature width {F} is not a multiple of {W}")
+    _check(F % FEAT_MULTIPLE == 0, f"{what}: feature width {F} is not a "
+           f"multiple of {FEAT_MULTIPLE}")
     for k, shape in expect.items():
         t = params[k]
         _check(tuple(t.shape) == shape,
@@ -605,7 +663,7 @@ def _check_params(params: dict, M: int, F: int, dt, what="params"):
         _check(t.dtype == want, f"{what}[{k}]: dtype {t.dtype} != {want}")
         _check(t.is_cuda, f"{what}[{k}] is not a CUDA tensor")
         _check(t.is_contiguous(), f"{what}[{k}] is not contiguous")
-    return Vpad
+    return Vpad, W
 
 
 def _raise_on(err: int, name: str):
@@ -632,21 +690,22 @@ def _check_variant(params: dict, greedy: bool, seeds, gumbel,
 
 
 def _launch_args(params: dict, feats: torch.Tensor, what: str,
-                 max_rows: int | None = KERNEL_WIDTH):
+                 max_rows: int | None = MAX_ROWS):
     """Checks of K1, K3 and K4's operands: (params, feats in dt, (M, B,
-    F), Vpad, dtype code, stream, single member?). ``max_rows=None``: the
-    row-block launch, any number of rows."""
+    F), Vpad, dtype code, stream, single member?, the library of their
+    width). ``max_rows=None``: the row-block launch, any number of rows."""
     dt = params["img_w"].dtype
     _check(dt in _DTYPE_CODE, f"weight dtype {dt} is not f32 or bf16")
     params, feats, single = _batched(params, feats)
     M, B, F = feats.shape
     _check(B >= 1 and (max_rows is None or B <= max_rows),
            f"batch {B} outside 1..{max_rows}")
-    Vpad = _check_params(params, M, F, dt, what=what)
+    Vpad, width = _check_params(params, M, F, dt, what=what)
     feats = feats.to(dt).contiguous()
     _check(feats.device == params["img_w"].device, "feats on another device")
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    return params, feats, (M, B, F), Vpad, _DTYPE_CODE[dt], stream, single
+    return (params, feats, (M, B, F), Vpad, _DTYPE_CODE[dt], stream, single,
+            _kernels(width))
 
 
 def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
@@ -670,14 +729,14 @@ def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
                             need_logprobs)
     if not feats.is_cuda:
         return decode_fused_plain(params, feats, seq_length, need_logprobs)
-    params, feats, (M, B, F), Vpad, code, stream, single = _launch_args(
+    params, feats, (M, B, F), Vpad, code, stream, single, lib = _launch_args(
         params, feats, "params")
     _check_aligned(params, "params")
     seq = torch.empty((M, B, seq_length), dtype=torch.int32,
                       device=feats.device)
     lp = torch.empty((M, B, seq_length), dtype=torch.float32,
                      device=feats.device)
-    err = _kernels().nes_decode_fused(
+    err = lib.nes_decode_fused(
         code, int(need_logprobs), M, B, F, Vpad, seq_length,
         feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
         seq.data_ptr(), lp.data_ptr(), stream)
@@ -700,14 +759,14 @@ def decode_tiled(params: dict, feats: torch.Tensor, vocab_tile: int,
     if not feats.is_cuda:
         return decode_tiled_plain(params, feats, vocab_tile, seq_length,
                                   need_logprobs)
-    params, feats, (M, B, F), Vpad, code, stream, single = _launch_args(
+    params, feats, (M, B, F), Vpad, code, stream, single, lib = _launch_args(
         params, feats, "params")
     _check_aligned(params, "params")
     seq = torch.empty((M, B, seq_length), dtype=torch.int32,
                       device=feats.device)
     lp = torch.empty((M, B, seq_length), dtype=torch.float32,
                      device=feats.device)
-    err = _kernels().nes_decode_tiled(
+    err = lib.nes_decode_tiled(
         code, int(need_logprobs), M, B, F, Vpad, seq_length, vocab_tile,
         feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
         seq.data_ptr(), lp.data_ptr(), stream)
@@ -734,17 +793,18 @@ def decode_rows(params: dict, feats: torch.Tensor, seq_length: int = 16,
                                  vocab_tile=vocab_tile)
     _check(params["img_w"].dim() == 2 and feats.dim() == 2,
            "decode_rows takes one member's params and feats (N, F)")
-    params, feats, (_, N, F), Vpad, code, stream, _ = _launch_args(
+    params, feats, (_, N, F), Vpad, code, stream, _, lib = _launch_args(
         params, feats, "params", max_rows=None)
     _check_aligned(params, "params")
     # the last block's outputs are written in full; its rows past N are
     # padding, sliced off here
-    rows = -(-N // KERNEL_WIDTH) * min(N, KERNEL_WIDTH)
+    block = min(N, cluster_rows(params["img_w"].shape[-1]))
+    rows = -(-N // block) * block
     seq = torch.empty((rows, seq_length), dtype=torch.int32,
                       device=feats.device)
     lp = torch.empty((rows, seq_length), dtype=torch.float32,
                      device=feats.device)
-    err = _kernels().nes_decode_rows(
+    err = lib.nes_decode_rows(
         code, int(need_logprobs), N, F, Vpad, seq_length, vocab_tile,
         feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
         seq.data_ptr(), lp.data_ptr(), stream)
@@ -773,7 +833,7 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
         return decode_sample_plain(params, feats, seq_length, need_logprobs,
                                    seeds=seeds, gumbel=gumbel, row0=row0)
     single, M, L, u32, g = _lanes(params, seeds, gumbel)
-    params, feats, (M_, B, F), Vpad, code, stream, _ = _launch_args(
+    params, feats, (M_, B, F), Vpad, code, stream, _, lib = _launch_args(
         params, feats, "params")
     _check(M_ == M, f"{M_} members, {M} of seeds or gumbel")
     _check_aligned(params, "params")
@@ -783,7 +843,7 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
     prm = (params[k].data_ptr() for k in PAIR_TENSORS)
     if u32 is not None:
         seeds_d = _seeds_on(u32.reshape(-1), dev)
-        err = _kernels().nes_decode_sample(
+        err = lib.nes_decode_sample(
             code, int(need_logprobs), M, L, B, F, Vpad, seq_length, row0,
             feats.data_ptr(), *prm, seeds_d.data_ptr(), seq.data_ptr(),
             lp.data_ptr(), stream)
@@ -794,7 +854,7 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
         _check(g.dtype == torch.float32 and g.device == dev
                and g.is_contiguous(),
                "gumbel: not a contiguous f32 tensor on the weights' card")
-        err = _kernels().nes_decode_sample_table(
+        err = lib.nes_decode_sample_table(
             code, int(need_logprobs), M, L, B, F, Vpad, seq_length,
             feats.data_ptr(), *prm, g.data_ptr(), seq.data_ptr(),
             lp.data_ptr(), stream)
@@ -862,11 +922,11 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
         feats = feats[None].expand(P, *feats.shape)
     _, B, F = feats.shape
     _check(feats.shape[0] == P, f"feats lead {feats.shape[0]} != pairs {P}")
-    _check(1 <= B <= KERNEL_WIDTH, f"batch {B} outside 1..{KERNEL_WIDTH}")
-    Vpad = _check_params({k: v[None] for k, v in base.items()}, 1, F,
-                         torch.float32, what="base")
-    _check(_check_params(delta, P, F, ddt, what="delta") == Vpad,
-           "base and delta vocab differ")
+    _check(1 <= B <= MAX_ROWS, f"batch {B} outside 1..{MAX_ROWS}")
+    Vpad, width = _check_params({k: v[None] for k, v in base.items()}, 1, F,
+                                torch.float32, what="base")
+    _check(_check_params(delta, P, F, ddt, what="delta") == (Vpad, width),
+           "base and delta shapes differ")
     _check_aligned(base, "base")
     _check_aligned(delta, "delta")
     feats = feats.to(dtype).contiguous()
@@ -875,7 +935,7 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
                       device=feats.device)
     lp = torch.empty((P, 2, B, seq_length), dtype=torch.float32,
                      device=feats.device)
-    err = _kernels().nes_decode_pair_perturb(
+    err = _kernels(width).nes_decode_pair_perturb(
         _DTYPE_CODE[dtype], _DTYPE_CODE[ddt], int(need_logprobs), P, B, F,
         Vpad, seq_length, feats.data_ptr(),
         *(base[k].data_ptr() for k in PAIR_TENSORS),
@@ -898,35 +958,39 @@ def _check_aligned(params: dict, what: str):
                f"{what}[{k}] is not 16-byte aligned")
 
 
-def pair_cluster_info(dtype=torch.bfloat16, delta_dtype=torch.bfloat16
-                      ) -> dict:
-    """The pair kernel's launch shape on the current card for compute dtype
-    ``dtype`` and delta dtype ``delta_dtype`` (K5: f32): CTAs per cluster
-    (one cluster per pair), threads per CTA, dynamic shared memory bytes,
+def pair_cluster_info(dtype=torch.bfloat16, delta_dtype=torch.bfloat16,
+                      width: int = 128) -> dict:
+    """The pair kernel's launch shape on the current card at E = R =
+    ``width`` for compute dtype ``dtype`` and delta dtype ``delta_dtype``
+    (K5: f32): CTAs per cluster (one cluster per pair and block of
+    ``rows`` image rows), threads per CTA, dynamic shared memory bytes,
     ring slots, k-rows per tile, and the clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
     out = (ctypes.c_int * 6)()
-    err = _kernels().nes_pair_cluster_info(
+    err = _kernels(width).nes_pair_cluster_info(
         _DTYPE_CODE[dtype], _DTYPE_CODE[delta_dtype], out)
     _raise_on(err, "pair_cluster_info")
     return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
-                     "tile_rows", "max_active_clusters"), out))
+                     "tile_rows", "max_active_clusters"), out),
+                rows=cluster_rows(width))
 
 
-def member_cluster_info(dtype=torch.bfloat16, sampled: bool = False) -> dict:
-    """The member kernel's launch shape on the current card for weight
-    dtype ``dtype``, greedy (K1, K4) or ``sampled`` (K3, whose row partials
-    carry two more fields): CTAs per cluster (one cluster per member or
-    lane), threads per CTA, dynamic shared memory bytes, ring slots, k-rows
-    per tile, the clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``) and tiles in flight."""
+def member_cluster_info(dtype=torch.bfloat16, sampled: bool = False,
+                        width: int = 128) -> dict:
+    """The member kernel's launch shape on the current card at E = R =
+    ``width`` for weight dtype ``dtype``, greedy (K1, K4) or ``sampled``
+    (K3, whose row partials carry two more fields): CTAs per cluster (one
+    cluster per member or lane and block of ``rows`` image rows), threads
+    per CTA, dynamic shared memory bytes, ring slots, k-rows per tile, the
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)
+    and tiles in flight."""
     out = (ctypes.c_int * 7)()
-    err = _kernels().nes_member_cluster_info(_DTYPE_CODE[dtype],
-                                             int(sampled), out)
+    err = _kernels(width).nes_member_cluster_info(_DTYPE_CODE[dtype],
+                                                  int(sampled), out)
     _raise_on(err, "member_cluster_info")
     return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
                      "tile_rows", "max_active_clusters", "tiles_in_flight"),
-                    out))
+                    out), rows=cluster_rows(width))
 
 
 def _seeds_on(u32: np.ndarray, device) -> torch.Tensor:
@@ -972,9 +1036,9 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
         feats = feats[None].expand(P, *feats.shape)
     _, B, F = feats.shape
     _check(feats.shape[0] == P, f"feats lead {feats.shape[0]} != pairs {P}")
-    _check(1 <= B <= KERNEL_WIDTH, f"batch {B} outside 1..{KERNEL_WIDTH}")
-    Vpad = _check_params({k: v[None] for k, v in base.items()}, 1, F,
-                         torch.float32, what="base")
+    _check(1 <= B <= MAX_ROWS, f"batch {B} outside 1..{MAX_ROWS}")
+    Vpad, width = _check_params({k: v[None] for k, v in base.items()}, 1, F,
+                                torch.float32, what="base")
     flat = _check_scale(scale, base)
     _check_aligned(base, "base")
     feats = feats.to(dtype).contiguous()
@@ -988,7 +1052,7 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
     scratch = torch.empty((P, flat.shape[0]), dtype=torch.float32,
                           device=dev)
     seeds_d = _seeds_on(u32, dev)
-    err = _kernels().nes_decode_pair_rng(
+    err = _kernels(width).nes_decode_pair_rng(
         _DTYPE_CODE[dtype], int(need_logprobs), P, B, F, Vpad, seq_length,
         feats.data_ptr(), *(base[k].data_ptr() for k in PAIR_TENSORS),
         flat.data_ptr(), seeds_d.data_ptr(), scratch.data_ptr(),

@@ -12,12 +12,12 @@ A rollout is a decode and a score, each in one of two forms (JAX:
 captioning.py:221-319):
 
 * decode, fused (``tpu.fused_decode``; "auto" takes it for the no-norm
-  model, which on the card must have E = R = 128 and a feature width that
-  is a multiple of 128 unless the knob is false): the kernels of ops/decode_cuda.py, K1 per member (K4
-  with ``tpu.decode_vocab_tile``), K2 per antithetic pair, K5 per pair with
-  the noise drawn in the kernel, and K3 for the sampling kinds, in row
-  blocks of at most 128 (K3's blocks draw the Gumbel stream of one launch
-  over all rows);
+  model, which on the card must have E = R in 128, 256 or 512 and a feature
+  width that is a multiple of 128 unless the knob is false): the kernels of
+  ops/decode_cuda.py, K1 per member (K4 with ``tpu.decode_vocab_tile``), K2
+  per antithetic pair, K5 per pair with the noise drawn in the kernel, and
+  K3 for the sampling kinds, in launches of at most 128 rows (K3's blocks
+  draw the Gumbel stream of one launch over all rows);
 * decode, eager: ``FCCaptionModel.sample_members``, f32, the whole batch of
   each member at once, so the vbn, vbn_e and layer_n variants keep their
   batch statistics over all of a member's rows as the JAX decoder does;
@@ -62,7 +62,13 @@ from ..fitness.criteria import FITNESS_CRITERIA, criterion_device
 from ..fitness.scorer import IndexedCiderScorer
 from ..fitness.criteria import apply_criterion
 from ..models.fc_caption import FCCaptionModel, FCModelOptions
-from ..ops.decode_cuda import KERNEL_WIDTH, PAD_LANE, pad_vocab
+from ..ops.decode_cuda import (
+    FEAT_MULTIPLE,
+    KERNEL_WIDTHS,
+    MAX_ROWS,
+    PAD_LANE,
+    pad_vocab,
+)
 from ..ops.noise import gumbel_plain
 from ..utils.device import resolve_device
 
@@ -87,9 +93,10 @@ def resolve_fused(o: FCModelOptions, want, device: torch.device) -> bool:
     JAX's ``can_fuse`` does; false takes the eager decoder. True with a
     norm variant raises: JAX's fused path would decode it through
     ``prepare_decode_params``, which drops every norm leaf, another model.
-    On the card the kernels take E = R = 128 and a feature width that is a
-    multiple of 128; a no-norm model of another width raises unless
-    fused_decode is false, where JAX would still run its kernels."""
+    On the card the kernels take E = R in KERNEL_WIDTHS (128, 256, 512) and
+    a feature width that is a multiple of 128; a no-norm model of another
+    width raises unless fused_decode is false, where JAX would still run
+    its kernels."""
     if o.vbn or o.vbn_e or o.layer_n:
         if want is True:
             raise ValueError(
@@ -100,22 +107,23 @@ def resolve_fused(o: FCModelOptions, want, device: torch.device) -> bool:
     if want is False:
         return False
     if device.type == "cuda" and not (
-            o.input_encoding_size == o.rnn_size == KERNEL_WIDTH
-            and o.fc_feat_size % KERNEL_WIDTH == 0):
+            o.input_encoding_size == o.rnn_size
+            and o.rnn_size in KERNEL_WIDTHS
+            and o.fc_feat_size % FEAT_MULTIPLE == 0):
         raise ValueError(
             f"tpu.fused_decode={want}: input_encoding_size="
             f"{o.input_encoding_size}, rnn_size={o.rnn_size}, "
             f"fc_feat_size={o.fc_feat_size}: the CUDA decode kernels take "
-            f"E = R = {KERNEL_WIDTH} and a feature width that is a "
-            f"multiple of {KERNEL_WIDTH}; set it to false to decode "
-            "eagerly")
+            f"E = R in {', '.join(map(str, KERNEL_WIDTHS))} and a feature "
+            f"width that is a multiple of {FEAT_MULTIPLE}; set it to false "
+            "to decode eagerly")
     return True
 
 
 def greedy_rows(model: FCCaptionModel, theta, feats, fused: bool, dtype,
                 chunk: int, vocab_tile: int = 0) -> torch.Tensor:
     """Greedy tokens (N, T) of the flat theta on feats (N, F). Fused: one
-    launch of K1 (K4 with ``vocab_tile``) over all row blocks of 128
+    launch of K1 (K4 with ``vocab_tile``) over all row blocks of a cluster
     (``decode_rows``) on ``prepare_decode_params`` at ``dtype``; greedy
     rows are independent, so the blocks change no token. Eager
     (``FCCaptionModel.sample_members``, f32): chunks of ``chunk`` rows (at
@@ -333,12 +341,13 @@ class CocoTask(Task):
 
     @staticmethod
     def _by_rows(decode, B: int, axis: int):
-        """``decode(lo, hi)`` on row blocks [lo, hi) of at most the kernels'
-        128 rows, one launch each, its (seq, lp) joined along ``axis``.
+        """``decode(lo, hi)`` on row blocks [lo, hi) of at most a launch's
+        128 rows (MAX_ROWS), one launch each, its (seq, lp) joined along
+        ``axis``.
         Rows are independent but for the batch-wide early exit, which only
         skips steps whose tokens are 0 anyway, so no token changes."""
-        outs = [decode(lo, min(lo + KERNEL_WIDTH, B))
-                for lo in range(0, B, KERNEL_WIDTH)]
+        outs = [decode(lo, min(lo + MAX_ROWS, B))
+                for lo in range(0, B, MAX_ROWS)]
         if len(outs) == 1:
             return outs[0]
         return tuple(torch.cat(o, axis) for o in zip(*outs))

@@ -25,8 +25,11 @@ built (``tasks/captioning.py``): "auto" as in the JAX package, and an
 explicit true that the port cannot honour (the decode kernels for a norm
 variant, the device scorer at V + 1 >= 16384) raises where the JAX
 package goes on with another path; on the card the decode kernels take
-E = R = 128 only, so a no-norm model of another width raises unless
-``fused_decode`` is false.
+E = R in 128, 256 or 512, so a no-norm model of another width raises
+unless ``fused_decode`` is false. ``rng_impl`` takes the names JAX's
+``jax.random.key(..., impl=)`` takes (and "" for its default) and rejects
+any other, as JAX does; the port draws from its own Philox stream whatever
+it names (README, "Deviation: the noise stream"), which the masters log.
 """
 
 from __future__ import annotations
@@ -90,7 +93,12 @@ class TpuConfig:
     kernel_perturb: object = "auto"  # pair kernel K2: "auto"|True|False
     kernel_noise: object = "auto"
     delta_dtype: str = "f32"  # storage dtype of the pair delta: f32 | bf16
-    rng_impl: str = ""
+    rng_impl: str = ""  # one of RNG_IMPLS; no port counterpart
+
+
+# the PRNG implementations JAX's jax.random.key(seed, impl=) accepts; ""
+# is its default (threefry2x32)
+RNG_IMPLS = ("", "threefry2x32", "rbg", "unsafe_rbg")
 
 
 def _strip_disabled(d: dict) -> dict:
@@ -130,6 +138,10 @@ def parse_tpu_config(exp: dict) -> TpuConfig:
                                 "bf16": "bf16", "bfloat16": "bf16"})
     _alias(cfg, "precision", {"f32": "f32", "float32": "f32",
                               "bf16": "bf16", "bfloat16": "bf16"})
+    if cfg.get("rng_impl", "") not in RNG_IMPLS:
+        raise ValueError(
+            f"tpu.rng_impl={cfg['rng_impl']!r}: unrecognized PRNG "
+            f"implementation, expected one of {list(RNG_IMPLS)}")
     if cfg.get("sensitivity_probes") is not None \
             and int(cfg["sensitivity_probes"]) < 0:
         raise ValueError(

@@ -20,10 +20,11 @@ launches (``k5_draw``, the same kernel, and ``k5_decode``); the median
 host time of 9 kernel-noise generations (``gen_noise``: ``NESEngine`` with
 ``tpu.kernel_noise`` at the bench settings, 144 pairs, on the synthetic
 fixture, after a warm-up; each ends in ``torch.cuda.synchronize()``); a
-SHA-256 of K5's tokens and lp (bf16, logprobs on), K6's gradient and K7's
-dump; and the card's name and power limit. Then one line of each time's mean per
-root and B's change against A in percent. The delta stream must not move:
-the run exits non-zero when a digest differs between the runs.
+SHA-256 of K1's, K2's and K5's tokens and lp (bf16, logprobs on), K6's
+gradient and K7's dump; and the card's name and power limit. Then one line
+of each time's mean per root and B's change against A in percent. Neither
+the decode nor the delta stream may move: the run exits non-zero when a
+digest differs between the runs.
 """
 
 from __future__ import annotations
@@ -167,11 +168,16 @@ def worker(root: str, build: bool):
     row["k7_kernel_ms"] = profiled_ms(runs["k7"], 20)["draw"]
     k5 = profiled_ms(runs["k5"], 5)
     row["k5_draw_ms"], row["k5_decode_ms"] = k5["draw"], k5["decode"]
+    seq1, lp1 = dc.decode_fused(params, feats2, T, True)
+    seq2, lp2 = dc.decode_pair_perturb(base, dp16, feats, T, torch.bfloat16,
+                                       True)
     seq5, lp5 = dc.decode_pair_rng(base, scale, seeds[:P], feats, T,
                                    torch.bfloat16, True)
     g6, d7 = runs["k6"](), runs["k7"]()
     row["gen_noise_ms"] = noise_generation_ms()
     row["digest"] = {
+        "k1": sha256(seq1, lp1),
+        "k2": sha256(seq2, lp2),
         "k5": sha256(seq5, lp5),
         "k6": sha256(*(g6[k] for k in dc.PAIR_TENSORS)),
         "k7": sha256(*(d7[k] for k in dc.PAIR_TENSORS))}
@@ -205,8 +211,8 @@ def main():
         k: 100.0 * (mean[b][k] / mean[a][k] - 1.0) for k in names},
         "digests_equal": same}))
     if not same:
-        raise SystemExit("the K5, K6 or K7 digests differ between the roots: "
-                         "the delta stream moved")
+        raise SystemExit("the K1, K2, K5, K6 or K7 digests differ between "
+                         "the roots: the decode or the delta stream moved")
 
 
 if __name__ == "__main__":

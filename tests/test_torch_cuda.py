@@ -1311,3 +1311,119 @@ def test_profile_summary_finds_a_cuda_kernel(small_members, tmp_path):
     rows = [r for r in out["rows"] if "member_kernel" in r[0]]
     assert len(rows) == 1 and rows[0][2] == 1 and rows[0][1] > 0
     assert 0.0 <= out["idle"] < 1.0
+
+
+# ---- the kernels at E = R = 256 and 512 (one library per width) ------------
+
+
+@pytest.fixture(params=[256, 512], ids=["w256", "w512"])
+def wide_members(request):
+    """Two members and a delta at E = R = 256 or 512, vocab 300 (padded to
+    384), 256-d features, 100 rows: 2 (4) clusters of 64 (32) rows per
+    member, the last ragged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    width = request.param
+    opts = FCModelOptions(vocab_size=300, fc_feat_size=256,
+                          input_encoding_size=width, rnn_size=width)
+    lay = DecodeLayout(build_spec(opts), opts)
+    g = torch.Generator(device="cuda").manual_seed(width)
+    theta = lay.spec.init_theta(g) * 3
+    feats = torch.randn((2, 100, 256), generator=g, device="cuda")
+    members = torch.stack([lay.to_dec(theta), lay.to_dec(theta * 0.5)])
+    sc = lay.to_dec(torch.full_like(theta, 0.05), pad_scale=0.0)
+    delta = (sc * torch.randn(lay.dim_dec, generator=g, device="cuda")
+             ).to(torch.bfloat16)
+    return width, lay, members, feats, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [100, 37], ids=["rows100", "rows37"])
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_wide_member_kernel_matches_plain_twin(wide_members, kernel, rows,
+                                               dt):
+    """K1 (K4 at vocab tile 128) at E = R = 256 and 512 over 100 rows
+    (row blocks of 64 or 32, the last ragged) and a partial batch of 37:
+    f32 tokens equal the plain twin's, lp within 2e-5; bf16 rows differ
+    only at near-ties; K4's tokens are K1's bit for bit; the launch shape
+    reports the width's rows per cluster and at least 2 ring slots."""
+    width, lay, members, feats, _ = wide_members
+    params = lay.prep(members, dt)
+    _member_held_to_plain(params, feats[:, :rows].contiguous(), kernel, dt)
+    info = tdc.member_cluster_info(dt, width=width)
+    assert info["rows"] == 128 * 128 // width and info["ring_slots"] >= 2
+    assert info["smem_bytes"] <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ddt", [torch.float32, torch.bfloat16],
+                         ids=["delta_f32", "delta_bf16"])
+def test_wide_k2_pad_lanes_and_k5(wide_members, ddt, dt):
+    """K2 at E = R = 256 and 512 on 3 pairs whose last repeats the second
+    (the engine's pad lane): every (pair, sign) bitwise K1 on prep(base ±
+    delta) in tokens, lp within 2e-5; the pad pair's outputs equal the
+    pair it repeats bit for bit; K5 is bitwise K2 fed K7's dump."""
+    width, lay, members, feats, delta = wide_members
+    base = lay.prep(members[0], torch.float32)
+    d = lay.prep(torch.stack([delta.float(), 2 * delta.float(),
+                              2 * delta.float()]), torch.float32)
+    d = {k: v.to(ddt) if k not in tdc._BIASES else v for k, v in d.items()}
+    f3 = torch.stack([feats[0], feats[1], feats[1]])
+    seq2, lp2 = tdc.decode_pair_perturb(base, d, f3, dtype=dt,
+                                        need_logprobs=True)
+    _held_to_k1(base, d, f3, dt, seq2, lp2)
+    assert torch.equal(seq2[2], seq2[1]) and torch.equal(lp2[2], lp2[1])
+    info = tdc.pair_cluster_info(dt, ddt, width=width)
+    assert info["rows"] == 128 * 128 // width and info["ring_slots"] >= 2
+    sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05, device="cuda"),
+                    pad_scale=0.0)
+    scale = lay.prep(sc, torch.float32)
+    dump = tdc.pair_delta_dump(scale, [3, 4])
+    seq5, lp5 = tdc.decode_pair_rng(base, scale, [3, 4], feats, dtype=dt,
+                                    need_logprobs=True)
+    seq_d, lp_d = tdc.decode_pair_perturb(base, dump, feats, dtype=dt,
+                                          need_logprobs=True)
+    assert torch.equal(seq5, seq_d) and torch.equal(lp5, lp_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_k3_and_row_blocks(wide_members, dt):
+    """K3 at E = R = 256 and 512, 2 lanes per member over 100 rows: the
+    host-table form bitwise its plain twin's tokens (f32: lp within 2e-5),
+    the seeded form bitwise the host-table form fed the stream's table
+    (each cluster draws at its rows' absolute index); decode_rows over 150
+    rows bitwise decode_fused per block of 128."""
+    width, lay, members, feats, _ = wide_members
+    params = lay.prep(members, dt)
+    B, Vpad, T = feats.shape[1], lay.Vpad, 16
+    seeds = np.array([[1, 0xFFFFFFFF], [7, 8]], np.uint32)
+    table = torch.stack([torch.stack([
+        torch.stack([tdc.gumbel_table(int(s), t, B, Vpad, "cuda")
+                     for t in range(T)]) for s in row]) for row in seeds])
+    seq_t, lp_t = tdc.decode_fused(params, feats, greedy=False, gumbel=table)
+    seq_s, lp_s = tdc.decode_fused(params, feats, greedy=False, seeds=seeds)
+    seq_p, lp_p, gap_p = tdc.decode_sample_plain(params, feats, gumbel=table,
+                                                 top2_gap=True)
+    torch.cuda.synchronize()
+    assert torch.equal(seq_s, seq_t) and torch.equal(lp_s, lp_t)
+    if dt == torch.float32:
+        assert torch.equal(seq_t, seq_p)
+        assert float((lp_t - lp_p).abs().max()) < 2e-5
+    else:
+        _first_diffs_at_near_ties(seq_t, seq_p, gap_p)
+    one = lay.prep(members[0], dt)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = torch.randn((150, 256), generator=g, device="cuda")
+    seq, lp = tdc.decode_rows(one, rows, need_logprobs=True)
+    blocks = [tdc.decode_fused(one, rows[lo:lo + 128]) for lo in (0, 128)]
+    torch.cuda.synchronize()
+    assert torch.equal(seq, torch.cat([b[0] for b in blocks]))
+    assert torch.equal(lp, torch.cat([b[1] for b in blocks]))

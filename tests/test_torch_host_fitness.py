@@ -337,7 +337,7 @@ def test_gates_resolve_as_jax(coco, case, monkeypatch):
         monkeypatch.setattr(ttask, "device", torch.device("cuda"))
         assert fused is None
         for want in ("auto", True):
-            with pytest.raises(ValueError, match="E = R = 128"):
+            with pytest.raises(ValueError, match="E = R in 128, 256, 512"):
                 ttask._resolve_fused(want)
         assert ttask._resolve_fused(False) is False
         return

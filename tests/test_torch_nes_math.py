@@ -150,6 +150,47 @@ def test_config_parses_like_jax():
             tcfg.parse_tpu_config({"tpu": bad})
 
 
+@pytest.mark.parametrize("impl", ["", "threefry2x32", "rbg", "unsafe_rbg",
+                                  "rgb"])
+def test_rng_impl_takes_jax_names(impl):
+    """tpu.rng_impl takes the names jax.random.key(impl=) takes and rejects
+    any other with ValueError, as JAX does; mscoco_nes.json's "rbg"
+    parses."""
+    import jax
+
+    from nes_img_captioning_tpu.utils import config as jcfg
+    from nes_img_captioning_tpu_torch.utils import config as tcfg
+
+    exp = {"tpu": {"rng_impl": impl}}
+    try:
+        jax.random.key(0, impl=impl or None)
+    except ValueError:
+        with pytest.raises(ValueError, match="rng_impl"):
+            tcfg.parse_tpu_config(exp)
+        assert impl == "rgb"
+    else:
+        assert tcfg.parse_tpu_config(exp).rng_impl == impl
+    file = jcfg.load_experiment("experiments/mscoco_nes.json")
+    assert tcfg.parse_tpu_config(file).rng_impl == "rbg"
+
+
+def test_master_logs_rng_impl_once(tmp_path, caplog):
+    """A set tpu.rng_impl is logged once at master start: the port has no
+    counterpart for it."""
+    import logging
+
+    from nes_img_captioning_tpu_torch.algorithms.master_base import MasterBase
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    exp = load_experiment("experiments/mnist_nes.json")
+    exp.update(log_dir=str(tmp_path), synthetic_sizes=[32, 16])
+    exp["tpu"] = {**exp.get("tpu", {}), "rng_impl": "rbg"}
+    with caplog.at_level(logging.WARNING):
+        MasterBase(exp, device="cpu")
+    notes = [r for r in caplog.records if "rng_impl" in r.getMessage()]
+    assert len(notes) == 1 and "'rbg'" in notes[0].getMessage()
+
+
 def test_synthetic_data_matches_jax_fixture(tmp_path):
     """The in-memory fixture draws the JAX fixture's numbers; CocoData from
     memory and from the written files agree with JAX CocoData."""

@@ -179,13 +179,13 @@ def test_pair_rollouts_256_rows_equal_the_unsplit_plain_decode(coco,
 def test_task_on_the_card_takes_only_the_kernels_widths(coco, monkeypatch,
                                                        widths):
     """A task for the card is refused when it is built, with a clear
-    message, unless E = R = 128 and the feature width is a multiple of 128
-    (the CUDA kernels' fixed widths); on the CPU the plain twins take any
-    width."""
+    message, unless E = R is a width the CUDA kernels are built for (128,
+    256, 512) and the feature width is a multiple of 128 (E256 has 24-d
+    features); on the CPU the plain twins take any width."""
     from nes_img_captioning_tpu_torch.tasks import captioning
 
     _task(coco, "greedy", **widths)
     monkeypatch.setattr(captioning, "resolve_device",
                         lambda device=None: torch.device("cuda"))
-    with pytest.raises(ValueError, match="E = R = 128"):
+    with pytest.raises(ValueError, match="E = R in 128, 256, 512"):
         _task(coco, "greedy", device="cuda", **widths)
