@@ -203,11 +203,11 @@ Phases, each printed as it ends (any failure exits non-zero):
     process; K6 over a rank's 72 lanes against its plain version;
 33. experiments/mscoco_nes.json at its own settings, nothing cut but depth
     (2000 pairs, batch 64, pop_chunk 48, bf16 compute, f32 deltas, 5000
-    val images, blocks of 8) on an in-memory fixture at the Karpathy
-    split's size (82,783 train and 30,504 restval images, 5000 val, 5000
-    test; vocab 9487, 2048-d features): the set-up's seconds and bytes
-    (arrays, CocoData, the train matrix's upload, DeviceCider's builds,
-    NESMaster) and the card's peak memory; NESMaster for 2 blocks of 8 on
+    val images, blocks of 8) on [35]'s files at the Karpathy split's size
+    (82,783 train and 30,504 restval images, 5000 val, 5000 test; vocab
+    9487, 2048-d features): the set-up's seconds and bytes (arrays,
+    CocoData, the train matrix's upload, DeviceCider's builds, NESMaster)
+    and the card's peak memory; NESMaster for 2 blocks of 8 on
     the delta-operand pair path (K2 42 times and the row-block K1 once per
     generation, no K5 or K6; fitnesses and theta finite; ms per
     generation); generation 1's first and padded last chunk: K2 on the f32
@@ -232,7 +232,36 @@ Phases, each printed as it ends (any failure exits non-zero):
     kernel-noise paths bit for bit, a self_critical generation with
     decode_vocab_tile 1920 (K3, K4) and validate_device (decode_rows); each
     kernel's time, plain time, cuBLAS yardstick and bound, and one
-    profiled generation per width.
+    profiled generation per width;
+35. the reference's on-disk format at the Karpathy split's size, run
+    before [33]: [33]'s arrays written by write_synthetic_coco under logs/
+    (123,287 per-image .npy files, cocotalk.json, cocotalk_label.h5 from
+    the port's numpy HDF5 writer) and read back by CocoData bit for bit
+    CocoData.from_arrays (labels, label indices, split indices, gts,
+    features), then reloaded in a fresh process (the consolidated
+    features memory-mapped, bit for bit by SHA-256); the seconds to write,
+    of the label read, of the first load and of the reload, and the train
+    matrix's upload in GB/s; then, as child processes at once on those
+    files, ``python -m nes_img_captioning_tpu_torch.main master`` on
+    experiments/mscoco_nes.json for one block of 8 (its z_info, .pth and
+    optimizer.tar written) and scripts/torch_parity_run.py with [27]'s
+    XENT .pth for 2 generations and the 5000 test images (both warm-start
+    round trips exact, 2 finite validation values, finite CIDEr-D for the
+    podium-best and current checkpoints); a child's non-zero exit fails;
+36. experiments/mscoco_es.json and mscoco_es_smg_fast.json as they are but
+    for depth on [35]'s CocoData (113,287 train images, DeviceCider over
+    566,435 references, [33]'s, shared by both files' masters, 5000 val
+    images): the plain, fused and blocked paths and the children in
+    decode order, 4 generations each: launches (K1 126 per generation)
+    and engine calls, no host sync inside a fused generation or a block,
+    the three torch-order paths' fitness vectors, children, podium rows
+    and mean|policy| bit for bit, device candidate scores within 1e-4 of
+    the native scorer's, the decode-order path's generation 1 bit for bit
+    theirs and its sweep bit for bit task.rollout of its children mapped
+    back; ms per generation on each path, one fused generation per file
+    under torch.profiler (idle share); K1 at the ES launch shape and the
+    row-block launch over the 5000 val rows against their plain twins,
+    cuBLAS and their bounds; the SM-G file's sweep at pop_chunk 16 and 48.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -965,6 +994,54 @@ def val_fixture(phase: str = "[18]"):
     return data
 
 
+def rows_against_plain(phase: str, params, feats, T: int, V1: int) -> dict:
+    """The row-block launch (``decode_rows``, bf16 ``params``) over
+    ``feats`` held to its plain twin: the tokens the same whether it
+    returns lp or not, and the twin's but where a row first differs at a
+    near-tie; lp within LP_BF16_TOL over the row blocks whose tokens all
+    agree. Returns the twin's time, cuBLAS products' time, the bound (the
+    bytes read once, each block of 128 rows until its longest row ends),
+    the CTAs of the launch and the comparison's figures."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    n = feats.shape[0]
+    seq, _ = dc.decode_rows(params, feats, T, False)
+    seq_l, lp_k = dc.decode_rows(params, feats, T, True)
+    plain = {}
+    plain_ms = time_ms(lambda: plain.update(out=dc.decode_rows_plain(
+        params, feats, T, False)), reps=1)
+    seq_p, lp_p, gap_p = dc.decode_rows_plain(params, feats, T, True,
+                                              top2_gap=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(seq, seq_l) and torch.equal(plain["out"][0], seq_p)):
+        raise AssertionError(f"{phase} row-block tokens depend on "
+                             "need_logprobs")
+    share, n_diff = check_near_ties(seq, seq_p, gap_p,
+                                    f"{phase} decode_rows bf16 at {n} rows")
+    same = (seq_l == seq_p).all(-1)
+    block = torch.arange(n, device=feats.device) // 128
+    keep = ~torch.isin(block, block[~same])
+    if not bool(keep.any()):
+        raise AssertionError(f"{phase} decode_rows bf16: no row block agrees "
+                             "with the plain twin")
+    err = float((lp_k - lp_p)[keep].abs().max())
+    if err > LP_BF16_TOL:
+        raise AssertionError(f"{phase} decode_rows bf16: lp error {err:.3g} "
+                             f"> {LP_BF16_TOL}")
+    lib_ms = time_ms(lambda: cublas_decode(feats, params, T))
+    flops = rows_flops(seq, feats.shape[1], V1)
+    nbytes = sum(v.numel() * v.element_size() for v in params.values()) \
+        + feats.numel() * feats.element_size() + seq.numel() * 8
+    b_ms, b_by = regime_bound(nbytes, flops)[:2]
+    return {"plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes, "share": share, "n_diff": n_diff,
+            "kept_rows": int(keep.sum()),
+            "ctas": dc.member_cluster_info()["cluster"] * -(-n // 128)}
+
+
 def validation_phase(card: str, data) -> list:
     """Phase 18: NESMaster on experiments/mscoco_nes.json at full width with
     VAL_ITEMS validation images (val_batch_size 256, gens_per_dispatch 8,
@@ -1113,7 +1190,7 @@ def validation_phase(card: str, data) -> list:
     params = dc.prepare_decode_params(task.spec, theta, task.model.options,
                                       dtype=torch.bfloat16)
     feats = vconsts["feats"]
-    T, Fd = task.model.options.seq_length, feats.shape[1]
+    T = task.model.options.seq_length
     n_blocks = -(-VAL_ITEMS // 128)
     row = {}
     for tile in (0, 1920):
@@ -1144,28 +1221,12 @@ def validation_phase(card: str, data) -> list:
     # timed launch's, rows that differ only where the plain top-2 gap is a
     # near-tie; lp over the row blocks whose tokens all agree (a block's
     # early exit follows its rows)
-    seq, _ = dc.decode_rows(params, feats, T, False)
-    seq_l, lp_k = dc.decode_rows(params, feats, T, True)
-    plain = {}
-    plain_ms = time_ms(lambda: plain.update(out=dc.decode_rows_plain(
-        params, feats, T, False)), reps=1)
-    seq_p, lp_p, gap_p = dc.decode_rows_plain(params, feats, T, True,
-                                              top2_gap=True)
-    torch.cuda.synchronize()
-    if not (torch.equal(seq, seq_l) and torch.equal(plain["out"][0], seq_p)):
-        raise AssertionError("[18] row-block tokens depend on need_logprobs")
-    share, n_diff = check_near_ties(
-        seq, seq_p, gap_p, f"[18] decode_rows bf16 at {VAL_ITEMS} rows")
-    same = (seq_l == seq_p).all(-1)
-    block = torch.arange(VAL_ITEMS, device=dev) // 128
-    keep = ~torch.isin(block, block[~same])
-    if not bool(keep.any()):
-        raise AssertionError("[18] decode_rows bf16: no row block agrees "
-                             "with the plain twin")
-    err = float((lp_k - lp_p)[keep].abs().max())
-    if err > LP_BF16_TOL:
-        raise AssertionError(f"[18] decode_rows bf16: lp error {err:.3g} > "
-                             f"{LP_BF16_TOL}")
+    rp = rows_against_plain("[18]", params, feats, T,
+                            task.model.options.vocab_size + 1)
+    plain_ms, lib_ms, err = rp["plain_ms"], rp["library_ms"], \
+        rp["max_abs_err"]
+    flops, nbytes, b_ms, b_by, ctas = (rp[k] for k in (
+        "flops", "bytes", "bound_ms", "bound_by", "ctas"))
     params32 = dc.prepare_decode_params(task.spec, theta, task.model.options)
     seq32, lp32 = dc.decode_rows(params32, feats[:256].float(), T, True)
     seq_p32, lp_p32 = dc.decode_rows_plain(params32, feats[:256].float(), T,
@@ -1180,20 +1241,14 @@ def validation_phase(card: str, data) -> list:
                              f"{err32:.3g}")
     tiled_plain_ms = time_ms(lambda: dc.decode_rows_plain(
         params, feats, T, False, vocab_tile=1920), reps=1)
-
-    lib_ms = time_ms(lambda: cublas_decode(feats, params, T))
-    flops = rows_flops(seq, Fd, task.model.options.vocab_size + 1)
-    nbytes = sum(v.numel() * v.element_size() for v in params.values()) \
-        + feats.numel() * feats.element_size() + seq.numel() * 8
-    b_ms, b_by = regime_bound(nbytes, flops)[:2]
-    ctas = dc.member_cluster_info()["cluster"] * n_blocks
     log(f"[18] decode_rows at {VAL_ITEMS} rows: {row[0][0]:.3f} ms, {ctas} "
         f"CTAs (plain twin {plain_ms:.3f} ms, cuBLAS products "
         f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}: {flops / 1e9:.1f} "
         f"GFLOP, {nbytes / 1e6:.1f} MB, {b_ms / row[0][0]:.1%} of it); bf16 "
-        f"against the plain twin: {share:.4%} of rows identical, {n_diff} "
-        f"differ, each first at a near-tie (top-2 gap < 1e-2), max |lp - "
-        f"plain| {err:.3g} over {int(keep.sum())} rows of agreeing blocks; "
+        f"against the plain twin: {rp['share']:.4%} of rows identical, "
+        f"{rp['n_diff']} differ, each first at a near-tie (top-2 gap < "
+        f"1e-2), max |lp - plain| {err:.3g} over {rp['kept_rows']} rows of "
+        f"agreeing blocks; "
         f"f32 on 256 rows: tokens equal, max |lp - plain| {err32:.3g}; K4's "
         f"(vocab_tile 1920) plain twin {tiled_plain_ms:.3f} ms ({card})")
     shutil.rmtree(runs_dir)
@@ -1399,12 +1454,7 @@ def es_phase(card: str, data) -> list:
 
     def experiment(name: str, **tpu) -> dict:
         exp = load_experiment("experiments/mscoco_es.json")
-        cfg, mo = exp["config"], exp["policy_options"]["model_options"]
-        got = (exp["nb_offspring"], exp["population_size"],
-               exp["num_elites"], exp["num_elite_cands"], exp["selection"],
-               cfg["batch_size"], cfg["num_val_items"], cfg["noise_stdev"],
-               mo["safe_mutations"], exp["tpu"]["precision"],
-               exp["tpu"]["pop_chunk"], exp["tpu"]["gens_per_dispatch"])
+        got = es_file_settings("mscoco_es", exp)
         if got != ES_SETTINGS:
             raise AssertionError(f"[19] mscoco_es.json changed: {got}")
         exp["config"]["snapshot_freq"] = ES_ITERS
@@ -1603,6 +1653,22 @@ SMG_ITERS = 5
 SENS_RTOL, SENS_ATOL = 2e-4, 1e-6
 
 
+def es_file_settings(cfg: str, exp: dict) -> tuple:
+    """The settings of an ES file that ES_SETTINGS ([19]) or SMG_SETTINGS
+    ([20]) pin, in their order."""
+    c, mo, t = (exp["config"], exp["policy_options"]["model_options"],
+                exp["tpu"])
+    head = (exp["nb_offspring"], exp["population_size"], exp["num_elites"],
+            exp["num_elite_cands"], exp["selection"], c["batch_size"],
+            c["num_val_items"], c["noise_stdev"], mo["safe_mutations"])
+    if cfg == "mscoco_es":
+        return head + (t["precision"], t["pop_chunk"], t["gens_per_dispatch"])
+    return head + (mo["safe_mutation_underflow"], t["precision"],
+                   t["pop_chunk"], t["gens_per_dispatch"], c["snapshot_freq"],
+                   t["sensitivity_batch"], t["sensitivity_split"],
+                   t["sensitivity_precision"])
+
+
 def events_ms(fn):
     """(fn(), its device time in ms between CUDA events), one call."""
     import torch
@@ -1649,15 +1715,7 @@ def es_smg_phase(card: str, data, k1_row: dict) -> list:
 
     def experiment(name: str, **tpu) -> dict:
         exp = load_experiment("experiments/mscoco_es_smg_fast.json")
-        cfg, mo = exp["config"], exp["policy_options"]["model_options"]
-        t = exp["tpu"]
-        got = (exp["nb_offspring"], exp["population_size"],
-               exp["num_elites"], exp["num_elite_cands"], exp["selection"],
-               cfg["batch_size"], cfg["num_val_items"], cfg["noise_stdev"],
-               mo["safe_mutations"], mo["safe_mutation_underflow"],
-               t["precision"], t["pop_chunk"], t["gens_per_dispatch"],
-               cfg["snapshot_freq"], t["sensitivity_batch"],
-               t["sensitivity_split"], t["sensitivity_precision"])
+        got = es_file_settings("mscoco_es_smg_fast", exp)
         if got != SMG_SETTINGS:
             raise AssertionError(f"[20] mscoco_es_smg_fast.json changed: "
                                  f"{got}")
@@ -3469,26 +3527,14 @@ def layout_checks(card: str, cfg: str, m, launches: int) -> list:
     lay = task.decode_layout
     L, chunk, B = LAYOUT_SHAPE
     elites = m._device_elite_rows([p for p, _ in m.it.best_elites() if p])
-    parents = torch.cat([elites, m._selected_dev])
+    n_parents = elites.shape[0] + m._selected_dev.shape[0]
     rng = np.random.default_rng(1)
     seeds = rng.integers(0, 2**32, size=L, dtype=np.uint32)
-    pidx = rng.integers(0, parents.shape[0], size=L).astype(np.int32)
+    pidx = rng.integers(0, n_parents, size=L).astype(np.int32)
     idx_row = rng.choice(task.train_n, size=B, replace=False)
     sigma = m.it.noise_stdev()
-    sens = (eng.sensitivities(parents, m._sens_batch_rows(idx_row), seeds[0])
-            if m.mutation.is_gradient else None)
-    fit = eng.eval_generation(parents, sigma, seeds, pidx, idx_row,
-                              sens=sens)["fitness"]
-    build = eng._child_ctx(parents, sigma, sens)[0]
+    build = layout_replay(f"[31] {cfg}", m, seeds, pidx, idx_row)
     pidx_d = torch.as_tensor(pidx.astype(np.int64), device=dev)
-    idx_d = torch.as_tensor(idx_row, device=dev)
-    replay = torch.cat([task.rollout(lay.from_dec(build(
-        seeds[i:i + chunk], pidx_d[i:i + chunk])), idx_d)["fitness"]
-        for i in range(0, L, chunk)])
-    torch.cuda.synchronize()
-    if not torch.equal(replay, fit):
-        raise AssertionError(f"[31] {cfg}: the layout sweep differs from the "
-                             "torch-order rollout of its children")
     log(f"[31] {cfg}.json: the layout sweep's {L} fitnesses bit for bit "
         f"task.rollout's on the same children mapped back by from_dec "
         f"({card})")
@@ -4002,12 +4048,12 @@ REGIME_COUNTERS = ("decode_pair_perturb", "decode_rows", "decode_pair_rng",
                    "pair_grad_rng", "decode_fused", "pair_delta_dump")
 
 
-def regime_fixture():
-    """[33]'s in-memory MSCOCO at the Karpathy split's size from seed 0:
+def regime_arrays():
+    """REGIME_DATA's arrays (``synthetic_coco_arrays`` layout) from seed 0:
     the restval images are a fixed draw among the train block's, so
-    CocoData joins them to train in image order. Returns (data, setup
-    seconds and bytes)."""
-    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    CocoData joins them to train in image order. The source of [35]'s files
+    and of the CocoData that [33] and [36] run on. Returns (arrays,
+    seconds)."""
     from nes_img_captioning_tpu_torch.data.synthetic import (
         synthetic_coco_arrays,
     )
@@ -4023,20 +4069,280 @@ def regime_fixture():
                                              replace=False):
         arrays["info"]["images"][int(i)]["split"] = "restval"
     t_arrays = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    data = CocoData.from_arrays(arrays)
-    t_data = time.perf_counter() - t0
-    sizes = {s: data.split_len(s) for s in ("train", "val", "test")}
-    if sizes != {"train": n_train, "val": d["val"], "test": d["test"]}:
-        raise AssertionError(f"[33] split sizes {sizes}")
-    nbytes = {k: arrays[k].nbytes for k in ("feats", "labels")}
-    log(f"[33] fixture: {d['train']:,} train + {d['restval']:,} restval = "
+    log(f"[35] arrays: {d['train']:,} train + {d['restval']:,} restval = "
         f"{n_train:,} train images, {d['val']} val, {d['test']} test; vocab "
-        f"{d['vocab']}, {d['feat']}-d features ({nbytes['feats'] / 1e9:.3f} "
-        f"GB f32), {arrays['labels'].shape[0]:,} captions "
-        f"({nbytes['labels'] / 1e6:.1f} MB); arrays in {t_arrays:.1f} s, "
-        f"CocoData in {t_data:.2f} s")
-    return data, {"arrays_s": t_arrays, "data_s": t_data}
+        f"{d['vocab']}, {d['feat']}-d features "
+        f"({arrays['feats'].nbytes / 1e9:.3f} GB f32), "
+        f"{arrays['labels'].shape[0]:,} captions "
+        f"({arrays['labels'].nbytes / 1e6:.1f} MB); {t_arrays:.1f} s")
+    return arrays, t_arrays
+
+
+# ---- [35] the reference's on-disk format at the Karpathy split's size -----
+
+# [35]: the main master's generations (one block of mscoco_nes.json's 8),
+# the runbook's generations, and each child process's time limit (s)
+DISK_NES_ITERS = 8
+DISK_PARITY_GENS = 2
+CHILD_TIMEOUT = 600
+LABEL_KEYS = ("labels", "label_start_ix", "label_end_ix")
+
+
+def coco_digest(data) -> dict:
+    """The split sizes and SHA-256 of the labels and features of a
+    CocoData: [35]'s reload in a fresh process is held to them."""
+    import hashlib
+
+    fc = np.ascontiguousarray(data._fc)
+    return {"splits": {k: len(v) for k, v in data.split_ix.items()},
+            "labels": hashlib.sha256(data.labels.tobytes()).hexdigest(),
+            "feats": hashlib.sha256(fc.view(np.uint8)).hexdigest()}
+
+
+def reload_main(argv: list) -> int:
+    """``chip_smoke.py --reload-phase COPTS_JSON``: [35]'s reload in a fresh
+    process. CocoData of the files the caption options name (the
+    consolidated features memory-mapped); prints its seconds, whether the
+    features are a memory map, and ``coco_digest`` as one JSON line."""
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+
+    with open(argv[0]) as f:
+        copts = json.load(f)
+    t0 = time.perf_counter()
+    data = CocoData(copts)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"seconds": seconds,
+                      "mmap": isinstance(data._fc, np.memmap),
+                      **coco_digest(data)}))
+    return 0
+
+
+def coco_equal(got, want, what: str):
+    """Raise unless two CocoData hold the same labels, label indices, split
+    indices, gts and features bit for bit."""
+    splits = ("train", "val", "test")
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and a.shape == b.shape and \
+            np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+    checks = {
+        "labels": same(got.labels, want.labels),
+        "label_start_ix": same(got.label_start_ix, want.label_start_ix),
+        "label_end_ix": same(got.label_end_ix, want.label_end_ix),
+        "split indices": got.split_ix == want.split_ix,
+        "gts": all(len(g) == len(w) and all(same(a, b) for a, b in zip(g, w))
+                   for g, w in ((got.split_gts(s), want.split_gts(s))
+                                for s in splits)),
+        "features": same(np.ascontiguousarray(got._fc),
+                         np.ascontiguousarray(want._fc)),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{what}: {', '.join(bad)} differ")
+
+
+def run_children(cmds: dict, work: str) -> dict:
+    """Start each {name: argv} as a child process from the repository's root,
+    its stdout and stderr into ``work/<name>.out`` and ``.err``, all at
+    once; wait for all (CHILD_TIMEOUT each) and stop any still running.
+    Raises unless every child exits 0. Returns {name: (stdout, seconds)}."""
+    import subprocess
+
+    procs, out = {}, {}
+    try:
+        for name, argv in cmds.items():
+            files = [open(os.path.join(work, f"{name}.{k}"), "w")
+                     for k in ("out", "err")]
+            procs[name] = (subprocess.Popen(argv, stdout=files[0],
+                                            stderr=files[1]), files,
+                           time.perf_counter())
+        deadline = time.perf_counter() + CHILD_TIMEOUT
+        for name, (proc, files, t0) in procs.items():
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+            out[name] = (rc, time.perf_counter() - t0)
+    finally:
+        for proc, files, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in files:
+                f.close()
+    for name, (rc, seconds) in out.items():
+        with open(os.path.join(work, f"{name}.out")) as f:
+            stdout = f.read()
+        if rc != 0:
+            with open(os.path.join(work, f"{name}.err")) as f:
+                err = f.read()[-4000:]
+            raise AssertionError(f"[35] child {name} {cmds[name]} exited "
+                                 f"{rc} after {seconds:.1f} s:\n{err}")
+        out[name] = (stdout, seconds)
+    return out
+
+
+def disk_phase(card: str, arrays: dict, pth: str):
+    """Phase 35: the reference's on-disk format at the Karpathy split's
+    size, written and read by the port with numpy alone. REGIME_DATA's
+    ``arrays`` go to a directory under logs/ through write_synthetic_coco
+    (123,287 per-image .npy files, cocotalk.json, cocotalk_label.h5 from
+    data/hdf5.write_datasets); CocoData reads them back (the first load
+    consolidates the features into fc_fc.npy) bit for bit
+    CocoData.from_arrays of the same arrays; a fresh process reloads them
+    (the memory-mapped consolidation), bit for bit. Then the entry points a
+    user starts, as child processes on those files at once:
+    ``main master`` on experiments/mscoco_nes.json for DISK_NES_ITERS
+    generations (its snapshot, .pth and optimizer.tar written), and
+    scripts/torch_parity_run.py with the .pth ``pth`` for DISK_PARITY_GENS
+    generations and the 5000 test images (both warm-start round trips
+    exact, a finite validation series, finite CIDEr-D for both
+    checkpoints). Seconds of each step and the upload's GB/s are logged.
+    Returns (the CocoData read from the files, its first load's seconds);
+    the directory is removed."""
+    import glob
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.data.hdf5 import read_datasets
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.data.synthetic import (
+        write_synthetic_coco,
+    )
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    work = os.path.abspath(os.path.join("logs",
+                                        f"chip_smoke_disk_{os.getpid()}"))
+    fixture = os.path.join(work, "coco")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    copts = write_synthetic_coco(fixture, arrays)
+    t_write = time.perf_counter() - t0
+    n_files = len(os.listdir(copts["input_fc_dir"]))
+    fc_bytes = sum(e.stat().st_size
+                   for e in os.scandir(copts["input_fc_dir"]))
+    h5_bytes = os.path.getsize(copts["input_label_h5"])
+    log(f"[35] wrote the fixture in {t_write:.1f} s: {n_files:,} per-image "
+        f".npy files ({fc_bytes / 1e9:.3f} GB), cocotalk.json "
+        f"({os.path.getsize(copts['input_json']) / 1e6:.1f} MB), "
+        f"cocotalk_label.h5 ({h5_bytes / 1e6:.1f} MB, data/hdf5.py) "
+        f"({card})")
+
+    t0 = time.perf_counter()
+    labels = read_datasets(copts["input_label_h5"], LABEL_KEYS)
+    t_label = time.perf_counter() - t0
+    for k in LABEL_KEYS:
+        if not np.array_equal(labels[k], arrays[k]) or \
+                labels[k].dtype != np.asarray(arrays[k]).dtype:
+            raise AssertionError(f"[35] the label file's {k} is not the "
+                                 "array written")
+    del labels
+    t0 = time.perf_counter()
+    data = CocoData(copts)
+    t_first = time.perf_counter() - t0
+    fc_cache = copts["input_fc_dir"].rstrip("/") + "_fc.npy"
+    if not os.path.isfile(fc_cache) or isinstance(data._fc, np.memmap):
+        raise AssertionError("[35] the first load did not consolidate the "
+                             "features")
+    t0 = time.perf_counter()
+    coco_equal(data, CocoData.from_arrays(arrays),
+               "[35] CocoData of the files against from_arrays")
+    t_check = time.perf_counter() - t0
+    log(f"[35] CocoData from the files bit for bit CocoData.from_arrays: "
+        f"labels, label indices, split indices, gts and features (checked "
+        f"in {t_check:.1f} s); the label read {t_label:.3f} s, the first "
+        f"load {t_first:.1f} s (consolidating into "
+        f"{os.path.basename(fc_cache)}, "
+        f"{os.path.getsize(fc_cache) / 1e9:.3f} GB) ({card})")
+
+    copts_path = os.path.join(work, "caption_options.json")
+    with open(copts_path, "w") as f:
+        json.dump(copts, f)
+    stdout, t_child = run_children({"reload": [
+        sys.executable, os.path.abspath(__file__), "--reload-phase",
+        copts_path]}, work)["reload"]
+    reload = json.loads(stdout.strip().splitlines()[-1])
+    want = coco_digest(data)
+    if not reload["mmap"] or any(reload[k] != want[k] for k in want):
+        raise AssertionError(f"[35] the reload in a fresh process: memory "
+                             f"map {reload['mmap']}, digests "
+                             f"{ {k: reload[k] == want[k] for k in want} }")
+    train = data.split_feats("train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    up = torch.as_tensor(train, device=dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    gb = train.nbytes / 1e9
+    del up, train
+    torch.cuda.empty_cache()
+    log(f"[35] reload in a fresh process: CocoData {reload['seconds']:.3f} s "
+        f"(the features memory-mapped from {os.path.basename(fc_cache)}; "
+        f"the process {t_child:.1f} s), labels and features bit for bit by "
+        f"SHA-256; the train matrix, {gb:.3f} GB f32, to the card in "
+        f"{t_up:.3f} s ({gb / t_up:.2f} GB/s) ({card})")
+
+    # the entry points a user starts, on these files
+    exp = load_experiment("experiments/mscoco_nes.json")
+    exp["caption_options"].update(copts)
+    exp["log_dir"] = os.path.join(work, "master")
+    exp_path = os.path.join(work, "mscoco_nes_fixture.json")
+    with open(exp_path, "w") as f:
+        json.dump(exp, f)
+    parity_out = os.path.join(work, "parity")
+    children = run_children({
+        "master": [sys.executable, "-m", "nes_img_captioning_tpu_torch.main",
+                   "master", "--exp_file", exp_path, "--max_iterations",
+                   str(DISK_NES_ITERS)],
+        "parity": [sys.executable, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "scripts",
+            "torch_parity_run.py"), "--data", fixture, "--pth",
+            os.path.abspath(pth), "--generations", str(DISK_PARITY_GENS),
+            "--test-num", str(REGIME_DATA["test"]), "--out", parity_out],
+    }, work)
+    run_dir = exp["log_dir"]
+    zinfo = glob.glob(os.path.join(run_dir, "snapshot", "z_info_*.json"))
+    files = {"snapshot": zinfo,
+             "pth": glob.glob(os.path.join(run_dir, "models", "current",
+                                           "0_current_params.pth")),
+             "optimizer.tar": glob.glob(os.path.join(run_dir, "optimizer",
+                                                     "optimizer.tar"))}
+    n_train = REGIME_DATA["train"] + REGIME_DATA["restval"]
+    want_iter = f"_i{DISK_NES_ITERS}-{n_train // exp['config']['batch_size']}"
+    if not all(files.values()) or len(zinfo) != 1 or \
+            not zinfo[0].endswith(want_iter + ".json"):
+        raise AssertionError(f"[35] main master wrote {files}")
+    with open(zinfo[0]) as f:
+        stats = json.load(f)
+    log(f"[35] python -m nes_img_captioning_tpu_torch.main master "
+        f"--exp_file <mscoco_nes.json on the fixture> --max_iterations "
+        f"{DISK_NES_ITERS}: exit 0 in {children['master'][1]:.1f} s, wrote "
+        f"{os.path.basename(zinfo[0])}, 0_current_params.pth and "
+        f"optimizer.tar; z_info keys {sorted(stats)[:8]} ({card})")
+    summary = json.loads(children["parity"][0].strip().splitlines()[-1])
+    ws = summary.get("warm_start") or {}
+    series = summary.get("val_cider_series") or []
+    tests = summary.get("test_stats") or {}
+    if not (ws.get("vector_roundtrip_exact")
+            and ws.get("tensor_roundtrip_exact")) \
+            or len(series) != DISK_PARITY_GENS \
+            or not np.isfinite(series).all() \
+            or set(tests) != {"nicnes_best", "nicnes_current"} \
+            or not all(np.isfinite(t["CIDEr"]) for t in tests.values()) \
+            or not all(os.path.isfile(os.path.join(parity_out, n)) for n in
+                       ("parity_summary.json", "test_output.json")):
+        raise AssertionError(f"[35] the parity runbook: {summary}")
+    log(f"[35] python3 scripts/torch_parity_run.py --data <fixture> --pth "
+        f"<[27]'s XENT .pth> --generations {DISK_PARITY_GENS} --test-num "
+        f"{REGIME_DATA['test']}: exit 0 in {children['parity'][1]:.1f} s "
+        f"(beside the master); warm start bit-exact "
+        f"({ws['num_params']:,} parameters); validation CIDEr {series}; "
+        f"test CIDEr-D "
+        f"{ {k: round(v['CIDEr'], 6) for k, v in tests.items()} } ({card})")
+    shutil.rmtree(work)
+    log(f"[35] phase: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return data, t_first
 
 
 def host_cpu() -> str:
@@ -4063,11 +4369,13 @@ def host_cpu() -> str:
     return f"{name}, {os.cpu_count()} cores"
 
 
-def true_regime_phase(card: str) -> list:
+def true_regime_phase(card: str, data, setup: dict) -> list:
     """Phase 33: experiments/mscoco_nes.json at its own settings (2000
     pairs, batch 64, pop_chunk 48, bf16 compute, f32 deltas, 5000 val
     images at val_batch_size 256, blocks of 8) on REGIME_DATA's 113,287
-    train images. Set-up seconds and bytes; NESMaster for REGIME_BLOCKS
+    train images, ``data`` the CocoData that [35] read from the files
+    (``setup``: the arrays' and that read's seconds). Set-up seconds and
+    bytes; NESMaster for REGIME_BLOCKS
     blocks on the delta-operand pair path (K2 42 times per generation, the
     row-block K1 once, no K5 or K6); generation 1's first and padded last
     chunk against K1 and the plain twin; the same generation at pop_chunk
@@ -4075,7 +4383,8 @@ def true_regime_phase(card: str) -> list:
     generation), K5 against K2 fed K7's dump and K6 over 2016 lanes
     against its plain version and the ordered sum of K7's dumps; one
     generation of each run under torch.profiler; the three kernels' rows at
-    these shapes. Returns them."""
+    these shapes. Returns them, and the task's DeviceCider over the train
+    references with its build's seconds ([36] scores with it)."""
     import shutil
 
     import torch
@@ -4101,7 +4410,6 @@ def true_regime_phase(card: str) -> list:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    data, setup = regime_fixture()
     runs_dir = os.path.join("logs", f"chip_smoke_regime_{os.getpid()}")
 
     def experiment(name: str, **tpu) -> dict:
@@ -4525,14 +4833,357 @@ def true_regime_phase(card: str) -> list:
 
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     shutil.rmtree(runs_dir)
+    train_cider = (task._device_cider,
+                   next(t for _, v, t in built if v == "cider-d"))
     del master, master_n, eng, task, keep, base, scale_params, grad6
     torch.cuda.empty_cache()
-    log(f"[33] set-up: arrays {setup['arrays_s']:.1f} s, CocoData "
-        f"{setup['data_s']:.2f} s, upload {t_up:.3f} s, NESMaster "
+    log(f"[33] set-up: arrays {setup['arrays_s']:.1f} s, CocoData from "
+        f"[35]'s files {setup['data_s']:.2f} s, upload {t_up:.3f} s, NESMaster "
         f"{t_master:.1f} s; peak card memory {peak:.2f} GiB above what "
         f"earlier phases hold ({held / 2**30:.2f} GiB); phase: "
         f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return rows, train_cider
+
+
+# ---- [36] the ES files at the Karpathy split's size -------------------------
+
+# [36]: generations per path; the paths (the plain, fused and blocked paths
+# of [19], and the children in decode order of [31] on the blocked path)
+# and the engine calls each makes in SPLIT_ES_ITERS generations
+SPLIT_ES_ITERS = 4
+SPLIT_ES_PATHS = (("plain", {"fused_es": False}, []),
+                  ("fused", {"gens_per_dispatch": 1},
+                   ["fused_generation"] * (SPLIT_ES_ITERS - 1)),
+                  ("blocked", {}, ["fused_generation", "fused_block"]),
+                  ("decode order", {"es_decode_layout": True},
+                   ["fused_generation", "fused_block"]))
+SPLIT_ES_FILES = (("mscoco_es", ES_SETTINGS), ("mscoco_es_smg_fast",
+                                               SMG_SETTINGS))
+
+
+def layout_replay(phase: str, m, seeds, pidx, idx_row):
+    """The layout sweep of ESMaster ``m`` (tpu.es_decode_layout) on its
+    parents (SM-G: their sensitivities on ``idx_row``'s rows): raises unless
+    its fitnesses are bit for bit ``task.rollout``'s on the same children
+    mapped back to torch order by ``from_dec``. Returns the engine's child
+    builder (decode order) of that generation."""
+    import torch
+
+    eng, task = m.engine, m.task
+    lay, chunk = task.decode_layout, eng.pop_chunk
+    elites = m._device_elite_rows([p for p, _ in m.it.best_elites() if p])
+    parents = torch.cat([elites, m._selected_dev])
+    sigma = m.it.noise_stdev()
+    sens = (eng.sensitivities(parents, m._sens_batch_rows(idx_row), seeds[0])
+            if m.mutation.is_gradient else None)
+    fit = eng.eval_generation(parents, sigma, seeds, pidx, idx_row,
+                              sens=sens)["fitness"]
+    build = eng._child_ctx(parents, sigma, sens)[0]
+    pidx_d = torch.as_tensor(pidx.astype(np.int64), device=task.device)
+    idx_d = torch.as_tensor(idx_row, device=task.device)
+    replay = torch.cat([task.rollout(lay.from_dec(build(
+        seeds[i:i + chunk], pidx_d[i:i + chunk])), idx_d)["fitness"]
+        for i in range(0, len(seeds), chunk)])
+    torch.cuda.synchronize()
+    if not torch.equal(replay, fit):
+        raise AssertionError(f"{phase}: the layout sweep differs from the "
+                             "torch-order rollout of its children")
+    return build
+
+
+def es_split_phase(card: str, data, train_cider: tuple) -> list:
+    """Phase 36: experiments/mscoco_es.json and mscoco_es_smg_fast.json, each
+    as it is but for depth and log dir, on [35]'s CocoData: 113,287 train
+    images (ES's batch drawn from the whole split), DeviceCider over their
+    566,435 references, 5000 val images. Each file on the plain, fused and
+    blocked paths and with the children in decode order (blocked),
+    SPLIT_ES_ITERS generations each (``drive_es``): launch counts and
+    engine calls; the first three paths' fitness vectors, children, podium
+    rows and mean|policy| bit for bit, the device-scored candidates within
+    1e-4 of the plain path's native scorer and bit for bit between the
+    fused and blocked paths; the decode-order path's generation 1 (fresh
+    inits) bit for bit theirs, and its sweep bit for bit task.rollout of
+    its children mapped back. The masters of a file share one task, and
+    both files one DeviceCider per reference set: over the train
+    references ``train_cider``, [33]'s (its object and build seconds), over
+    the val references built once. One
+    fused generation of each file under torch.profiler (idle share); for
+    mscoco_es.json K1 at the ES launch shape and the row-block launch over
+    the 5000 val rows, against their plain twins; for _smg_fast the sweep
+    (SM-G scale) at pop_chunk 16 and 48. Returns the two rows of the
+    kernels line."""
+    import copy
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch import tasks
+    from nes_img_captioning_tpu_torch.algorithms.es import ESEngine
+    from nes_img_captioning_tpu_torch.ops import cider_device
+    from nes_img_captioning_tpu_torch.utils.config import (
+        load_experiment,
+        parse_tpu_config,
+    )
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    runs_dir = os.path.join("logs", f"chip_smoke_split_es_{os.getpid()}")
+    cider_cls, make_task = cider_device.DeviceCider, tasks.make_task
+    scorers, built, shared, current = {}, [], {}, {}
+    n_train = data.split_len("train")
+    scorers[(n_train, "cider-d", True)] = train_cider[0]
+
+    def one_cider(gts_list, *a, **k):
+        key = (len(gts_list), k.get("variant", "cider-d"),
+               k.get("frozen_df") is None)
+        if key not in scorers:
+            t0 = time.perf_counter()
+            scorers[key] = cider_cls(gts_list, *a, **k)
+            torch.cuda.synchronize()
+            built.append((key[0], key[1], time.perf_counter() - t0))
+        return scorers[key]
+
+    def one_task(exp, *a, **k):
+        cfg = current["cfg"]
+        if cfg not in shared:
+            t0 = time.perf_counter()
+            shared[cfg] = (make_task(exp, *a, **k), time.perf_counter() - t0)
+        return shared[cfg][0]
+
+    def experiment(cfg: str, settings: tuple, name: str, **tpu) -> dict:
+        exp = load_experiment(f"experiments/{cfg}.json")
+        got = es_file_settings(cfg, exp)
+        if got != settings:
+            raise AssertionError(f"[36] {cfg}.json changed: {got}")
+        exp["tpu"].update(tpu)
+        exp["log_dir"] = os.path.join(runs_dir, cfg, name.replace(" ", "_"))
+        return exp
+
+    L, chunk, B = LAYOUT_SHAPE
+    k1_per_gen = -(-L // chunk) * -(-B // 128)
+    n_refs = sum(g.shape[0] for g in data.split_gts("train"))
+    rows, record = [], {}
+    cider_device.DeviceCider, tasks.make_task = one_cider, one_task
+    try:
+        for cfg, settings in SPLIT_ES_FILES:
+            current["cfg"] = cfg
+            runs = {}
+            for name, tpu, want_calls in SPLIT_ES_PATHS:
+                m, fits, calls, _, counts = drive_es(
+                    experiment(cfg, settings, name, **tpu), dev, data,
+                    SPLIT_ES_ITERS)
+                want = [SPLIT_ES_ITERS * k1_per_gen,
+                        2 * SPLIT_ES_ITERS + (2 if name != "plain" else 0),
+                        0, 0, 0, 0]
+                if counts != want or calls != want_calls \
+                        or len(fits) != SPLIT_ES_ITERS \
+                        or not all(np.isfinite(f).all() for f in fits) \
+                        or (m.engine._layout is not None) != (
+                            name == "decode order"):
+                    raise AssertionError(
+                        f"[36] {cfg} {name}: launches (K1, row-block K1, K4, "
+                        f"K3, K2, K5) {counts}, engine calls {calls}, "
+                        f"{len(fits)} fitness vectors, layout "
+                        f"{m.engine._layout is not None}")
+                if m.task.train_n != data.split_len("train"):
+                    raise AssertionError(f"[36] {cfg} {name}: the task has "
+                                         f"{m.task.train_n} train images")
+                children, podium = es_state(m)
+                ms = [round(t * 1e3, 3) for t in m.stats.time_stats()]
+                runs[name] = (m, fits, children, podium, counts, ms)
+                log(f"[36] {cfg}.json {name} at {m.task.train_n:,} train "
+                    f"images: ms per generation {ms} (set-up {m.setup_s:.1f} "
+                    f"s, run {m.run_s:.1f} s with its snapshot); K1 launches "
+                    f"{counts[0]} ({k1_per_gen} per generation), row-block "
+                    f"K1 {counts[1]}; engine calls {calls} under "
+                    f"set_sync_debug_mode('error') ({card})")
+            pm, pfits, pchildren, ppodium, _, _ = runs["plain"]
+            for name in ("fused", "blocked"):
+                m, fits, children, podium, _, _ = runs[name]
+                if not all(np.array_equal(a, b) for a, b in zip(pfits, fits)) \
+                        or not torch.equal(children, pchildren) \
+                        or len(podium) != len(ppodium) \
+                        or not all(torch.equal(a[1], b[1])
+                                   for a, b in zip(podium, ppodium)) \
+                        or m.stats.to_dict()["norm_stats"] != \
+                        pm.stats.to_dict()["norm_stats"]:
+                    raise AssertionError(f"[36] {cfg} {name}: not bit for "
+                                         "bit the plain path")
+                if not np.allclose(m.stats.acc_stats(), pm.stats.acc_stats(),
+                                   rtol=1e-4, atol=1e-6):
+                    raise AssertionError(f"[36] {cfg} {name}: candidate "
+                                         "scores beyond 1e-4 of the plain "
+                                         "path's native scorer")
+            fm, bm = runs["fused"][0], runs["blocked"][0]
+            if fm.stats.acc_stats() != bm.stats.acc_stats():
+                raise AssertionError(f"[36] {cfg}: fused and blocked "
+                                     "candidate scores differ")
+            dm, dfits = runs["decode order"][0], runs["decode order"][1]
+            if not np.array_equal(dfits[0], pfits[0]):
+                raise AssertionError(f"[36] {cfg}: the decode-order path's "
+                                     "generation 1 (fresh inits) differs")
+            acc_gap = max(abs(a - b) for a, b in zip(pm.stats.acc_stats(),
+                                                     fm.stats.acc_stats()))
+            log(f"[36] {cfg}.json: plain, fused and blocked paths' "
+                f"{SPLIT_ES_ITERS} fitness vectors of {L}, "
+                f"{pchildren.shape[0]} children, {len(ppodium)} podium rows "
+                f"and mean|policy| bit for bit; DeviceCider's candidate "
+                f"scores within {acc_gap:.3g} of the native scorer's, fused "
+                f"and blocked bit for bit; acc "
+                f"{[round(a, 6) for a in fm.stats.acc_stats()]}; decode "
+                f"order: generation 1 bit for bit, acc "
+                f"{[round(a, 6) for a in dm.stats.acc_stats()]} ({card})")
+
+            # the decode-order sweep replayed in torch order; a fused
+            # generation under the profiler
+            task, eng = bm.task, bm.engine
+            rng = np.random.default_rng(3)
+            seeds = rng.integers(0, 2**32, size=L, dtype=np.uint32)
+            pidx = rng.integers(0, settings[1], size=L).astype(np.int32)
+            idx_row = rng.choice(task.train_n, size=B, replace=False)
+            sens_idx = bm._sens_batch_rows(idx_row)
+            elites = bm._device_elite_rows(
+                [p for p, _ in bm.it.best_elites() if p])
+            parents = torch.cat([elites, bm._selected_dev])
+            sens = (eng.sensitivities(parents, sens_idx, seeds[0])
+                    if bm.mutation.is_gradient else None)
+            layout_replay(f"[36] {cfg}", dm, seeds, pidx, idx_row)
+            sigma, policy = bm.it.noise_stdev(), bm.policy_theta
+            wall, busy, prof = profile_call(lambda: eng.unpack_fused(
+                ESEngine.fused_generation(
+                    eng, elites, elites.shape[0], bm._selected_dev, sigma,
+                    seeds, pidx, idx_row, policy, settings[3],
+                    sens=bm._sens_vector, sens_idx=sens_idx)[0], L,
+                settings[3]))
+            k1_dev = sum(r[0] for r in prof if "member_kernel" in r[2])
+            log(f"[36] {cfg}.json: the decode-order sweep of {L} offspring "
+                f"bit for bit task.rollout of its children mapped back; one "
+                f"fused generation under torch.profiler: wall {wall:.3f} ms, "
+                f"card busy {busy:.3f} ms (idle {1 - busy / wall:.2%}); K1 "
+                f"{k1_dev:.3f} ms, {k1_dev / busy:.2%} of busy ({card})")
+            for ms_k, count, key in prof[:8]:
+                log(f"    {ms_k:10.3f} ms  x{count:<5d} {key[:90]}")
+            record[cfg] = {
+                "ms": {name: r[5] for name, r in runs.items()},
+                "setup_s": {name: round(r[0].setup_s, 3)
+                            for name, r in runs.items()},
+                "idle": 1 - busy / wall, "launches": runs["blocked"][4][0]}
+
+            if cfg == "mscoco_es":
+                rows += split_es_kernels(card, bm, parents, seeds, pidx,
+                                         idx_row, record[cfg])
+            else:
+                # the sweep on the SM-G scale at the file's pop_chunk and 48
+                exp48 = copy.deepcopy(bm.exp)
+                exp48["tpu"]["pop_chunk"] = 48
+                eng48 = ESEngine(task, bm.mutation,
+                                 pop_chunk=parse_tpu_config(exp48).pop_chunk,
+                                 sens_underflow=bm._underflow,
+                                 sens_precision=bm.tpu_cfg
+                                 .sensitivity_precision,
+                                 sens_probes=bm.tpu_cfg.sensitivity_probes)
+                sweep_ms, ref = {chunk: [], 48: []}, None
+                for c, e in ((chunk, eng), (48, eng48), (48, eng48),
+                             (chunk, eng)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    f = e.eval_generation(parents, sigma, seeds, pidx,
+                                          idx_row, sens=sens)["fitness"]
+                    torch.cuda.synchronize()
+                    sweep_ms[c].append((time.perf_counter() - t0) * 1e3)
+                    if ref is None:
+                        ref = f
+                    elif not torch.equal(f, ref):
+                        raise AssertionError(f"[36] {cfg}: the sweep at "
+                                             f"pop_chunk {c} differs")
+                record[cfg]["sweep_ms"] = {c: float(np.mean(v))
+                                           for c, v in sweep_ms.items()}
+                log(f"[36] {cfg}.json: the sweep of {L} offspring on the "
+                    f"SM-G scale at pop_chunk {chunk}: "
+                    f"{np.mean(sweep_ms[chunk]):.3f} ms {sweep_ms[chunk]}; "
+                    f"at 48: {np.mean(sweep_ms[48]):.3f} ms {sweep_ms[48]}; "
+                    f"fitness bit for bit (host clock, ending in "
+                    f"synchronize) ({card})")
+                rows[0]["smg_fast"] = record[cfg]
+            del runs, pm, fm, bm, dm, task, eng, parents, elites, sens
+            torch.cuda.empty_cache()
+    finally:
+        cider_device.DeviceCider, tasks.make_task = cider_cls, make_task
+    log(f"[36] set-up shared by the 8 masters: DeviceCider (cider-d) over "
+        f"{n_train:,} images [33]'s (built there in {train_cider[1]:.1f} s); "
+        + "; ".join(f"DeviceCider ({v}) over {n:,} images {t:.1f} s"
+                    for n, v, t in built)
+        + f" ({n_refs:,} train references); the task of each file "
+        + ", ".join(f"{cfg} {t:.1f} s" for cfg, (_, t) in shared.items())
+        + f" (with the DeviceCider builds in it); phase: "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    shutil.rmtree(runs_dir)
+    for row in rows:
+        row["cider_builds_s"] = [train_cider[1], *(t for _, _, t in built)]
     return rows
+
+
+def split_es_kernels(card: str, m, parents, seeds, pidx, idx_row,
+                     record: dict) -> list:
+    """[36]'s kernel rows on mscoco_es.json's blocked ESMaster ``m`` at the
+    split's size: K1 at the ES launch shape (16 children x 128 rows of the
+    113,287-image split) and the row-block launch over the 5000 val rows
+    at the policy's weights, each against its plain twin, with its time,
+    cuBLAS yardstick and bound."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    task, eng = m.task, m.engine
+    lay = task.decode_layout
+    chunk = eng.pop_chunk
+    kids = eng.materialize(parents, m.it.noise_stdev(), seeds[:chunk],
+                           pidx[:chunk])
+    k1 = k1_es_chunk("[36]", task, lay.prep(lay.to_dec(kids),
+                                            torch.bfloat16), idx_row)
+    del kids
+    log(f"[36] K1 at the ES launch shape on the split ({chunk} children x "
+        f"128 rows, {k1['ctas']} CTAs, bf16): {k1['ms']:.3f} ms per launch "
+        f"(plain twin {k1['plain_ms']:.3f} ms, cuBLAS products "
+        f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms by "
+        f"{k1['bound_by']}, {k1['bound_ms'] / k1['ms']:.1%} of it); "
+        f"{k1['share']:.4%} of rows as the plain twin's, {k1['n_diff']} "
+        f"differ at near-ties, max |lp - plain| {k1['max_abs_err']:.3g}; "
+        f"{record['launches']} launches in the blocked run ({card})")
+
+    params = dc.prepare_decode_params(task.spec, m.policy_theta,
+                                      task.model.options,
+                                      dtype=torch.bfloat16)
+    feats = task.device_val_consts()["feats"]
+    T = task.model.options.seq_length
+    r_ms = time_ms(lambda: dc.decode_rows(params, feats, T, False))
+    rp = rows_against_plain("[36]", params, feats, T,
+                            task.model.options.vocab_size + 1)
+    log(f"[36] decode_rows over the split's {feats.shape[0]} val rows at the "
+        f"ES policy (bf16): {r_ms:.3f} ms, {rp['ctas']} CTAs (plain twin "
+        f"{rp['plain_ms']:.3f} ms, cuBLAS products {rp['library_ms']:.3f} "
+        f"ms, bound {rp['bound_ms']:.4f} ms by {rp['bound_by']}, "
+        f"{rp['bound_ms'] / r_ms:.1%} of it); {rp['share']:.4%} of rows as "
+        f"the plain twin's, {rp['n_diff']} differ at near-ties, max |lp - "
+        f"plain| {rp['max_abs_err']:.3g} over {rp['kept_rows']} rows of "
+        f"agreeing blocks ({card})")
+    base = {"route": "cuda",
+            "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+            "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py:658"}
+    return [
+        {"name": "decode_fused_es_chunk16_split", **base,
+         "launches": record["launches"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"], "ctas_per_launch": k1["ctas"],
+         "train_images": task.train_n, "mscoco_es": record},
+        {"name": "decode_rows_es_split", **base,
+         "launches": 2 * SPLIT_ES_ITERS + 2,
+         "max_abs_err": rp["max_abs_err"], "ms": r_ms,
+         "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
+         "bound_by": rp["bound_by"], "library_ms": rp["library_ms"],
+         "rows": feats.shape[0], "ctas_per_launch": rp["ctas"]},
+    ]
 
 
 # [34]: the widths the kernels are built for besides 128 (E = R), in order;
@@ -5727,13 +6378,22 @@ def main() -> int:
     kernels += test_eval_phase(card, data, xent)
     profile_phase()
     sens_dump_phase(card, data, xent)
-    shutil.rmtree(xent["runs_dir"])
     layout_rows, es_ref = es_layout_phase(card, data)
     kernels += layout_rows
     kernels += m16_phase(card, task, es_ref, kernels)
-    kernels += true_regime_phase(card)
+    # [35] writes and reads the split-size files that [33] and [36] run on
+    arrays, t_arrays = regime_arrays()
+    split_data, t_read = disk_phase(card, arrays, xent["paths"]["xent"])
+    del arrays
+    shutil.rmtree(xent["runs_dir"])
+    rows, train_cider = true_regime_phase(
+        card, split_data, {"arrays_s": t_arrays, "data_s": t_read})
+    kernels += rows
+    kernels += es_split_phase(card, split_data, train_cider)
+    del train_cider
+    del split_data
     kernels += widths_phase(card, task.data, wide_builds)
-    log(f"[end] phases [1]-[34] in {time.time() - t_smoke:.1f} s with the "
+    log(f"[end] phases [1]-[36] in {time.time() - t_smoke:.1f} s with the "
         f"kernels' build ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -5748,4 +6408,6 @@ if __name__ == "__main__":
         sys.exit(profile_main())
     if sys.argv[1:2] == ["--rank-phase"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--reload-phase"]:
+        sys.exit(reload_main(sys.argv[2:]))
     sys.exit(main())

@@ -1,20 +1,23 @@
 """Synthetic MSCOCO-format fixture (port of ``nes_img_captioning_tpu/data/synthetic.py``).
 
 ``synthetic_coco_arrays`` draws the same numbers in the same order as the
-JAX package's ``make_synthetic_coco`` and returns them in memory: a machine
-without ``h5py`` builds a ``CocoData`` from them directly
-(``CocoData.from_arrays``). ``write_synthetic_coco`` writes them in the
-on-disk contract (cocotalk.json / cocotalk_label.h5 / per-image fc .npy),
-importing ``h5py`` only there. Each image's feature vector encodes its
-caption's tokens, so evolution can improve CIDEr.
+JAX package's ``make_synthetic_coco`` and returns them in memory, from
+which ``CocoData.from_arrays`` builds a ``CocoData`` directly.
+``write_synthetic_coco`` writes them in the on-disk contract (cocotalk.json
+/ cocotalk_label.h5 through ``data/hdf5.write_datasets`` / per-image fc
+.npy). Each image's feature vector encodes its caption's tokens, so
+evolution can improve CIDEr.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 
 import numpy as np
+
+from .hdf5 import write_datasets
 
 __all__ = ["synthetic_coco_arrays", "write_synthetic_coco"]
 
@@ -73,21 +76,24 @@ def synthetic_coco_arrays(n_train: int = 64, n_val: int = 16,
 def write_synthetic_coco(out_dir: str, arrays: dict) -> dict:
     """Write ``synthetic_coco_arrays`` output in the on-disk contract;
     returns the caption_options dict pointing at the files."""
-    import h5py
-
     os.makedirs(out_dir, exist_ok=True)
     fc_dir = os.path.join(out_dir, "fc")
     os.makedirs(fc_dir, exist_ok=True)
+    # np.save's bytes in one write per file: every row has the first's
+    # header (np.save's calls cost most of the write where each
+    # file-system call is slow)
+    head = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        head, np.lib.format.header_data_from_array_1_0(arrays["feats"][0]))
     for img_id, feat in zip(arrays["ids"], arrays["feats"]):
-        np.save(os.path.join(fc_dir, f"{int(img_id)}.npy"), feat)
+        with open(os.path.join(fc_dir, f"{int(img_id)}.npy"), "wb") as f:
+            f.write(head.getvalue() + np.ascontiguousarray(feat).tobytes())
     input_json = os.path.join(out_dir, "cocotalk.json")
     with open(input_json, "w") as f:
         json.dump(arrays["info"], f)
     input_h5 = os.path.join(out_dir, "cocotalk_label.h5")
-    with h5py.File(input_h5, "w") as h5:
-        h5.create_dataset("labels", data=arrays["labels"])
-        h5.create_dataset("label_start_ix", data=arrays["label_start_ix"])
-        h5.create_dataset("label_end_ix", data=arrays["label_end_ix"])
+    write_datasets(input_h5, {k: arrays[k] for k in (
+        "labels", "label_start_ix", "label_end_ix")})
     return {"input_json": input_json, "input_label_h5": input_h5,
             "input_fc_dir": fc_dir}
 

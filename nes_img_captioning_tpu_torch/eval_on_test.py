@@ -131,7 +131,7 @@ def evaluate_checkpoints(models: dict[str, str], caption_options: dict,
 
 def run(argv=None, data: CocoData | None = None):
     """The CLI. ``data``: an in-memory CocoData instead of the files the
-    ``--input_*`` flags name (a machine without ``h5py``)."""
+    ``--input_*`` flags name."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", action="append", default=[],
                         help="name=path/to/checkpoint.pth (repeatable)")

@@ -93,7 +93,7 @@ def pretrain_xent(task, steps: int = 1000, lr: float = 5e-4,
 
 def run(argv=None, data=None):
     """The CLI. ``data``: an in-memory CocoData for the task instead of the
-    files the experiment names (a machine without ``h5py``)."""
+    files the experiment names."""
     from .tasks import make_task
     from .utils.config import load_experiment, parse_config, parse_tpu_config
 

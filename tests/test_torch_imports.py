@@ -39,6 +39,28 @@ def test_port_imports_without_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_port_imports_without_h5py():
+    """Every module of the port imports with ``h5py`` blocked: the label
+    file is read by the port's own HDF5 subset (data/hdf5.py), on the CPU
+    and on the card alike."""
+    mods = _modules()
+    assert f"{PKG}.data.hdf5" in mods
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['h5py'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    for path in [*(REPO / PKG).rglob("*.py"), REPO / "chip_smoke.py",
+                 REPO / "scripts" / "torch_parity_run.py"]:
+        text = path.read_text()
+        assert "import h5py" not in text, path
+
+
 def test_chip_smoke_imports_without_jax():
     """chip_smoke.py drives only the port."""
     src = (REPO / "chip_smoke.py").read_text()

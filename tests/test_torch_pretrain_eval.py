@@ -314,7 +314,7 @@ def test_evaluate_checkpoints_equals_jax(tmp_path, eager):
 
 
 def test_evaluate_checkpoints_in_memory_data(tmp_path):
-    """``data=`` (the card machine's path, no h5py): the same output as
+    """``data=`` (an in-memory CocoData): the same output as
     reading the files; METEOR options that the data's opts do not carry are
     refused."""
     from nes_img_captioning_tpu_torch.data.mscoco import CocoData
