@@ -163,7 +163,7 @@ Phases, each printed as it ends (any failure exits non-zero):
     on their existing rows' launch shapes, and their counts are logged;
 27. XENT pretraining at full width on [18]'s fixture (2048 train images,
     TF32 off): xent_loss and its gradient on the card against the CPU;
-    pretrain_xent at the CLI's defaults (3000 steps, batch 64, lr 5e-4),
+    pretrain_xent for 1500 steps (half the CLI's 3000; batch 64, lr 5e-4),
     ms per step, the train split's loss and the val CIDEr before and after
     (both must improve), one step under torch.profiler; the result saved
     with spec.save_pth and loaded by an NESMaster's from_single ([10]'s
@@ -226,12 +226,13 @@ Phases, each printed as it ends (any failure exits non-zero):
     cluster kernels' launch shapes; K1, K2, K3, K4, K5, K6 and decode_rows
     against their plain twins and each other (K4, decode_rows and K2
     bitwise K1, K5 bitwise K2 fed K7's dump, K6 the ordered sum of K7's
-    dumps, K3's seed stream bitwise K3 fed its table); then
+    dumps, K3's seed stream bitwise K3 fed its table, K7 held to its plain
+    version, its dumps and K6's gradient 0 at every pad); then
     scripts/torch_model_scale.py's generation through NESEngine (144 pairs,
     batch 128, pop_chunk 48, bf16): pair-kernel, per-member and
     kernel-noise paths bit for bit, a self_critical generation with
     decode_vocab_tile 1920 (K3, K4) and validate_device (decode_rows); each
-    kernel's time, plain time, cuBLAS yardstick and bound, and one
+    kernel's time (K1-K7), plain time, cuBLAS yardstick and bound, and one
     profiled generation per width;
 35. the reference's on-disk format at the Karpathy split's size, run
     before [33]: [33]'s arrays written by write_synthetic_coco under logs/
@@ -261,7 +262,16 @@ Phases, each printed as it ends (any failure exits non-zero):
     back; ms per generation on each path, one fused generation per file
     under torch.profiler (idle share); K1 at the ES launch shape and the
     row-block launch over the 5000 val rows against their plain twins,
-    cuBLAS and their bounds; the SM-G file's sweep at pop_chunk 16 and 48.
+    cuBLAS and their bounds; the SM-G file's sweep at pop_chunk 16 and 48;
+37. [34]'s checks, generations and times for two captioners of widths no
+    library is built for, zero-padded onto [34]'s libraries (no new
+    build): (E, R, F) = (300, 512, 2048) at W = 512 and (256, 192, 960) at
+    W = 256 with F padded to 1024, the cuBLAS yardstick and the bound on
+    the true shapes; at the second also experiments/mscoco_es.json at its
+    widths with the children in decode order (4 generations, the last two
+    a block), its layout sweep bit for bit task.rollout of its children
+    mapped back. A ``[time]`` line after each group of phases gives its
+    wall seconds.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -316,6 +326,14 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+def lap(t0: float, phases: str) -> float:
+    """Log the wall seconds since ``t0`` as the time of ``phases``; returns
+    the time now (the smoke's budget, phase by phase)."""
+    now = time.time()
+    log(f"[time] {phases}: {now - t0:.1f} s")
+    return now
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -355,12 +373,14 @@ def ptxas_lines(report: str) -> list:
     return out
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up,
-    between CUDA events."""
+def time_ms(fn, reps: int = 5, warm: bool = True) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
+    unless ``warm`` is false (a plain twin of seconds a call whose
+    operators the caller has just run), between CUDA events."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -521,15 +541,18 @@ def cublas_decode(feats, weights: dict, T: int, lanes: int = 1,
     products, T x the logits; batched over a leading member axis where
     there is one. ``lanes``: copies of each member's rows (K3's sample
     lanes); ``gumbel``: the argmax of the logits plus torch's Gumbel values
-    (K3)."""
+    (K3). At E != R the input products read the image embedding (E wide)
+    and the others a state of R cells."""
     import torch
 
     dt = weights["img_w"].dtype
-    h = torch.matmul(feats.to(dt), weights["img_w"]).to(dt)
+    x = torch.matmul(feats.to(dt), weights["img_w"]).to(dt)
     if lanes > 1:
-        h = h.repeat(1, lanes, 1)
+        x = x.repeat(1, lanes, 1)
+    R = weights["h2h_w"].shape[-2]
+    h = x if x.shape[-1] == R else x.new_zeros((*x.shape[:-1], R))
     for step in range(T + 1):
-        torch.matmul(h, weights["i2h_w"])
+        torch.matmul(x, weights["i2h_w"])
         torch.matmul(h, weights["h2h_w"])
         if step:
             logits = torch.matmul(h, weights["logit_w"])
@@ -2707,9 +2730,10 @@ def norm_phase(card: str, data) -> None:
     shutil.rmtree(runs_dir)
 
 
-# [27]: XENT pretraining at the CLI's defaults (pretrain.py: 3000 steps, lr
-# 5e-4, batch 64, seed 0) on the fixture's 2048 train images
-XENT_STEPS, XENT_LR, XENT_BATCH = 3000, 5e-4, 64
+# [27]: XENT pretraining at the CLI's lr 5e-4, batch 64 and seed 0 on the
+# fixture's 2048 train images, for half the CLI's 3000 steps (the whole
+# 3000 until [37] came, cut to keep the smoke in its time limit)
+XENT_STEPS, XENT_LR, XENT_BATCH = 1500, 5e-4, 64
 # [27]: the card's loss within XENT_LOSS_RTOL of the CPU's, its gradient
 # within XENT_GRAD_RTOL plus XENT_GRAD_ATOL x the CPU gradient's largest
 # element (f32 sums in cuBLAS's order against the CPU's, TF32 off)
@@ -5189,12 +5213,13 @@ def split_es_kernels(card: str, m, parents, seeds, pidx, idx_row,
 # [34]: the widths the kernels are built for besides 128 (E = R), in order;
 # the JAX package's scripts/exp_model_scale.py runs its kernels at these
 WIDE = (256, 512)
-# [34]: K1 and K4 on the chunk's first 24 pairs' members (48 x 128 rows), K2
-# and K5 on a chunk of 48 pairs; K3 on the 48 members x 5 lanes, on the seed
-# stream and fed its table (a 3.8 GB f32 table per lane); decode_rows over
-# WIDE_ROWS rows; WIDE_GENS timed generations per path
+# [34], [37]: K1 and K4 on the chunk's first 24 pairs' members (48 x 128
+# rows), K2 and K5 on a chunk of 48 pairs; K3 on the 48 members x 5 lanes,
+# on the seed stream and fed its table (a 3.8 GB f32 table per lane);
+# decode_rows over WIDE_ROWS rows; WIDE_GENS timed generations per path
+# after a warm-up (2 until [37] came: 1 keeps the smoke in its time limit)
 WIDE_MEMBERS, WIDE_LANES = 48, 5
-WIDE_ROWS, WIDE_GENS = 5000, 2
+WIDE_ROWS, WIDE_GENS = 5000, 1
 # [34]: K4's vocab tile (Vpad / 5)
 WIDE_TILE = 1920
 
@@ -5217,40 +5242,530 @@ def start_wide_builds() -> dict:
     return futures
 
 
-def widths_phase(card: str, data, builds: dict, dev=None) -> list:
-    """Phase 34: the decode kernels at E = R = 256 and 512, each width's
-    library built from csrc/ at its first use. Per width: its build time and
-    ptxas registers and spills; both cluster kernels' launch shapes (rows
-    per cluster, shared memory, ring slots, cudaOccupancyMaxActiveClusters);
+def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
+               dev) -> list:
+    """[34]'s and [37]'s checks of one captioner on its kernel library.
+    ``make_task(**tpu)`` builds its task in scripts/torch_model_scale.py's
+    regime (on the card the decode layout pads a shape no library is built
+    for to ``kernel_shape``); ``seed`` draws its theta, batches and seeds.
     K1 on 48 members x 128 rows, f32 (TF32 off) and bf16, logprobs on and
     off, against its plain twin (rows differ only at near-ties: f32 below
     F32_TIE_GAP, bf16 below 1e-2; f32 lp within LP_F32_TOL on the rows that
-    agree); K4 at vocab tile 1920 bitwise K1; K3 on
-    the seed stream bitwise K3 fed that stream's table, and the table form
-    against its plain twin (f32 tokens, lp; bf16 at near-ties);
-    decode_rows over 5000 rows bitwise K1 per block of 128; K2 on 48 pairs
-    with bf16 and f32 deltas, bf16 and f32 compute, bitwise K1 on prep(base
-    ± delta) in tokens and held to its plain twin; K5 bitwise K2 fed K7's
-    dump; K6 over the generation's 144 lanes bitwise the ordered sum of
-    K7's dumps. Then scripts/torch_model_scale.py's generation through
-    NESEngine (144 pairs, batch 128, pop_chunk 48, bf16, f32 deltas): the
-    pair-kernel and per-member paths bit for bit, fitnesses finite, theta
-    moved; the kernel-noise path bit for bit the delta-operand path fed
-    K7's dumps; a self_critical generation with decode_vocab_tile 1920 (K3
-    and K4) and validate_device (decode_rows), each kernel's launches
-    counted around its path; every kernel timed beside its plain twin, a
-    cuBLAS yardstick and its bound; one profiled generation. Returns the
-    kernels line's rows, one per kernel and width."""
+    agree); K4 at vocab tile 1920 bitwise K1; K3 on the seed stream bitwise
+    K3 fed that stream's table, and the table form against its plain twin
+    (f32 tokens, lp; bf16 at near-ties); decode_rows over 5000 rows bitwise
+    K1 per block of 128; K2 on 48 pairs with bf16 and f32 deltas, bf16 and
+    f32 compute, bitwise K1 on prep(base ± delta) in tokens and held to
+    its plain twin; K5 bitwise K2 fed K7's dump, which is held to its
+    plain version; K6 over the generation's
+    144 lanes bitwise the ordered sum of K7's dumps; K7's dumps and K6's
+    gradient exactly 0 at every pad, the gradient's from_dec the model's
+    size. Then the generation through NESEngine (144 pairs, batch 128,
+    pop_chunk 48, bf16, f32 deltas): the pair-kernel and per-member paths
+    bit for bit, fitnesses finite, theta moved; the kernel-noise path bit
+    for bit the delta-operand path fed K7's dumps; a self_critical
+    generation with decode_vocab_tile 1920 (K3 and K4) and validate_device
+    (decode_rows), each kernel's launches counted around its path; every
+    kernel timed beside its plain twin, a cuBLAS yardstick at the model's
+    own widths and its bound on the model's own operations; one profiled
+    generation. Returns the kernels line's rows, ``<kernel>_<suffix>``."""
     import torch
 
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
     from scripts.torch_model_scale import (
         SCALE,
         run_generations,
         scale_engine,
         scale_inputs,
-        scale_task,
     )
+
+    rows_out = []
+    # ---- the inputs: scripts/torch_model_scale.py's task and chunk
+    task = make_task()
+    lay, T = task.decode_layout, task.model.options.seq_length
+    o = task.model.options
+    # the model's own widths (E0, R0, Fd) and its unpadded layout, for the
+    # library yardstick and the bounds; the kernels run at W
+    E0, R0, Fd = o.input_encoding_size, o.rnn_size, o.fc_feat_size
+    lay0 = DecodeLayout(task.spec, o)
+    W = lay.sizes["R"]
+    R = dc.cluster_rows(W)
+    Vpad, V1 = lay.Vpad, task.data.vocab_size + 1
+    pads = lay.to_dec(torch.ones(task.spec.num_params, device=dev),
+                      pad_scale=0.0) == 0
+    P, B, M = SCALE["pop_chunk"], SCALE["batch"], WIDE_MEMBERS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    theta = task.generate_theta(gen)
+    base_vec = lay.to_dec(theta)
+    scale_dec = lay.to_dec(torch.full_like(theta, SCALE["sigma"]),
+                           pad_scale=0.0)
+    d32 = torch.stack([scale_dec * torch.randn(
+        lay.dim_dec, generator=gen, device=dev) for _ in range(P)])
+    members = torch.stack([base_vec + d32[:M // 2],
+                           base_vec - d32[:M // 2]], 1).reshape(M, -1)
+    idx = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, task.train_n, size=(P, B)), device=dev)
+    feats = task.train_fc[idx]                        # (P, B, F)
+    feats2 = feats[:M // 2].repeat_interleave(2, 0)   # (M, B, F)
+    params = {dt: lay.prep(members, dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    log(f"{tag}: (E, R, F) = ({E0}, {R0}, {Fd}) laid out at W = {W}, "
+        f"F_k = {lay.sizes['F']}: {task.spec.num_params:,} params, dim_dec "
+        f"{lay.dim_dec:,} ({lay0.dim_dec:,} unpadded), {R} rows per cluster "
+        f"({B // R} clusters per 128-row batch)")
+    err = {}
+
+    # ---- K1 against its plain twin
+    for dt, prm in params.items():
+        for need_lp in (True, False):
+            seq_k, lp_k = dc.decode_fused(prm, feats2, T, need_lp)
+            seq_p, lp_p, gap_p = dc.decode_fused_plain(
+                prm, feats2, T, need_lp, top2_gap=True)
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                share, n_diff = check_near_ties(
+                    seq_k, seq_p, gap_p, f"{tag} K1 f32",
+                    F32_TIE_GAP)
+                same = (seq_k == seq_p).all(-1)
+                e = float((lp_k - lp_p).abs()[same].max())
+                if e > LP_F32_TOL:
+                    raise AssertionError(
+                        f"{tag} K1 f32 lp={need_lp}: lp {e:.3g} > "
+                        f"{LP_F32_TOL}")
+                err.setdefault("K1", e)
+                log(f"{tag} K1 f32 need_logprobs={need_lp}: "
+                    f"{n_diff} rows differ from the plain twin (each "
+                    f"first at a top-2 gap < {F32_TIE_GAP}), max |lp - "
+                    f"plain| {e:.3g}")
+            else:
+                share, n_diff = check_near_ties(
+                    seq_k, seq_p, gap_p, f"{tag} K1 bf16")
+                log(f"{tag} K1 bf16 need_logprobs={need_lp}: "
+                    f"{share:.4%} of rows identical, {n_diff} differ at "
+                    "near-ties")
+    # ---- K4 bitwise K1
+    for dt, prm in params.items():
+        seq4, lp4 = dc.decode_fused(prm, feats2, T, True, vocab_tile=WIDE_TILE)
+        seq1, _ = dc.decode_fused(prm, feats2, T, True)
+        if not torch.equal(seq4, seq1):
+            raise AssertionError(f"{tag} K4 {dt}: not K1's tokens")
+        if dt == torch.float32:
+            # as K1's: f32 rows may differ from the twin only at near-ties,
+            # and lp is held to it on the rows that agree
+            seq_p, lp_p, gap_p = dc.decode_tiled_plain(
+                prm, feats2, WIDE_TILE, T, top2_gap=True)
+            _, n_diff4 = check_near_ties(seq4, seq_p, gap_p,
+                                         f"{tag} K4 f32", F32_TIE_GAP)
+            same = (seq4 == seq_p).all(-1)
+            err["K4"] = float((lp4 - lp_p).abs()[same].max())
+            if err["K4"] > LP_F32_TOL:
+                raise AssertionError(f"{tag} K4 f32 lp {err['K4']}")
+    log(f"{tag} K4 at vocab tile {WIDE_TILE}: tokens bitwise K1's at f32 "
+        f"and bf16; f32: {n_diff4} rows differ from the plain twin (each "
+        f"first at a top-2 gap < {F32_TIE_GAP}), max |lp - plain| "
+        f"{err['K4']:.3g}")
+    # ---- K3 at the main path's shape (M members x WIDE_LANES lanes x B
+    # rows, the launch timed below): the seed stream bitwise K3 fed that
+    # stream's table, and the table form against its plain twin
+    lanes = np.random.default_rng(seed).integers(
+        0, 2**32, size=(M, WIDE_LANES), dtype=np.uint32)
+    table = torch.empty((M, WIDE_LANES, T, B, Vpad), device=dev)
+    for m in range(M):
+        for ln in range(WIDE_LANES):
+            for t in range(T):
+                table[m, ln, t] = dc.gumbel_table(int(lanes[m, ln]), t,
+                                                  B, Vpad, dev)
+    for dt, prm in params.items():
+        seq_s, lp_s = dc.decode_fused(prm, feats2, T, True, greedy=False,
+                                      seeds=lanes)
+        seq_t, lp_t = dc.decode_fused(prm, feats2, T, True, greedy=False,
+                                      gumbel=table)
+        seq_p, lp_p, gap_p = dc.decode_sample_plain(
+            prm, feats2, T, True, gumbel=table, top2_gap=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(seq_s, seq_t) and torch.equal(lp_s, lp_t)):
+            raise AssertionError(f"{tag} K3 {dt}: the seed stream "
+                                 "is not K3 fed its table")
+        share, n_diff = check_near_ties(
+            seq_t, seq_p, gap_p, f"{tag} K3 {dt}",
+            F32_TIE_GAP if dt == torch.float32 else 1e-2)
+        same = (seq_t == seq_p).all(-1)
+        if dt == torch.float32:
+            err["K3"] = float((lp_t - lp_p).abs()[same].max())
+            if err["K3"] > LP_F32_TOL:
+                raise AssertionError(f"{tag} K3 f32 lp {err['K3']}")
+        log(f"{tag} K3 {dt}, {M} members x {WIDE_LANES} lanes x {B} "
+            f"rows: the seed stream bitwise K3 fed its table; the table "
+            f"form {share:.4%} of rows identical to its plain twin, "
+            f"{n_diff} at near-ties" + (
+            f", max |lp - plain| {err['K3']:.3g}"
+                if dt == torch.float32 else ""))
+        del seq_p, lp_p, gap_p
+    del table
+    torch.cuda.empty_cache()
+    # ---- decode_rows bitwise K1 per block of 128
+    one = {k: v[0] for k, v in params[torch.bfloat16].items()}
+    vfeats = torch.randn((WIDE_ROWS, Fd), generator=gen, device=dev)
+    seq_r, lp_r = dc.decode_rows(one, vfeats, T, True)
+    blocks = [dc.decode_fused(one, vfeats[lo:lo + 128], T, True)
+              for lo in range(0, WIDE_ROWS, 128)]
+    if not (torch.equal(seq_r, torch.cat([b[0] for b in blocks]))
+            and torch.equal(lp_r, torch.cat([b[1] for b in blocks]))):
+        raise AssertionError(f"{tag} decode_rows: not K1 per block")
+    seq_rp, lp_rp, gap_rp = dc.decode_rows_plain(one, vfeats, T, True,
+                                                 top2_gap=True)
+    torch.cuda.synchronize()
+    share, n_diff = check_near_ties(seq_r, seq_rp, gap_rp,
+                                    f"{tag} decode_rows bf16")
+    same = (seq_r == seq_rp).all(-1)
+    err["rows"] = float((lp_r - lp_rp).abs()[same].max())
+    if err["rows"] > LP_BF16_TOL:
+        raise AssertionError(f"{tag} decode_rows lp {err['rows']}")
+    log(f"{tag} decode_rows over {WIDE_ROWS} rows: bitwise "
+        f"{len(blocks)} launches of K1 on 128 rows; {share:.4%} of rows "
+        f"identical to its plain twin, {n_diff} at near-ties, max |lp - "
+        f"plain| {err['rows']:.3g}")
+    # ---- K2 on 48 pairs: bitwise K1 on prep(base ± delta)
+    base = lay.prep(base_vec, torch.float32)
+    for ddt in (torch.bfloat16, torch.float32):
+        dp = lay.prep(d32.to(ddt), ddt)
+        for dt in (torch.bfloat16, torch.float32):
+            seq2, lp2 = dc.decode_pair_perturb(base, dp, feats, T, dt,
+                                               True)
+            mem = torch.stack([base_vec + d32.to(ddt).float(),
+                               base_vec - d32.to(ddt).float()],
+                              1).reshape(2 * P, -1)
+            prm = lay.prep(mem, dt)
+            f2 = feats.repeat_interleave(2, 0)
+            seq1, lp1 = dc.decode_fused(prm, f2, T, True)
+            lp_k1 = float((lp2.reshape(2 * P, B, T) - lp1).abs().max())
+            if not torch.equal(seq2.reshape(2 * P, B, T), seq1) \
+                    or lp_k1 > 2e-5:
+                raise AssertionError(
+                    f"{tag} K2 {dt}, delta {ddt}: not K1 on "
+                    f"prep(base ± delta) (lp {lp_k1:.3g})")
+            seq_p, lp_p, gap_p = dc.decode_fused_plain(
+                prm, f2, T, True, top2_gap=True)
+            share, n_diff = check_near_ties(
+                seq1, seq_p, gap_p, f"{tag} K2 {dt}",
+                F32_TIE_GAP if dt == torch.float32 else 1e-2)
+            if dt == torch.float32:
+                same = (seq1 == seq_p).all(-1)
+                e = float((lp2.reshape(2 * P, B, T)
+                           - lp_p).abs()[same].max())
+                if e > LP_F32_TOL:
+                    raise AssertionError(f"{tag} K2 f32: lp "
+                                         f"{e:.3g} > {LP_F32_TOL}")
+                err.setdefault("K2", e)
+            log(f"{tag} K2 {dt}, delta {ddt}, {P} pairs: tokens "
+                f"bitwise K1's on prep(base ± delta), max |lp - K1| "
+                f"{lp_k1:.3g}; {share:.4%} of rows identical to the "
+                f"plain twin, {n_diff} at near-ties")
+            del prm, mem
+        del dp
+    # ---- K5 bitwise K2 fed K7's dump; K6 the ordered sum of the dumps
+    scale = lay.prep(scale_dec, torch.float32)
+    gseeds = np.random.default_rng(seed).integers(
+        0, 2**32, size=SCALE["pairs"], dtype=np.uint32)
+    dump = dc.pair_delta_dump(scale, gseeds[:P])
+    seq5, lp5 = dc.decode_pair_rng(base, scale, gseeds[:P], feats, T,
+                                   torch.bfloat16, True)
+    seq2, lp2 = dc.decode_pair_perturb(base, dump, feats, T,
+                                       torch.bfloat16, True)
+    if not (torch.equal(seq5, seq2) and torch.equal(lp5, lp2)):
+        raise AssertionError(f"{tag} K5: not K2 fed K7's dump")
+    dump_p = dc.pair_delta_dump_plain(scale, gseeds[:P])
+    err["K7"] = max(float((dump[k] - dump_p[k]).abs().max()) for k in dump)
+    del dump, dump_p
+    w6 = torch.as_tensor(np.random.default_rng(seed).uniform(
+        -1, 1, size=SCALE["pairs"]).astype(np.float32), device=dev)
+    g6 = dc.pair_grad_rng_flat(scale_dec, gseeds, w6)
+    ordered = torch.zeros_like(scale_dec)
+    for lo in range(0, SCALE["pairs"], P):
+        d7 = dc.pair_delta_dump_flat(scale_dec, gseeds[lo:lo + P])
+        if (d7[:, pads] != 0).any():
+            raise AssertionError(f"{tag} K7: a pad drew a non-zero delta")
+        for i in range(d7.shape[0]):
+            ordered = ordered + w6[lo + i] * d7[i]
+        del d7
+    if not torch.equal(g6, ordered):
+        raise AssertionError(f"{tag} K6: not the ordered sum of "
+                             "K7's dumps")
+    if (g6[pads] != 0).any() or lay.from_dec(g6).shape != (
+            task.spec.num_params,):
+        raise AssertionError(f"{tag} K6: a pad of the gradient is not 0, "
+                             "or from_dec is not the model's size")
+    log(f"{tag} K5 bitwise K2 fed K7's dump ({P} pairs); K6 over "
+        f"{SCALE['pairs']} lanes of dim_dec {lay.dim_dec:,} bitwise the "
+        f"ordered sum of K7's dumps; K7's dumps exactly 0 at all "
+        f"{int(pads.sum()):,} pads, K6's gradient too, its from_dec "
+        f"{task.spec.num_params:,} long")
+
+    # ---- the main path: torch_model_scale's generation
+    seeds, batches = scale_inputs(task, WIDE_GENS + 1)
+    n_chunks = -(-SCALE["pairs"] // P)
+    counters = (dc.decode_fused, dc.decode_pair_perturb,
+                dc.decode_pair_rng, dc.pair_grad_rng, dc.decode_sample,
+                dc.decode_tiled, dc.decode_rows, dc.pair_delta_dump)
+    runs, counts = {}, {}
+    for path, kw in (("pair kernel", {}),
+                     ("per-member", {"kernel_perturb": False}),
+                     ("kernel noise", {"kernel_noise": True})):
+        eng = scale_engine(task, **kw)
+        for c in counters:
+            c.launches = 0
+        runs[path] = (eng,) + run_generations(eng, theta, seeds, batches)
+        counts[path] = tuple(c.launches for c in counters)
+        th, packs, times = runs[path][1:]
+        log(f"{tag} {path}: {WIDE_GENS} generations after a "
+            f"warm-up, ms each {[round(t, 3) for t in times]}, median "
+            f"{np.median(times):.3f}; launches (K1, K2, K5, K6) "
+            f"{counts[path][:4]} ({card})")
+    want = n_chunks * (WIDE_GENS + 1)
+    if counts["pair kernel"][:4] != (0, want, 0, 0) \
+            or counts["per-member"][:4] != (want, 0, 0, 0) \
+            or counts["kernel noise"][:4] != (0, 0, want, WIDE_GENS + 1):
+        raise AssertionError(f"{tag} launch counts {counts}")
+    (_, th_a, pk_a, t_a), (_, th_b, pk_b, _) = (runs["pair kernel"],
+                                                runs["per-member"])
+    if not (torch.equal(pk_a, pk_b) and torch.equal(th_a, th_b)):
+        raise AssertionError(f"{tag}: pair-kernel and per-member "
+                             "generations differ")
+    if not torch.isfinite(pk_a).all() or torch.equal(th_a, theta) \
+            or not torch.isfinite(runs["kernel noise"][2]).all():
+        raise AssertionError(f"{tag}: non-finite fitness or theta "
+                             "unchanged")
+    eng_n = runs["kernel noise"][0]
+    eng_d = scale_engine(task, kernel_perturb=True, delta_dtype="f32")
+    eng_d.delta_of = lambda sd, seed: lay.flat_dec(
+        dc.pair_delta_dump(lay.prep(sd, torch.float32), seed))
+    sens = torch.ones_like(theta)
+    dc.pair_delta_dump.launches = 0
+    outs = [e.generation(theta, e.optimizer.init(e.dim, dev), sens,
+                         SCALE["sigma"], seeds[0], batches[0],
+                         SCALE["stepsize"], SCALE["l2coeff"])
+            for e in (eng_n, eng_d)]
+    k7_launches = dc.pair_delta_dump.launches
+    if not (torch.equal(outs[0][2], outs[1][2])
+            and torch.equal(outs[0][0], outs[1][0])):
+        raise AssertionError(f"{tag}: kernel-noise and "
+                             "delta-operand (K7 dumps) generations differ")
+    log(f"{tag}: pair-kernel and per-member generations bit for "
+        f"bit (packed vectors, theta); fitnesses finite, theta moved; "
+        f"the kernel-noise generation bit for bit the delta-operand one "
+        f"fed K7's dumps")
+    # K3 and K4 on their path: a self_critical generation with
+    # decode_vocab_tile 1920 (K3 samples, K4 baselines); decode_rows on
+    # validate_device's
+    sc_task = make_task(fitness="self_critical",
+                        decode_vocab_tile=WIDE_TILE)
+    sc_eng = scale_engine(sc_task)
+    for c in counters:
+        c.launches = 0
+    _, sc_packs, sc_times = run_generations(sc_eng, theta, seeds[:2],
+                                            batches[:2])
+    counts["self_critical"] = tuple(c.launches for c in counters)
+    vconsts = task.device_val_consts()
+    for c in counters:
+        c.launches = 0
+    val = float(task.validate_device(theta, vconsts))
+    counts["validate"] = tuple(c.launches for c in counters)
+    if not (counts["self_critical"][4] and counts["self_critical"][5]
+            and counts["validate"][6] == 1) \
+            or not torch.isfinite(sc_packs).all() or not np.isfinite(val):
+        raise AssertionError(f"{tag} self_critical / validation: "
+                             f"launches {counts}, fitness finite "
+                             f"{bool(torch.isfinite(sc_packs).all())}, "
+                             f"val {val}")
+    log(f"{tag} self_critical with decode_vocab_tile {WIDE_TILE}: 2 "
+        f"generations {[round(t, 3) for t in sc_times]} ms, K3 "
+        f"{counts['self_critical'][4]} and K4 {counts['self_critical'][5]}"
+        f" launches; validate_device over {vconsts['feats'].shape[0]} val "
+        f"images: one decode_rows launch, CIDEr {val:.6f} ({card})")
+    del sc_task, sc_eng, vconsts
+
+    # ---- times, yardsticks and bounds
+    p16 = params[torch.bfloat16]
+    dp32 = lay.prep(d32, torch.float32)
+    k_ms = {
+        "decode_fused": time_ms(lambda: dc.decode_fused(
+            p16, feats2, T, False), reps=3),
+        "decode_tiled": time_ms(lambda: dc.decode_fused(
+            p16, feats2, T, False, vocab_tile=WIDE_TILE), reps=3),
+        "decode_sample": time_ms(lambda: dc.decode_fused(
+            p16, feats2, T, False, greedy=False, seeds=lanes), reps=2),
+        "decode_rows": time_ms(lambda: dc.decode_rows(
+            one, vfeats, T, False), reps=3),
+        "decode_pair_perturb": time_ms(lambda: dc.decode_pair_perturb(
+            base, dp32, feats, T, torch.bfloat16, False), reps=3),
+        "decode_pair_rng": time_ms(lambda: dc.decode_pair_rng(
+            base, scale, gseeds[:P], feats, T, torch.bfloat16, False),
+            reps=3),
+        "pair_grad_rng": time_ms(lambda: dc.pair_grad_rng_flat(
+            scale_dec, gseeds, w6), reps=3),
+        "pair_delta_dump": time_ms(lambda: dc.pair_delta_dump_flat(
+            scale_dec, gseeds[:P]), reps=3),
+    }
+    # the plain twins one call each: the checks above ran their operators
+    plain = {
+        "decode_fused": time_ms(lambda: dc.decode_fused_plain(
+            p16, feats2, T, False), reps=1, warm=False),
+        "decode_tiled": time_ms(lambda: dc.decode_tiled_plain(
+            p16, feats2, WIDE_TILE, T, False), reps=1, warm=False),
+        "decode_sample": time_ms(lambda: dc.decode_sample_plain(
+            p16, feats2, T, False, seeds=lanes), reps=1, warm=False),
+        "decode_rows": time_ms(lambda: dc.decode_rows_plain(
+            one, vfeats, T, False), reps=1, warm=False),
+        "decode_pair_perturb": time_ms(
+            lambda: dc.decode_pair_perturb_plain(
+                base, dp32, feats, T, torch.bfloat16, False), reps=1,
+            warm=False),
+        "decode_pair_rng": time_ms(lambda: dc.decode_pair_rng_plain(
+            base, scale, gseeds[:P], feats, T, torch.bfloat16, False),
+            reps=1, warm=False),
+        "pair_grad_rng": time_ms(lambda: dc.pair_grad_rng_plain(
+            scale, gseeds, w6), reps=1, warm=False),
+        "pair_delta_dump": time_ms(lambda: dc.pair_delta_dump_plain(
+            scale, gseeds[:P]), reps=1, warm=False),
+    }
+
+    # the cuBLAS yardsticks (bf16) and the bounds at the model's own
+    # widths (lay0, no width pads: the kernels' own tensors at a built
+    # width), so a bound's share shows what the pads cost
+    def own(vec_dec, dt, pad_scale=1.0):
+        return lay0.prep(lay0.to_dec(lay.from_dec(vec_dec), pad_scale), dt)
+
+    p16_0 = own(members, torch.bfloat16)
+    one_0 = {k: v[0] for k, v in p16_0.items()}
+    pair16 = own(torch.cat([members, members])[:2 * P], torch.bfloat16)
+    base_0 = own(base_vec, torch.float32)
+    dp32_0 = own(d32, torch.float32, 0.0)
+    scale_0 = lay0.to_dec(lay.from_dec(scale_dec), 0.0)
+    lib_ms = {
+        "decode_fused": time_ms(lambda: cublas_decode(feats2, p16_0, T),
+                                reps=3),
+        "decode_sample": time_ms(lambda: cublas_decode(
+            feats2, p16_0, T, WIDE_LANES, True), reps=2),
+        "decode_rows": time_ms(lambda: cublas_decode(vfeats, one_0, T),
+                               reps=3),
+        "decode_pair_perturb": time_ms(lambda: cublas_decode(
+            feats.repeat_interleave(2, 0), pair16, T), reps=3),
+        "pair_grad_rng": None, "pair_delta_dump": None,
+    }
+    lib_ms["decode_tiled"] = lib_ms["decode_fused"]
+    lib_ms["decode_pair_rng"] = lib_ms["decode_pair_perturb"]
+    del pair16
+
+    def cluster_steps(seq, rows):
+        return executed_steps(seq.reshape(-1, R, T), T) \
+            if rows % R == 0 else executed_steps(seq, T)
+
+    def nbytes(*ts):
+        return float(sum(t.numel() * t.element_size() for t in ts))
+
+    w16 = nbytes(*p16_0.values())
+    seq1, _ = dc.decode_fused(p16, feats2, T, False)
+    seq3, _ = dc.decode_fused(p16, feats2, T, False, greedy=False,
+                              seeds=lanes)
+    seq2, _ = dc.decode_pair_perturb(base, dp32, feats, T,
+                                     torch.bfloat16, False)
+    steps1 = cluster_steps(seq1, B)
+    steps3 = cluster_steps(seq3, B)
+    steps2 = cluster_steps(seq2, B)
+    f1 = decode_flops(steps1, R, Fd, V1, E0, R0)
+    f3 = decode_flops(steps3, R, Fd, V1, E0, R0)
+    f2 = decode_flops(steps2, R, Fd, V1, E0, R0)
+    n6 = SCALE["pairs"] * lay0.dim_dec
+    bounds = {
+        "decode_fused": regime_bound(w16 + nbytes(feats2) / 2
+                                     + seq1.numel() * 8, f1),
+        "decode_tiled": regime_bound(w16 + nbytes(feats2) / 2
+                                     + seq1.numel() * 8, f1),
+        "decode_sample": regime_bound(
+            w16 + nbytes(feats2) / 2 + lanes.size * 4
+            + seq3.numel() * 8, f3,
+            f32_ops=GUMBEL_OPS * float(steps3.sum()) * R * V1),
+        "decode_rows": regime_bound(
+            nbytes(*one_0.values()) + nbytes(vfeats) / 2
+            + seq_r.numel() * 8,
+            rows_flops(seq_r, Fd, V1, E0, R0, R)),
+        "decode_pair_perturb": regime_bound(
+            nbytes(*base_0.values()) + nbytes(*dp32_0.values())
+            + nbytes(feats) / 2 + seq2.numel() * 8, f2),
+        "decode_pair_rng": regime_bound(
+            nbytes(*base_0.values()) + nbytes(scale_0)
+            + nbytes(feats) / 2 + seq2.numel() * 8, f2),
+        "pair_grad_rng": regime_bound(2 * nbytes(scale_0), 0.0, n6,
+                                      NORMAL_F32_OPS + GRAD_SUM_OPS),
+        "pair_delta_dump": regime_bound(
+            (1 + P) * nbytes(scale_0) + P * 4, 0.0, P * lay0.dim_dec,
+            NORMAL_F32_OPS),
+    }
+    launches = {
+        "decode_fused": counts["per-member"][0],
+        "decode_pair_perturb": counts["pair kernel"][1],
+        "decode_pair_rng": counts["kernel noise"][2],
+        "pair_grad_rng": counts["kernel noise"][3],
+        "decode_sample": counts["self_critical"][4],
+        "decode_tiled": counts["self_critical"][5],
+        "decode_rows": counts["validate"][6],
+        "pair_delta_dump": k7_launches,
+    }
+    replaces = {
+        "decode_fused": ":658", "decode_tiled": ":658",
+        "decode_sample": ":658", "decode_rows": ":658",
+        "decode_pair_perturb": ":325", "decode_pair_rng": ":488",
+        "pair_grad_rng": ":587", "pair_delta_dump": ":533"}
+    errs = {"decode_fused": err["K1"], "decode_tiled": err["K4"],
+            "decode_sample": err["K3"], "decode_rows": err["rows"],
+            "decode_pair_perturb": err["K2"], "decode_pair_rng": 0.0,
+            "pair_grad_rng": 0.0, "pair_delta_dump": err["K7"]}
+    for name in k_ms:
+        b_ms, b_by = bounds[name][:2]
+        rows_out.append({
+            "name": f"{name}_{suffix}", "width": W,
+            "shape": [E0, R0, Fd], "route": "cuda",
+            "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
+            "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py"
+            + replaces[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": k_ms[name],
+            "plain_ms": plain[name], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms[name]})
+        lib_txt = ("none" if lib_ms[name] is None
+                   else f"{lib_ms[name]:.3f} ms")
+        log(f"{tag} {name}: {k_ms[name]:.3f} ms per launch (plain "
+            f"{plain[name]:.3f} ms, cuBLAS yardstick {lib_txt}, bound "
+            f"{b_ms:.4f} ms by {b_by}, {b_ms / k_ms[name]:.1%} of it); "
+            f"{launches[name]} launches on its path ({card})")
+    eng = runs["pair kernel"][0]
+    wall_ms, busy, prof = profile_call(lambda: eng.generation(
+        theta, eng.optimizer.init(eng.dim, dev), torch.ones_like(theta),
+        SCALE["sigma"], seeds[0], batches[0], SCALE["stepsize"],
+        SCALE["l2coeff"]))
+    log(f"{tag} one pair-kernel generation under torch.profiler: "
+        f"wall {wall_ms:.3f} ms, card busy {busy:.3f} ms (idle "
+        f"{1 - busy / wall_ms:.2%}) ({card})")
+    for ms, count, key in prof[:8]:
+        log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
+    del task, runs, eng, eng_n, eng_d, params, p16, members, d32, dp32
+    del p16_0, one_0, base_0, dp32_0
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def widths_phase(card: str, data, builds: dict, dev=None) -> list:
+    """Phase 34: the decode kernels at E = R = 256 and 512, each width's
+    library built from csrc/ at its first use. Per width: its build time and
+    ptxas registers and spills; both cluster kernels' launch shapes (rows
+    per cluster, shared memory, ring slots, cudaOccupancyMaxActiveClusters);
+    then ``shape_case``'s kernels, generations and times at E = R = W on
+    2048-d features. Returns the kernels line's rows, one per kernel and
+    width."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from scripts.torch_model_scale import scale_task
 
     t_phase = time.time()
     dev = torch.device("cuda") if dev is None else dev
@@ -5288,428 +5803,93 @@ def widths_phase(card: str, data, builds: dict, dev=None) -> list:
                 f"{info['tile_rows']} k-rows, {info['tiles_in_flight']} in "
                 f"flight, cudaOccupancyMaxActiveClusters "
                 f"{info['max_active_clusters']}")
-
-        # ---- the inputs: scripts/torch_model_scale.py's task and chunk
-        task = scale_task(W, dev, data)
-        lay, T = task.decode_layout, task.model.options.seq_length
-        Fd, Vpad, V1 = (task.model.options.fc_feat_size, lay.Vpad,
-                        task.data.vocab_size + 1)
-        P, B, M = SCALE["pop_chunk"], SCALE["batch"], WIDE_MEMBERS
-        gen = torch.Generator(device=dev).manual_seed(W)
-        theta = task.generate_theta(gen)
-        base_vec = lay.to_dec(theta)
-        scale_dec = lay.to_dec(torch.full_like(theta, SCALE["sigma"]),
-                               pad_scale=0.0)
-        d32 = torch.stack([scale_dec * torch.randn(
-            lay.dim_dec, generator=gen, device=dev) for _ in range(P)])
-        members = torch.stack([base_vec + d32[:M // 2],
-                               base_vec - d32[:M // 2]], 1).reshape(M, -1)
-        idx = torch.as_tensor(np.random.default_rng(W).integers(
-            0, task.train_n, size=(P, B)), device=dev)
-        feats = task.train_fc[idx]                        # (P, B, F)
-        feats2 = feats[:M // 2].repeat_interleave(2, 0)   # (M, B, F)
-        params = {dt: lay.prep(members, dt)
-                  for dt in (torch.float32, torch.bfloat16)}
-        log(f"[34] W={W}: {task.spec.num_params:,} params, dim_dec "
-            f"{lay.dim_dec:,}, {R} rows per cluster ({B // R} clusters per "
-            f"128-row batch)")
-        err = {}
-
-        # ---- K1 against its plain twin
-        for dt, prm in params.items():
-            for need_lp in (True, False):
-                seq_k, lp_k = dc.decode_fused(prm, feats2, T, need_lp)
-                seq_p, lp_p, gap_p = dc.decode_fused_plain(
-                    prm, feats2, T, need_lp, top2_gap=True)
-                torch.cuda.synchronize()
-                if dt == torch.float32:
-                    share, n_diff = check_near_ties(
-                        seq_k, seq_p, gap_p, f"[34] W={W} K1 f32",
-                        F32_TIE_GAP)
-                    same = (seq_k == seq_p).all(-1)
-                    e = float((lp_k - lp_p).abs()[same].max())
-                    if e > LP_F32_TOL:
-                        raise AssertionError(
-                            f"[34] W={W} K1 f32 lp={need_lp}: lp {e:.3g} > "
-                            f"{LP_F32_TOL}")
-                    err.setdefault("K1", e)
-                    log(f"[34] W={W} K1 f32 need_logprobs={need_lp}: "
-                        f"{n_diff} rows differ from the plain twin (each "
-                        f"first at a top-2 gap < {F32_TIE_GAP}), max |lp - "
-                        f"plain| {e:.3g}")
-                else:
-                    share, n_diff = check_near_ties(
-                        seq_k, seq_p, gap_p, f"[34] W={W} K1 bf16")
-                    log(f"[34] W={W} K1 bf16 need_logprobs={need_lp}: "
-                        f"{share:.4%} of rows identical, {n_diff} differ at "
-                        "near-ties")
-        # ---- K4 bitwise K1
-        for dt, prm in params.items():
-            seq4, lp4 = dc.decode_fused(prm, feats2, T, True, vocab_tile=WIDE_TILE)
-            seq1, _ = dc.decode_fused(prm, feats2, T, True)
-            if not torch.equal(seq4, seq1):
-                raise AssertionError(f"[34] W={W} K4 {dt}: not K1's tokens")
-            if dt == torch.float32:
-                _, lp_p = dc.decode_tiled_plain(prm, feats2, WIDE_TILE, T)
-                err["K4"] = float((lp4 - lp_p).abs().max())
-                if err["K4"] > LP_F32_TOL:
-                    raise AssertionError(f"[34] W={W} K4 f32 lp {err['K4']}")
-        log(f"[34] W={W} K4 at vocab tile {WIDE_TILE}: tokens bitwise K1's at f32 "
-            f"and bf16; f32 max |lp - plain| {err['K4']:.3g}")
-        # ---- K3 at the main path's shape (M members x WIDE_LANES lanes x B
-        # rows, the launch timed below): the seed stream bitwise K3 fed that
-        # stream's table, and the table form against its plain twin
-        lanes = np.random.default_rng(W).integers(
-            0, 2**32, size=(M, WIDE_LANES), dtype=np.uint32)
-        table = torch.empty((M, WIDE_LANES, T, B, Vpad), device=dev)
-        for m in range(M):
-            for ln in range(WIDE_LANES):
-                for t in range(T):
-                    table[m, ln, t] = dc.gumbel_table(int(lanes[m, ln]), t,
-                                                      B, Vpad, dev)
-        for dt, prm in params.items():
-            seq_s, lp_s = dc.decode_fused(prm, feats2, T, True, greedy=False,
-                                          seeds=lanes)
-            seq_t, lp_t = dc.decode_fused(prm, feats2, T, True, greedy=False,
-                                          gumbel=table)
-            seq_p, lp_p, gap_p = dc.decode_sample_plain(
-                prm, feats2, T, True, gumbel=table, top2_gap=True)
-            torch.cuda.synchronize()
-            if not (torch.equal(seq_s, seq_t) and torch.equal(lp_s, lp_t)):
-                raise AssertionError(f"[34] W={W} K3 {dt}: the seed stream "
-                                     "is not K3 fed its table")
-            share, n_diff = check_near_ties(
-                seq_t, seq_p, gap_p, f"[34] W={W} K3 {dt}",
-                F32_TIE_GAP if dt == torch.float32 else 1e-2)
-            same = (seq_t == seq_p).all(-1)
-            if dt == torch.float32:
-                err["K3"] = float((lp_t - lp_p).abs()[same].max())
-                if err["K3"] > LP_F32_TOL:
-                    raise AssertionError(f"[34] W={W} K3 f32 lp {err['K3']}")
-            log(f"[34] W={W} K3 {dt}, {M} members x {WIDE_LANES} lanes x {B} "
-                f"rows: the seed stream bitwise K3 fed its table; the table "
-                f"form {share:.4%} of rows identical to its plain twin, "
-                f"{n_diff} at near-ties" + (
-                    f", max |lp - plain| {err['K3']:.3g}"
-                    if dt == torch.float32 else ""))
-            del seq_p, lp_p, gap_p
-        del table
-        torch.cuda.empty_cache()
-        # ---- decode_rows bitwise K1 per block of 128
-        one = {k: v[0] for k, v in params[torch.bfloat16].items()}
-        vfeats = torch.randn((WIDE_ROWS, Fd), generator=gen, device=dev)
-        seq_r, lp_r = dc.decode_rows(one, vfeats, T, True)
-        blocks = [dc.decode_fused(one, vfeats[lo:lo + 128], T, True)
-                  for lo in range(0, WIDE_ROWS, 128)]
-        if not (torch.equal(seq_r, torch.cat([b[0] for b in blocks]))
-                and torch.equal(lp_r, torch.cat([b[1] for b in blocks]))):
-            raise AssertionError(f"[34] W={W} decode_rows: not K1 per block")
-        seq_rp, lp_rp, gap_rp = dc.decode_rows_plain(one, vfeats, T, True,
-                                                     top2_gap=True)
-        torch.cuda.synchronize()
-        share, n_diff = check_near_ties(seq_r, seq_rp, gap_rp,
-                                        f"[34] W={W} decode_rows bf16")
-        same = (seq_r == seq_rp).all(-1)
-        err["rows"] = float((lp_r - lp_rp).abs()[same].max())
-        if err["rows"] > LP_BF16_TOL:
-            raise AssertionError(f"[34] W={W} decode_rows lp {err['rows']}")
-        log(f"[34] W={W} decode_rows over {WIDE_ROWS} rows: bitwise "
-            f"{len(blocks)} launches of K1 on 128 rows; {share:.4%} of rows "
-            f"identical to its plain twin, {n_diff} at near-ties, max |lp - "
-            f"plain| {err['rows']:.3g}")
-        # ---- K2 on 48 pairs: bitwise K1 on prep(base ± delta)
-        base = lay.prep(base_vec, torch.float32)
-        for ddt in (torch.bfloat16, torch.float32):
-            dp = lay.prep(d32.to(ddt), ddt)
-            for dt in (torch.bfloat16, torch.float32):
-                seq2, lp2 = dc.decode_pair_perturb(base, dp, feats, T, dt,
-                                                   True)
-                mem = torch.stack([base_vec + d32.to(ddt).float(),
-                                   base_vec - d32.to(ddt).float()],
-                                  1).reshape(2 * P, -1)
-                prm = lay.prep(mem, dt)
-                f2 = feats.repeat_interleave(2, 0)
-                seq1, lp1 = dc.decode_fused(prm, f2, T, True)
-                lp_k1 = float((lp2.reshape(2 * P, B, T) - lp1).abs().max())
-                if not torch.equal(seq2.reshape(2 * P, B, T), seq1) \
-                        or lp_k1 > 2e-5:
-                    raise AssertionError(
-                        f"[34] W={W} K2 {dt}, delta {ddt}: not K1 on "
-                        f"prep(base ± delta) (lp {lp_k1:.3g})")
-                seq_p, lp_p, gap_p = dc.decode_fused_plain(
-                    prm, f2, T, True, top2_gap=True)
-                share, n_diff = check_near_ties(
-                    seq1, seq_p, gap_p, f"[34] W={W} K2 {dt}",
-                    F32_TIE_GAP if dt == torch.float32 else 1e-2)
-                if dt == torch.float32:
-                    same = (seq1 == seq_p).all(-1)
-                    e = float((lp2.reshape(2 * P, B, T)
-                               - lp_p).abs()[same].max())
-                    if e > LP_F32_TOL:
-                        raise AssertionError(f"[34] W={W} K2 f32: lp "
-                                             f"{e:.3g} > {LP_F32_TOL}")
-                    err.setdefault("K2", e)
-                log(f"[34] W={W} K2 {dt}, delta {ddt}, {P} pairs: tokens "
-                    f"bitwise K1's on prep(base ± delta), max |lp - K1| "
-                    f"{lp_k1:.3g}; {share:.4%} of rows identical to the "
-                    f"plain twin, {n_diff} at near-ties")
-                del prm, mem
-            del dp
-        # ---- K5 bitwise K2 fed K7's dump; K6 the ordered sum of the dumps
-        scale = lay.prep(scale_dec, torch.float32)
-        gseeds = np.random.default_rng(W).integers(
-            0, 2**32, size=SCALE["pairs"], dtype=np.uint32)
-        dump = dc.pair_delta_dump(scale, gseeds[:P])
-        seq5, lp5 = dc.decode_pair_rng(base, scale, gseeds[:P], feats, T,
-                                       torch.bfloat16, True)
-        seq2, lp2 = dc.decode_pair_perturb(base, dump, feats, T,
-                                           torch.bfloat16, True)
-        if not (torch.equal(seq5, seq2) and torch.equal(lp5, lp2)):
-            raise AssertionError(f"[34] W={W} K5: not K2 fed K7's dump")
-        del dump
-        w6 = torch.as_tensor(np.random.default_rng(W).uniform(
-            -1, 1, size=SCALE["pairs"]).astype(np.float32), device=dev)
-        g6 = dc.pair_grad_rng_flat(scale_dec, gseeds, w6)
-        ordered = torch.zeros_like(scale_dec)
-        for lo in range(0, SCALE["pairs"], P):
-            d7 = dc.pair_delta_dump_flat(scale_dec, gseeds[lo:lo + P])
-            for i in range(d7.shape[0]):
-                ordered = ordered + w6[lo + i] * d7[i]
-            del d7
-        if not torch.equal(g6, ordered):
-            raise AssertionError(f"[34] W={W} K6: not the ordered sum of "
-                                 "K7's dumps")
-        log(f"[34] W={W} K5 bitwise K2 fed K7's dump ({P} pairs); K6 over "
-            f"{SCALE['pairs']} lanes of dim_dec {lay.dim_dec:,} bitwise the "
-            "ordered sum of K7's dumps")
-
-        # ---- the main path: torch_model_scale's generation
-        seeds, batches = scale_inputs(task, WIDE_GENS + 1)
-        n_chunks = -(-SCALE["pairs"] // P)
-        counters = (dc.decode_fused, dc.decode_pair_perturb,
-                    dc.decode_pair_rng, dc.pair_grad_rng, dc.decode_sample,
-                    dc.decode_tiled, dc.decode_rows, dc.pair_delta_dump)
-        runs, counts = {}, {}
-        for path, kw in (("pair kernel", {}),
-                         ("per-member", {"kernel_perturb": False}),
-                         ("kernel noise", {"kernel_noise": True})):
-            eng = scale_engine(task, **kw)
-            for c in counters:
-                c.launches = 0
-            runs[path] = (eng,) + run_generations(eng, theta, seeds, batches)
-            counts[path] = tuple(c.launches for c in counters)
-            th, packs, times = runs[path][1:]
-            log(f"[34] W={W} {path}: {WIDE_GENS} generations after a "
-                f"warm-up, ms each {[round(t, 3) for t in times]}, median "
-                f"{np.median(times):.3f}; launches (K1, K2, K5, K6) "
-                f"{counts[path][:4]} ({card})")
-        want = n_chunks * (WIDE_GENS + 1)
-        if counts["pair kernel"][:4] != (0, want, 0, 0) \
-                or counts["per-member"][:4] != (want, 0, 0, 0) \
-                or counts["kernel noise"][:4] != (0, 0, want, WIDE_GENS + 1):
-            raise AssertionError(f"[34] W={W} launch counts {counts}")
-        (_, th_a, pk_a, t_a), (_, th_b, pk_b, _) = (runs["pair kernel"],
-                                                    runs["per-member"])
-        if not (torch.equal(pk_a, pk_b) and torch.equal(th_a, th_b)):
-            raise AssertionError(f"[34] W={W}: pair-kernel and per-member "
-                                 "generations differ")
-        if not torch.isfinite(pk_a).all() or torch.equal(th_a, theta) \
-                or not torch.isfinite(runs["kernel noise"][2]).all():
-            raise AssertionError(f"[34] W={W}: non-finite fitness or theta "
-                                 "unchanged")
-        eng_n = runs["kernel noise"][0]
-        eng_d = scale_engine(task, kernel_perturb=True, delta_dtype="f32")
-        eng_d.delta_of = lambda sd, seed: lay.flat_dec(
-            dc.pair_delta_dump(lay.prep(sd, torch.float32), seed))
-        sens = torch.ones_like(theta)
-        outs = [e.generation(theta, e.optimizer.init(e.dim, dev), sens,
-                             SCALE["sigma"], seeds[0], batches[0],
-                             SCALE["stepsize"], SCALE["l2coeff"])
-                for e in (eng_n, eng_d)]
-        if not (torch.equal(outs[0][2], outs[1][2])
-                and torch.equal(outs[0][0], outs[1][0])):
-            raise AssertionError(f"[34] W={W}: kernel-noise and "
-                                 "delta-operand (K7 dumps) generations differ")
-        log(f"[34] W={W}: pair-kernel and per-member generations bit for "
-            f"bit (packed vectors, theta); fitnesses finite, theta moved; "
-            f"the kernel-noise generation bit for bit the delta-operand one "
-            f"fed K7's dumps")
-        # K3 and K4 on their path: a self_critical generation with
-        # decode_vocab_tile 1920 (K3 samples, K4 baselines); decode_rows on
-        # validate_device's
-        sc_task = scale_task(W, dev, data, fitness="self_critical",
-                             decode_vocab_tile=WIDE_TILE)
-        sc_eng = scale_engine(sc_task)
-        for c in counters:
-            c.launches = 0
-        _, sc_packs, sc_times = run_generations(sc_eng, theta, seeds[:2],
-                                                batches[:2])
-        counts["self_critical"] = tuple(c.launches for c in counters)
-        vconsts = task.device_val_consts()
-        for c in counters:
-            c.launches = 0
-        val = float(task.validate_device(theta, vconsts))
-        counts["validate"] = tuple(c.launches for c in counters)
-        if not (counts["self_critical"][4] and counts["self_critical"][5]
-                and counts["validate"][6] == 1) \
-                or not torch.isfinite(sc_packs).all() or not np.isfinite(val):
-            raise AssertionError(f"[34] W={W} self_critical / validation: "
-                                 f"launches {counts}, fitness finite "
-                                 f"{bool(torch.isfinite(sc_packs).all())}, "
-                                 f"val {val}")
-        log(f"[34] W={W} self_critical with decode_vocab_tile {WIDE_TILE}: 2 "
-            f"generations {[round(t, 3) for t in sc_times]} ms, K3 "
-            f"{counts['self_critical'][4]} and K4 {counts['self_critical'][5]}"
-            f" launches; validate_device over {vconsts['feats'].shape[0]} val "
-            f"images: one decode_rows launch, CIDEr {val:.6f} ({card})")
-        del sc_task, sc_eng, vconsts
-
-        # ---- times, yardsticks and bounds
-        p16 = params[torch.bfloat16]
-        dp32 = lay.prep(d32, torch.float32)
-        k_ms = {
-            "decode_fused": time_ms(lambda: dc.decode_fused(
-                p16, feats2, T, False), reps=3),
-            "decode_tiled": time_ms(lambda: dc.decode_fused(
-                p16, feats2, T, False, vocab_tile=WIDE_TILE), reps=3),
-            "decode_sample": time_ms(lambda: dc.decode_fused(
-                p16, feats2, T, False, greedy=False, seeds=lanes), reps=2),
-            "decode_rows": time_ms(lambda: dc.decode_rows(
-                one, vfeats, T, False), reps=3),
-            "decode_pair_perturb": time_ms(lambda: dc.decode_pair_perturb(
-                base, dp32, feats, T, torch.bfloat16, False), reps=3),
-            "decode_pair_rng": time_ms(lambda: dc.decode_pair_rng(
-                base, scale, gseeds[:P], feats, T, torch.bfloat16, False),
-                reps=3),
-            "pair_grad_rng": time_ms(lambda: dc.pair_grad_rng_flat(
-                scale_dec, gseeds, w6), reps=3),
-        }
-        plain = {
-            "decode_fused": time_ms(lambda: dc.decode_fused_plain(
-                p16, feats2, T, False), reps=1),
-            "decode_tiled": time_ms(lambda: dc.decode_tiled_plain(
-                p16, feats2, WIDE_TILE, T, False), reps=1),
-            "decode_sample": time_ms(lambda: dc.decode_sample_plain(
-                p16, feats2, T, False, seeds=lanes), reps=1),
-            "decode_rows": time_ms(lambda: dc.decode_rows_plain(
-                one, vfeats, T, False), reps=1),
-            "decode_pair_perturb": time_ms(
-                lambda: dc.decode_pair_perturb_plain(
-                    base, dp32, feats, T, torch.bfloat16, False), reps=1),
-            "decode_pair_rng": time_ms(lambda: dc.decode_pair_rng_plain(
-                base, scale, gseeds[:P], feats, T, torch.bfloat16, False),
-                reps=1),
-            "pair_grad_rng": time_ms(lambda: dc.pair_grad_rng_plain(
-                scale, gseeds, w6), reps=1),
-        }
-
-        pair16 = lay.prep(torch.cat([members, members])[:2 * P],
-                          torch.bfloat16)
-        # cuBLAS yardsticks (bf16)
-        lib_ms = {
-            "decode_fused": time_ms(lambda: cublas_decode(feats2, p16, T),
-                                    reps=3),
-            "decode_sample": time_ms(lambda: cublas_decode(
-                feats2, p16, T, WIDE_LANES, True), reps=2),
-            "decode_rows": time_ms(lambda: cublas_decode(vfeats, one, T),
-                                   reps=3),
-            "decode_pair_perturb": time_ms(lambda: cublas_decode(
-                feats.repeat_interleave(2, 0), pair16, T), reps=3),
-            "pair_grad_rng": None,
-        }
-        lib_ms["decode_tiled"] = lib_ms["decode_fused"]
-        lib_ms["decode_pair_rng"] = lib_ms["decode_pair_perturb"]
-        del pair16
-
-        def cluster_steps(seq, rows):
-            return executed_steps(seq.reshape(-1, R, T), T) \
-                if rows % R == 0 else executed_steps(seq, T)
-
-        def nbytes(*ts):
-            return float(sum(t.numel() * t.element_size() for t in ts))
-
-        w16 = nbytes(*p16.values())
-        seq1, _ = dc.decode_fused(p16, feats2, T, False)
-        seq3, _ = dc.decode_fused(p16, feats2, T, False, greedy=False,
-                                  seeds=lanes)
-        seq2, _ = dc.decode_pair_perturb(base, dp32, feats, T,
-                                         torch.bfloat16, False)
-        steps1 = cluster_steps(seq1, B)
-        steps3 = cluster_steps(seq3, B)
-        steps2 = cluster_steps(seq2, B)
-        f1 = decode_flops(steps1, R, Fd, V1, W, W)
-        f3 = decode_flops(steps3, R, Fd, V1, W, W)
-        f2 = decode_flops(steps2, R, Fd, V1, W, W)
-        n6 = SCALE["pairs"] * lay.dim_dec
-        bounds = {
-            "decode_fused": regime_bound(w16 + nbytes(feats2) / 2
-                                         + seq1.numel() * 8, f1),
-            "decode_tiled": regime_bound(w16 + nbytes(feats2) / 2
-                                         + seq1.numel() * 8, f1),
-            "decode_sample": regime_bound(
-                w16 + nbytes(feats2) / 2 + lanes.size * 4
-                + seq3.numel() * 8, f3,
-                f32_ops=GUMBEL_OPS * float(steps3.sum()) * R * V1),
-            "decode_rows": regime_bound(
-                nbytes(*one.values()) + nbytes(vfeats) / 2
-                + seq_r.numel() * 8,
-                rows_flops(seq_r, Fd, V1, W, W, R)),
-            "decode_pair_perturb": regime_bound(
-                nbytes(*base.values()) + nbytes(*dp32.values())
-                + nbytes(feats) / 2 + seq2.numel() * 8, f2),
-            "decode_pair_rng": regime_bound(
-                nbytes(*base.values()) + nbytes(scale_dec)
-                + nbytes(feats) / 2 + seq2.numel() * 8, f2),
-            "pair_grad_rng": regime_bound(2 * nbytes(scale_dec), 0.0, n6,
-                                          NORMAL_F32_OPS + GRAD_SUM_OPS),
-        }
-        launches = {
-            "decode_fused": counts["per-member"][0],
-            "decode_pair_perturb": counts["pair kernel"][1],
-            "decode_pair_rng": counts["kernel noise"][2],
-            "pair_grad_rng": counts["kernel noise"][3],
-            "decode_sample": counts["self_critical"][4],
-            "decode_tiled": counts["self_critical"][5],
-            "decode_rows": counts["validate"][6],
-        }
-        replaces = {
-            "decode_fused": ":658", "decode_tiled": ":658",
-            "decode_sample": ":658", "decode_rows": ":658",
-            "decode_pair_perturb": ":325", "decode_pair_rng": ":488",
-            "pair_grad_rng": ":587"}
-        errs = {"decode_fused": err["K1"], "decode_tiled": err["K4"],
-                "decode_sample": err["K3"], "decode_rows": err["rows"],
-                "decode_pair_perturb": err["K2"], "decode_pair_rng": 0.0,
-                "pair_grad_rng": 0.0}
-        for name in k_ms:
-            b_ms, b_by = bounds[name][:2]
-            rows_out.append({
-                "name": f"{name}_w{W}", "width": W, "route": "cuda",
-                "source": "nes_img_captioning_tpu_torch/csrc/decode.cu",
-                "replaces": "nes_img_captioning_tpu/ops/decode_pallas.py"
-                + replaces[name], "launches": launches[name],
-                "max_abs_err": errs[name], "ms": k_ms[name],
-                "plain_ms": plain[name], "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms[name]})
-            lib_txt = ("none" if lib_ms[name] is None
-                       else f"{lib_ms[name]:.3f} ms")
-            log(f"[34] W={W} {name}: {k_ms[name]:.3f} ms per launch (plain "
-                f"{plain[name]:.3f} ms, cuBLAS yardstick {lib_txt}, bound "
-                f"{b_ms:.4f} ms by {b_by}, {b_ms / k_ms[name]:.1%} of it); "
-                f"{launches[name]} launches on its path ({card})")
-        eng = runs["pair kernel"][0]
-        wall_ms, busy, prof = profile_call(lambda: eng.generation(
-            theta, eng.optimizer.init(eng.dim, dev), torch.ones_like(theta),
-            SCALE["sigma"], seeds[0], batches[0], SCALE["stepsize"],
-            SCALE["l2coeff"]))
-        log(f"[34] W={W} one pair-kernel generation under torch.profiler: "
-            f"wall {wall_ms:.3f} ms, card busy {busy:.3f} ms (idle "
-            f"{1 - busy / wall_ms:.2%}) ({card})")
-        for ms, count, key in prof[:8]:
-            log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
-        del task, runs, eng, eng_n, eng_d, params, p16, members, d32, dp32
-        torch.cuda.empty_cache()
+        rows_out += shape_case(
+            f"[34] W={W}", card,
+            lambda W=W, **kw: scale_task(W, dev, data, **kw), f"w{W}", W,
+            dev)
     log(f"[34] the widths in {time.time() - t_phase:.1f} s ({card})")
+    return rows_out
+
+
+# [37]: captioners of widths no library is built for, laid out zero-padded
+# at kernel_shape on [34]'s libraries: P1 a 300-d word embedding under a
+# 512-cell LSTM on ResNet's 2048-d pooled features (E pads to 512); P2 a
+# 192-cell LSTM on MobileNetV3-Large's 960-d pooled features (R pads per
+# gate block to 256, F to 1024)
+PADDED = (("P1", (300, 512, 2048)), ("P2", (256, 192, 960)))
+# [37]: NIC-ES generations of P2 with decode-ordered children (generation 1
+# fresh inits, generation 2 fused alone, then a block of two)
+PADDED_ES_ITERS = 4
+
+
+def padded_phase(card: str, data, builds: dict, dev=None) -> list:
+    """Phase 37: K-W2, the captioners of PADDED on the libraries [34] built
+    (no new build): per shape ``shape_case``'s gates, generations and times
+    (the yardstick and the bounds at the model's own widths); P1 on
+    ``data`` (2048-d), P2 on scripts/torch_model_scale.py's fixture at
+    960-d. At P2 also NIC-ES with the children in decode order
+    (experiments/mscoco_es.json at P2's widths, PADDED_ES_ITERS
+    generations on the blocked path): K1's launches, finite fitnesses and
+    the layout sweep bit for bit ``task.rollout`` of its children mapped
+    back (``layout_replay``). Returns the kernels line's rows, one per
+    kernel and shape."""
+    import shutil
+
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from scripts.torch_model_scale import scale_data, scale_task
+
+    t_phase = time.time()
+    dev = torch.device("cuda") if dev is None else dev
+    rows_out = []
+    for name, shape in PADDED:
+        E, R, F = shape
+        W, F_k = dc.kernel_shape(E, R, F)
+        lib = builds[W].result()[0]
+        shape_data = data if F == 2048 else scale_data(F)
+        log(f"[37] {name} (E, R, F) = {shape}: laid out at W = {W}, F_k = "
+            f"{F_k}, on {lib.name} ([34]'s library, no new build)")
+        rows_out += shape_case(
+            f"[37] {name}", card,
+            lambda s=shape, d=shape_data, **kw: scale_task(s, dev, d, **kw),
+            name.lower(), E + R + F, dev)
+        if name != "P2":
+            continue
+        runs_dir = os.path.join("logs", f"chip_smoke_padded_{os.getpid()}")
+        exp = layout_experiment("mscoco_es", "padded", runs_dir)
+        exp["policy_options"]["model_options"].update(
+            input_encoding_size=E, rnn_size=R, fc_feat_size=F)
+        m, fits, calls, _, counts = drive_es(exp, dev, shape_data,
+                                             PADDED_ES_ITERS)
+        L, chunk, B = LAYOUT_SHAPE
+        k1_per_gen = -(-L // chunk) * -(-B // 128)
+        lay = m.engine._layout
+        if lay is None or lay.sizes["R"] != W \
+                or counts[0] != PADDED_ES_ITERS * k1_per_gen \
+                or calls != ["fused_generation", "fused_block"] \
+                or not all(np.isfinite(f).all() for f in fits):
+            raise AssertionError(
+                f"[37] {name} NIC-ES: layout {lay and lay.sizes}, launches "
+                f"(K1, row-block K1, K4, K3, K2, K5) {counts}, engine calls "
+                f"{calls}, fitnesses finite "
+                f"{[bool(np.isfinite(f).all()) for f in fits]}")
+        rng = np.random.default_rng(3)
+        seeds = rng.integers(0, 2**32, size=L, dtype=np.uint32)
+        pidx = rng.integers(0, exp["population_size"], size=L).astype(
+            np.int32)
+        idx_row = rng.choice(m.task.train_n, size=B, replace=False)
+        layout_replay(f"[37] {name}", m, seeds, pidx, idx_row)
+        ms = [round(t * 1e3, 3) for t in m.stats.time_stats()]
+        log(f"[37] {name} mscoco_es.json with tpu.es_decode_layout: "
+            f"{PADDED_ES_ITERS} generations, ms each {ms} (engine calls "
+            f"{calls}), K1 launches {counts[0]}; the layout sweep of {L} "
+            f"offspring bit for bit task.rollout of its children mapped "
+            f"back by from_dec ({card})")
+        del m
+        shutil.rmtree(runs_dir)
+        torch.cuda.empty_cache()
+    log(f"[37] the padded shapes in {time.time() - t_phase:.1f} s ({card})")
     return rows_out
 
 
@@ -6363,37 +6543,51 @@ def main() -> int:
         f"on the bf16 delta in [5] {k2_ms:.3f} ms); {pair_ctas} CTAs per "
         f"decode launch; K1 anchor {k1_again:.3f} ms here, {k1_ms:.3f} ms in "
         f"[5] ({card})")
+    t_lap = lap(t_smoke, "[1]-[11]")
     kernels += sampling_phases(task, theta, members, feats2, seeds, batches,
                                sens, lib_ms, card)
+    t_lap = lap(t_lap, "[12]-[17]")
     data = val_fixture()
     kernels += validation_phase(card, data)
+    t_lap = lap(t_lap, "[18]")
     kernels += es_phase(card, data)
+    t_lap = lap(t_lap, "[19]")
     kernels += es_smg_phase(card, data, kernels[-1])
     kernels += nes_smg_phase(card, task, seeds, batches, kernels)
     mnist_masters_phase(card, mnist_task_phase(card))
+    t_lap = lap(t_lap, "[20]-[23]")
     host_nes_phase(card, task)
     host_es_phase(card, data)
     norm_phase(card, task.data)
+    t_lap = lap(t_lap, "[24]-[26]")
     xent = xent_phase(card, data)
     kernels += test_eval_phase(card, data, xent)
     profile_phase()
     sens_dump_phase(card, data, xent)
+    t_lap = lap(t_lap, "[27]-[30]")
     layout_rows, es_ref = es_layout_phase(card, data)
     kernels += layout_rows
     kernels += m16_phase(card, task, es_ref, kernels)
+    t_lap = lap(t_lap, "[31]-[32]")
     # [35] writes and reads the split-size files that [33] and [36] run on
     arrays, t_arrays = regime_arrays()
     split_data, t_read = disk_phase(card, arrays, xent["paths"]["xent"])
     del arrays
     shutil.rmtree(xent["runs_dir"])
+    t_lap = lap(t_lap, "[35]")
     rows, train_cider = true_regime_phase(
         card, split_data, {"arrays_s": t_arrays, "data_s": t_read})
     kernels += rows
+    t_lap = lap(t_lap, "[33]")
     kernels += es_split_phase(card, split_data, train_cider)
     del train_cider
     del split_data
+    t_lap = lap(t_lap, "[36]")
     kernels += widths_phase(card, task.data, wide_builds)
-    log(f"[end] phases [1]-[36] in {time.time() - t_smoke:.1f} s with the "
+    t_lap = lap(t_lap, "[34]")
+    kernels += padded_phase(card, task.data, wide_builds)
+    lap(t_lap, "[37]")
+    log(f"[end] phases [1]-[37] in {time.time() - t_smoke:.1f} s with the "
         f"kernels' build ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)

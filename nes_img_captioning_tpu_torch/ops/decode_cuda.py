@@ -114,7 +114,8 @@ import torch
 
 from .noise import TWO_PI_F32, gumbel_plain, philox4x32_10, philox_normal_plain
 
-__all__ = ["PAD_LANE", "NEG", "pad_vocab", "prepare_decode_params",
+__all__ = ["PAD_LANE", "NEG", "pad_vocab", "kernel_shape",
+           "prepare_decode_params",
            "decode_fused", "decode_fused_plain", "decode_sample",
            "decode_sample_plain", "decode_tiled", "decode_tiled_plain",
            "decode_rows", "decode_rows_plain",
@@ -166,33 +167,49 @@ def _exit_rows(width: int, B: int) -> int:
     return cluster_rows(width) if width in KERNEL_WIDTHS[1:] else max(B, 1)
 
 
+def kernel_shape(E: int, R: int, F: int) -> tuple[int, int]:
+    """(W, F_k): the shape the kernels decode a captioner of embedding E,
+    R cells and F-wide features at. W is the smallest of KERNEL_WIDTHS at
+    least max(E, R), F_k is F rounded up to a multiple of 128; the decode
+    layout (``DecodeLayout(pad=True)``) zero-pads the model to it, which
+    leaves its decode unchanged. Raises above the widest library."""
+    need = max(E, R)
+    _check(0 < need <= KERNEL_WIDTHS[-1],
+           f"input_encoding_size={E}, rnn_size={R}: the CUDA decode "
+           f"kernels take E and R up to {KERNEL_WIDTHS[-1]} (a model is "
+           f"zero-padded to the next of the built widths "
+           f"{', '.join(map(str, KERNEL_WIDTHS))}); set tpu.fused_decode: "
+           "false to decode it eagerly")
+    W = next(w for w in KERNEL_WIDTHS if w >= need)
+    return W, -(-F // FEAT_MULTIPLE) * FEAT_MULTIPLE
+
+
 def prepare_decode_params(spec, theta: torch.Tensor, options,
-                          dtype=torch.float32) -> dict:
-    """Flat torch-order theta -> the padded-weight dict the kernels take.
-    Weights are transposed to (in, out) and cast to ``dtype``; vocab axes
-    are padded to the 128 multiple; biases stay f32 and (1, N)-shaped, the
-    padded logit bias at ``NEG`` so a pad token never wins the argmax.
+                          dtype=torch.float32, pad: bool | None = None
+                          ) -> dict:
+    """Flat torch-order theta -> the padded-weight dict the kernels take:
+    ``DecodeLayout(pad=pad).prep(to_dec(theta))``. Weights are transposed
+    to (in, out) and cast to ``dtype``; vocab axes are padded to the 128
+    multiple; biases stay f32 and (1, N)-shaped, the padded logit bias at
+    ``NEG`` so a pad token never wins the argmax. ``pad`` (default: theta
+    on the card) lays the model out at ``kernel_shape``, width pads 0.
     Every tensor is a copy with its own storage, so it is aligned for the
     kernels' bulk copies whatever its offset in theta."""
-    p = spec.unravel(theta)
-    V1 = options.vocab_size + 1
-    pad = pad_vocab(V1) - V1
-    f32 = torch.float32
-    F = torch.nn.functional
-    return {
-        "img_w": p["img_embed.weight"].t().to(dtype).contiguous(),
-        "img_b": p["img_embed.bias"].to(f32)[None, :].clone(),
-        "i2h_w": p["core.i2h.weight"].t().to(dtype).contiguous(),
-        "i2h_b": p["core.i2h.bias"].to(f32)[None, :].clone(),
-        "h2h_w": p["core.h2h.weight"].t().to(dtype).contiguous(),
-        "h2h_b": p["core.h2h.bias"].to(f32)[None, :].clone(),
-        "logit_w": F.pad(p["logit.weight"].t(), (0, pad)).to(dtype)
-        .contiguous(),
-        "logit_b": F.pad(p["logit.bias"], (0, pad), value=NEG).to(f32)
-        [None, :].contiguous(),
-        "embed": F.pad(p["embed.weight"], (0, 0, 0, pad)).to(dtype)
-        .contiguous(),
-    }
+    from .decode_layout import DecodeLayout
+
+    lay = DecodeLayout(spec, options, pad=theta.is_cuda if pad is None
+                       else pad)
+    return {k: v.clone() for k, v in lay.prep(lay.to_dec(theta),
+                                               dtype).items()}
+
+
+def _pad_feats(feats: torch.Tensor, F_k: int) -> torch.Tensor:
+    """feats (..., F) -> (..., F_k), zero columns after the model's F (the
+    kernels' feature width, ``kernel_shape``); unchanged when F = F_k."""
+    F = feats.shape[-1]
+    _check(F <= F_k, f"feats of width {F} for weights of {F_k} rows")
+    return feats if F == F_k else torch.nn.functional.pad(feats,
+                                                          (0, F_k - F))
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +219,12 @@ def prepare_decode_params(spec, theta: torch.Tensor, options,
 
 def _batched(params: dict, feats: torch.Tensor):
     """Lift an unbatched (one member) call to the batched layout: params
-    gain a leading member axis and feats become (M, B, F)."""
+    gain a leading member axis and feats become (M, B, F), zero-padded to
+    the weights' feature rows."""
     single = params["img_w"].dim() == 2
     if single:
         params = {k: v[None] for k, v in params.items()}
+    feats = _pad_feats(feats, params["img_w"].shape[-2])
     if feats.dim() == 2:
         feats = feats[None].expand(params["img_w"].shape[0], *feats.shape)
     return params, feats, single
@@ -639,11 +658,13 @@ def _check(cond: bool, msg: str):
 def _check_params(params: dict, M: int, F: int, dt, what="params"):
     """Shapes, dtypes, device and contiguity of a batched params dict:
     weights in ``dt``, biases f32 (DecodeLayout.prep keeps every bias f32,
-    a delta's too), E = R in KERNEL_WIDTHS. Returns (Vpad, the width)."""
+    a delta's too), E = R in KERNEL_WIDTHS and F a multiple of 128, the
+    shapes of ``DecodeLayout(pad=True)``. Returns (Vpad, the width)."""
     W = params["img_w"].shape[-1]
     _check(W == params["h2h_w"].shape[-2] and W in KERNEL_WIDTHS,
            f"{what}: E = {W}, R = {params['h2h_w'].shape[-2]}: the kernels "
-           f"take E = R in {KERNEL_WIDTHS}")
+           f"take E = R in {KERNEL_WIDTHS}; lay the model out padded to "
+           "kernel_shape(E, R, F) (DecodeLayout(pad=True))")
     Vpad = params["logit_w"].shape[-1]
     expect = {"img_w": (M, F, W), "img_b": (M, 1, W),
               "i2h_w": (M, W, 5 * W), "i2h_b": (M, 1, 5 * W),
@@ -653,7 +674,8 @@ def _check_params(params: dict, M: int, F: int, dt, what="params"):
     _check(Vpad % PAD_LANE == 0, f"{what}: padded vocab {Vpad} is not a "
            f"multiple of {PAD_LANE}")
     _check(F % FEAT_MULTIPLE == 0, f"{what}: feature width {F} is not a "
-           f"multiple of {FEAT_MULTIPLE}")
+           f"multiple of {FEAT_MULTIPLE}; lay the model out padded to "
+           "kernel_shape(E, R, F) (DecodeLayout(pad=True))")
     for k, shape in expect.items():
         t = params[k]
         _check(tuple(t.shape) == shape,
@@ -918,6 +940,7 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
     if single:
         delta = {k: v[None] for k, v in delta.items()}
     P = delta["img_w"].shape[0]
+    feats = _pad_feats(feats, base["img_w"].shape[-2])
     if feats.dim() == 2:
         feats = feats[None].expand(P, *feats.shape)
     _, B, F = feats.shape
@@ -1032,6 +1055,7 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
     _check(dtype in _DTYPE_CODE, f"compute dtype {dtype} is not f32 or bf16")
     u32, single = _seeds_u32(seeds)
     P = u32.shape[0]
+    feats = _pad_feats(feats, base["img_w"].shape[-2])
     if feats.dim() == 2:
         feats = feats[None].expand(P, *feats.shape)
     _, B, F = feats.shape

@@ -12,12 +12,14 @@ A rollout is a decode and a score, each in one of two forms (JAX:
 captioning.py:221-319):
 
 * decode, fused (``tpu.fused_decode``; "auto" takes it for the no-norm
-  model, which on the card must have E = R in 128, 256 or 512 and a feature
-  width that is a multiple of 128 unless the knob is false): the kernels of
-  ops/decode_cuda.py, K1 per member (K4 with ``tpu.decode_vocab_tile``), K2
-  per antithetic pair, K5 per pair with the noise drawn in the kernel, and
-  K3 for the sampling kinds, in launches of at most 128 rows (K3's blocks
-  draw the Gumbel stream of one launch over all rows);
+  model, which on the card must have E, R <= 512 unless the knob is false;
+  the card lays it out zero-padded at ``kernel_shape``, E and R to the next
+  built width of 128, 256 and 512 and F to a multiple of 128, which
+  changes no token): the kernels of ops/decode_cuda.py, K1 per member (K4
+  with ``tpu.decode_vocab_tile``), K2 per antithetic pair, K5 per pair
+  with the noise drawn in the kernel, and K3 for the sampling kinds, in
+  launches of at most 128 rows (K3's blocks draw the Gumbel stream of one
+  launch over all rows);
 * decode, eager: ``FCCaptionModel.sample_members``, f32, the whole batch of
   each member at once, so the vbn, vbn_e and layer_n variants keep their
   batch statistics over all of a member's rows as the JAX decoder does;
@@ -62,13 +64,7 @@ from ..fitness.criteria import FITNESS_CRITERIA, criterion_device
 from ..fitness.scorer import IndexedCiderScorer
 from ..fitness.criteria import apply_criterion
 from ..models.fc_caption import FCCaptionModel, FCModelOptions
-from ..ops.decode_cuda import (
-    FEAT_MULTIPLE,
-    KERNEL_WIDTHS,
-    MAX_ROWS,
-    PAD_LANE,
-    pad_vocab,
-)
+from ..ops.decode_cuda import MAX_ROWS, PAD_LANE, kernel_shape, pad_vocab
 from ..ops.noise import gumbel_plain
 from ..utils.device import resolve_device
 
@@ -93,10 +89,10 @@ def resolve_fused(o: FCModelOptions, want, device: torch.device) -> bool:
     JAX's ``can_fuse`` does; false takes the eager decoder. True with a
     norm variant raises: JAX's fused path would decode it through
     ``prepare_decode_params``, which drops every norm leaf, another model.
-    On the card the kernels take E = R in KERNEL_WIDTHS (128, 256, 512) and
-    a feature width that is a multiple of 128; a no-norm model of another
-    width raises unless fused_decode is false, where JAX would still run
-    its kernels."""
+    On the card the kernels take any no-norm model of E, R <= 512 (the
+    decode layout zero-pads it to ``kernel_shape``); a wider one raises
+    unless fused_decode is false, where JAX would still run its
+    kernels."""
     if o.vbn or o.vbn_e or o.layer_n:
         if want is True:
             raise ValueError(
@@ -106,26 +102,22 @@ def resolve_fused(o: FCModelOptions, want, device: torch.device) -> bool:
         return False
     if want is False:
         return False
-    if device.type == "cuda" and not (
-            o.input_encoding_size == o.rnn_size
-            and o.rnn_size in KERNEL_WIDTHS
-            and o.fc_feat_size % FEAT_MULTIPLE == 0):
-        raise ValueError(
-            f"tpu.fused_decode={want}: input_encoding_size="
-            f"{o.input_encoding_size}, rnn_size={o.rnn_size}, "
-            f"fc_feat_size={o.fc_feat_size}: the CUDA decode kernels take "
-            f"E = R in {', '.join(map(str, KERNEL_WIDTHS))} and a feature "
-            f"width that is a multiple of {FEAT_MULTIPLE}; set it to false "
-            "to decode eagerly")
+    if device.type == "cuda":
+        try:
+            kernel_shape(o.input_encoding_size, o.rnn_size, o.fc_feat_size)
+        except ValueError as e:
+            raise ValueError(f"tpu.fused_decode={want}: {e}") from None
     return True
 
 
 def greedy_rows(model: FCCaptionModel, theta, feats, fused: bool, dtype,
-                chunk: int, vocab_tile: int = 0) -> torch.Tensor:
+                chunk: int, vocab_tile: int = 0,
+                pad: bool | None = None) -> torch.Tensor:
     """Greedy tokens (N, T) of the flat theta on feats (N, F). Fused: one
     launch of K1 (K4 with ``vocab_tile``) over all row blocks of a cluster
-    (``decode_rows``) on ``prepare_decode_params`` at ``dtype``; greedy
-    rows are independent, so the blocks change no token. Eager
+    (``decode_rows``) on ``prepare_decode_params`` at ``dtype``, laid out
+    at the kernels' widths when ``pad`` (default: theta on the card);
+    greedy rows are independent, so the blocks change no token. Eager
     (``FCCaptionModel.sample_members``, f32): chunks of ``chunk`` rows (at
     most N), the ragged tail padded with zero rows, whose statistics the
     vbn variants see (JAX: captioning.py:577-594). ``CocoTask``'s
@@ -144,7 +136,7 @@ def greedy_rows(model: FCCaptionModel, theta, feats, fused: bool, dtype,
     from ..ops.decode_cuda import decode_rows, prepare_decode_params
 
     params = prepare_decode_params(model.spec, theta, model.options,
-                                   dtype=dtype)
+                                   dtype=dtype, pad=pad)
     return decode_rows(params, feats, model.options.seq_length, False,
                        vocab_tile=vocab_tile)[0]
 
@@ -153,10 +145,14 @@ class CocoTask(Task):
     artifact_is_fitness = False
 
     def __init__(self, exp: dict, config, tpu_cfg, device=None,
-                 data: CocoData | None = None):
+                 data: CocoData | None = None, pad: bool | None = None):
         """``data`` (a CocoData) skips reading ``caption_options`` files —
-        the in-memory fixture path. ``device`` defaults to the card."""
+        the in-memory fixture path. ``device`` defaults to the card.
+        ``pad``: lay the fused decode out at the kernels' widths
+        (``kernel_shape``); default on the card, which takes no other
+        layout, and not on the CPU, whose plain twins take any width."""
         self.device = resolve_device(device)
+        self._pad = self.device.type == "cuda" if pad is None else pad
         popts = exp.get("policy_options", {})
         mopts = dict(popts.get("model_options", {}))
         copts = dict(exp.get("caption_options", {}))
@@ -255,7 +251,8 @@ class CocoTask(Task):
         if self._fused:
             from ..ops.decode_layout import DecodeLayout
 
-            self._layout = DecodeLayout(self.spec, self.model.options)
+            self._layout = DecodeLayout(self.spec, self.model.options,
+                                        pad=self._pad)
         self.decode_layout = (self._layout if self._device_cider is not None
                               else None)
 
@@ -660,7 +657,7 @@ class CocoTask(Task):
         return greedy_rows(
             self.model, theta, feats, self._fused, self._decode_dtype,
             self.config.val_batch_size or self.config.batch_size or 64,
-            vocab_tile=self._vocab_tile)
+            vocab_tile=self._vocab_tile, pad=self._pad)
 
     def _decode_split(self, theta, feats, num: int) -> np.ndarray:
         """Greedy tokens of the first ``num`` rows of a split (all for -1,
@@ -710,8 +707,8 @@ class CocoTask(Task):
 
     def device_val_consts(self) -> dict | None:
         """The card's constants of ``validate_device``, built once: the val
-        subset's feats (fused: in the decode dtype, unpadded, as the
-        row-block launch takes them; eager: f32, chunked by
+        subset's feats (fused: in the decode dtype at the data's width,
+        which the row-block launch zero-pads to the kernels'; eager: f32, chunked by
         ``_decode_rows``), the token -> word-id
         table of ``data.word_id_rows`` as one flat tensor (gathered with
         ``table[seqs]``), the subset's image indices, and a word-level

@@ -40,8 +40,9 @@ SCALE = dict(pairs=144, batch=128, pop_chunk=48, sigma=0.01, stepsize=0.001,
 WIDTHS = (128, 256, 512)
 
 
-def scale_data():
-    """The synthetic fixture of the bench and of exp_model_scale.py."""
+def scale_data(fc_feat_size: int = 2048):
+    """The synthetic fixture of the bench and of exp_model_scale.py (its
+    features ``fc_feat_size`` wide)."""
     from nes_img_captioning_tpu_torch.data.mscoco import CocoData
     from nes_img_captioning_tpu_torch.data.synthetic import (
         synthetic_coco_arrays,
@@ -49,19 +50,21 @@ def scale_data():
 
     return CocoData.from_arrays(synthetic_coco_arrays(
         n_train=2048, n_val=256, n_test=256, vocab_size=9487,
-        fc_feat_size=2048, cap_len=9, seed=0))
+        fc_feat_size=fc_feat_size, cap_len=9, seed=0))
 
 
-def scale_task(width: int, device, data, fitness: str = "greedy", **tpu):
-    """The ``CocoTask`` at E = R = ``width`` in the regime above; ``tpu``
-    overrides ``TpuConfig`` fields."""
+def scale_task(width, device, data, fitness: str = "greedy", **tpu):
+    """The ``CocoTask`` at E = R = ``width`` (2048-d features), or at the
+    (E, R, F) tuple ``width``, in the regime above; ``tpu`` overrides
+    ``TpuConfig`` fields. On the card the decode layout pads a shape no
+    library is built for to ``decode_cuda.kernel_shape``."""
     from nes_img_captioning_tpu_torch.tasks.captioning import CocoTask
     from nes_img_captioning_tpu_torch.utils.config import Config, TpuConfig
 
+    E, R, F = (width, width, 2048) if isinstance(width, int) else width
     exp = {"dataset": "mscoco", "policy_options": {
         "fitness": fitness, "vbn": False, "model_options": {
-            "input_encoding_size": width, "rnn_size": width,
-            "fc_feat_size": 2048}}}
+            "input_encoding_size": E, "rnn_size": R, "fc_feat_size": F}}}
     return CocoTask(exp, Config(batch_size=SCALE["batch"]),
                     TpuConfig(seed=0, precision="bf16", **tpu),
                     device=device, data=data)

@@ -1313,25 +1313,30 @@ def test_profile_summary_finds_a_cuda_kernel(small_members, tmp_path):
     assert 0.0 <= out["idle"] < 1.0
 
 
-# ---- the kernels at E = R = 256 and 512 (one library per width) ------------
+# ---- the kernels at E = R = 256 and 512 (one library per width), and
+# captioners zero-padded to them (DecodeLayout(pad=True), kernel_shape) ----
 
 
-@pytest.fixture(params=[256, 512], ids=["w256", "w512"])
+@pytest.fixture(params=[(256, 256, 256), (512, 512, 256), (300, 512, 2048),
+                        (256, 192, 960)], ids=["w256", "w512", "P1", "P2"])
 def wide_members(request):
-    """Two members and a delta at E = R = 256 or 512, vocab 300 (padded to
-    384), 256-d features, 100 rows: 2 (4) clusters of 64 (32) rows per
-    member, the last ragged."""
+    """Two members and a delta at E = R = 256 or 512, or at (E, R, F) =
+    (300, 512, 2048) and (256, 192, 960) laid out padded to W = 512 and
+    256 (P2's features to 1024), vocab 300 (padded to 384), 100 rows: 2
+    (4) clusters of 64 (32) rows per member, the last ragged. Returns (W,
+    layout, members, feats at the model's F, delta)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    width = request.param
-    opts = FCModelOptions(vocab_size=300, fc_feat_size=256,
-                          input_encoding_size=width, rnn_size=width)
-    lay = DecodeLayout(build_spec(opts), opts)
-    g = torch.Generator(device="cuda").manual_seed(width)
+    E, R, F = request.param
+    opts = FCModelOptions(vocab_size=300, fc_feat_size=F,
+                          input_encoding_size=E, rnn_size=R)
+    lay = DecodeLayout(build_spec(opts), opts, pad=True)
+    width = lay.sizes["R"]
+    g = torch.Generator(device="cuda").manual_seed(E + R + F)
     theta = lay.spec.init_theta(g) * 3
-    feats = torch.randn((2, 100, 256), generator=g, device="cuda")
+    feats = torch.randn((2, 100, F), generator=g, device="cuda")
     members = torch.stack([lay.to_dec(theta), lay.to_dec(theta * 0.5)])
     sc = lay.to_dec(torch.full_like(theta, 0.05), pad_scale=0.0)
     delta = (sc * torch.randn(lay.dim_dec, generator=g, device="cuda")
@@ -1346,7 +1351,8 @@ def wide_members(request):
 @pytest.mark.parametrize("kernel", ["K1", "K4"])
 def test_wide_member_kernel_matches_plain_twin(wide_members, kernel, rows,
                                                dt):
-    """K1 (K4 at vocab tile 128) at E = R = 256 and 512 over 100 rows
+    """K1 (K4 at vocab tile 128) at E = R = 256 and 512 (and P1, P2 padded
+    to them) over 100 rows
     (row blocks of 64 or 32, the last ragged) and a partial batch of 37:
     f32 tokens equal the plain twin's, lp within 2e-5; bf16 rows differ
     only at near-ties; K4's tokens are K1's bit for bit; the launch shape
@@ -1365,10 +1371,11 @@ def test_wide_member_kernel_matches_plain_twin(wide_members, kernel, rows,
 @pytest.mark.parametrize("ddt", [torch.float32, torch.bfloat16],
                          ids=["delta_f32", "delta_bf16"])
 def test_wide_k2_pad_lanes_and_k5(wide_members, ddt, dt):
-    """K2 at E = R = 256 and 512 on 3 pairs whose last repeats the second
-    (the engine's pad lane): every (pair, sign) bitwise K1 on prep(base ±
-    delta) in tokens, lp within 2e-5; the pad pair's outputs equal the
-    pair it repeats bit for bit; K5 is bitwise K2 fed K7's dump."""
+    """K2 at E = R = 256 and 512 (and P1, P2 padded to them) on 3 pairs
+    whose last repeats the second (the engine's pad lane): every (pair,
+    sign) bitwise K1 on prep(base ± delta) in tokens, lp within 2e-5; the
+    pad pair's outputs equal the pair it repeats bit for bit; K5 is bitwise
+    K2 fed K7's dump, which is exactly 0 at every pad of the layout."""
     width, lay, members, feats, delta = wide_members
     base = lay.prep(members[0], torch.float32)
     d = lay.prep(torch.stack([delta.float(), 2 * delta.float(),
@@ -1390,13 +1397,19 @@ def test_wide_k2_pad_lanes_and_k5(wide_members, ddt, dt):
     seq_d, lp_d = tdc.decode_pair_perturb(base, dump, feats, dtype=dt,
                                           need_logprobs=True)
     assert torch.equal(seq5, seq_d) and torch.equal(lp5, lp_d)
+    pads = lay.to_dec(torch.ones(lay.spec.num_params, device="cuda"),
+                      pad_scale=0.0) == 0
+    for i in range(2):
+        flat = lay.flat_dec({k: v[i] for k, v in dump.items()})
+        assert (flat[pads] == 0).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_wide_k3_and_row_blocks(wide_members, dt):
-    """K3 at E = R = 256 and 512, 2 lanes per member over 100 rows: the
+    """K3 at E = R = 256 and 512 (and P1, P2 padded to them), 2 lanes per
+    member over 100 rows: the
     host-table form bitwise its plain twin's tokens (f32: lp within 2e-5),
     the seeded form bitwise the host-table form fed the stream's table
     (each cluster draws at its rows' absolute index); decode_rows over 150
@@ -1421,7 +1434,7 @@ def test_wide_k3_and_row_blocks(wide_members, dt):
         _first_diffs_at_near_ties(seq_t, seq_p, gap_p)
     one = lay.prep(members[0], dt)
     g = torch.Generator(device="cuda").manual_seed(5)
-    rows = torch.randn((150, 256), generator=g, device="cuda")
+    rows = torch.randn((150, feats.shape[-1]), generator=g, device="cuda")
     seq, lp = tdc.decode_rows(one, rows, need_logprobs=True)
     blocks = [tdc.decode_fused(one, rows[lo:lo + 128]) for lo in (0, 128)]
     torch.cuda.synchronize()

@@ -14,6 +14,7 @@ an SGD step (Adam's first step is ill-conditioned at this size, ROADMAP
 §3).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -319,7 +320,7 @@ GATES = {
     "host_auto": ({}, {"device_cider": False}, False, (True, False, False)),
     "fused_off": ({}, {"fused_decode": False}, False, (False, True, False)),
     "plain_auto": ({}, {}, False, (True, True, True)),
-    "card_e16_auto": ({}, {}, True, (None, True, False)),
+    "card_e16_auto": ({}, {}, True, (True, True, True)),
 }
 
 
@@ -329,17 +330,21 @@ def test_gates_resolve_as_jax(coco, case, monkeypatch):
     package's on what both can run: "auto" decodes a norm variant eagerly
     (JAX: not fused) and scores on the device; the decode layout exists
     only when fused and device-scored. On the card a no-norm model of a
-    width the kernels do not take (E = 16 here) is refused under "auto"
-    and true, where JAX would run its kernels; false decodes it eagerly."""
+    width no library is built for (E = 16 here) takes the kernels under
+    "auto" and true, zero-padded to E = R = 128, as JAX runs its kernels at
+    any width; above 512 it is refused; false decodes it eagerly."""
+    from nes_img_captioning_tpu_torch.tasks.captioning import resolve_fused
+
     mopts, tpu, card, (fused, on_dev, layout) = GATES[case]
     jtask, ttask = _tasks(_exp(coco, "greedy", mopts=mopts, **tpu))
     if card:
         monkeypatch.setattr(ttask, "device", torch.device("cuda"))
-        assert fused is None
         for want in ("auto", True):
-            with pytest.raises(ValueError, match="E = R in 128, 256, 512"):
-                ttask._resolve_fused(want)
+            assert ttask._resolve_fused(want) is fused
         assert ttask._resolve_fused(False) is False
+        wide = dataclasses.replace(ttask.model.options, rnn_size=513)
+        with pytest.raises(ValueError, match="E and R up to 512"):
+            resolve_fused(wide, "auto", torch.device("cuda"))
         return
     assert ttask._fused is fused
     assert ttask.fitness_on_device is on_dev is jtask.fitness_on_device

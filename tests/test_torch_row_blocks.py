@@ -35,7 +35,7 @@ def _exp(copts, kind, enc=16, feat=24):
     }
 
 
-def _task(copts, kind, device="cpu", **widths):
+def _task(copts, kind, device="cpu", pad=None, **widths):
     from nes_img_captioning_tpu_torch.tasks.captioning import CocoTask
     from nes_img_captioning_tpu_torch.utils.config import (
         Config,
@@ -44,7 +44,7 @@ def _task(copts, kind, device="cpu", **widths):
 
     exp = _exp(copts, kind, **widths)
     return CocoTask(exp, Config(batch_size=B), parse_tpu_config(exp),
-                    device=device)
+                    device=device, pad=pad)
 
 
 def _members(task, n=2):
@@ -174,18 +174,33 @@ def test_pair_rollouts_256_rows_equal_the_unsplit_plain_decode(coco,
 
 
 @pytest.mark.parametrize("widths", [{"enc": 16}, {"enc": 256},
-                                    {"enc": 128, "feat": 24}],
-                         ids=["E16", "E256", "F24"])
+                                    {"enc": 128, "feat": 24},
+                                    {"enc": 600}],
+                         ids=["E16", "E256", "F24", "E600"])
 def test_task_on_the_card_takes_only_the_kernels_widths(coco, monkeypatch,
                                                        widths):
-    """A task for the card is refused when it is built, with a clear
-    message, unless E = R is a width the CUDA kernels are built for (128,
-    256, 512) and the feature width is a multiple of 128 (E256 has 24-d
-    features); on the CPU the plain twins take any width."""
+    """A task for the card lays its model out at the kernels' widths
+    (``kernel_shape``: E = R padded to 128, 256 or 512, the features to a
+    multiple of 128; E256 has 24-d features), which the CPU lays out only
+    when asked (``pad=True``), and is refused when it is built, with a
+    clear message that names 512, above the widest library; on the CPU
+    the plain twins take any width, unpadded by default."""
     from nes_img_captioning_tpu_torch.tasks import captioning
 
-    _task(coco, "greedy", **widths)
+    enc, feat = widths["enc"], widths.get("feat", 24)
+    task = _task(coco, "greedy", **widths)
+    own = task.decode_layout
+    assert (own.sizes["E"], own.sizes["F"]) == (enc, feat)
+    if enc <= 512:
+        lay = _task(coco, "greedy", pad=True, **widths).decode_layout
+        W = {16: 128, 128: 128, 256: 256}[enc]
+        assert (lay.sizes["E"], lay.sizes["R"], lay.sizes["F"]) == (W, W,
+                                                                    128)
+        assert tdc.kernel_shape(enc, enc, feat) == (W, 128)
+        assert captioning.resolve_fused(task.model.options, "auto",
+                                        torch.device("cuda")) is True
+        return
     monkeypatch.setattr(captioning, "resolve_device",
                         lambda device=None: torch.device("cuda"))
-    with pytest.raises(ValueError, match="E = R in 128, 256, 512"):
+    with pytest.raises(ValueError, match="E and R up to 512"):
         _task(coco, "greedy", device="cuda", **widths)

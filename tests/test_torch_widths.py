@@ -236,8 +236,8 @@ def test_twin_past_one_cluster_matches_pallas(width, rows):
 def test_cluster_rows_and_param_checks():
     """cluster_rows and _check_params take the built widths (E = R in 128,
     256, 512, any feature width that is a multiple of 128) and refuse
-    others with a message that names them; past the width check a CPU
-    tensor is refused for not being on the card."""
+    unpadded shapes with a message that names them and kernel_shape; past
+    the width check a CPU tensor is refused for not being on the card."""
     assert [tdc.cluster_rows(w) for w in tdc.KERNEL_WIDTHS] == [128, 64, 32]
     with pytest.raises(ValueError, match="E = R in"):
         tdc.cluster_rows(192)
@@ -258,21 +258,25 @@ def test_cluster_rows_and_param_checks():
         with pytest.raises(ValueError, match="is not a CUDA tensor"):
             tdc._check_params(params(w, w, F=384), 1, 384, torch.float32)
     for E, R, F in ((192, 192, 256), (256, 128, 256), (16, 16, 256)):
-        with pytest.raises(ValueError, match=r"E = R in \(128, 256, 512\)"):
+        with pytest.raises(ValueError, match=r"E = R in \(128, 256, 512\); "
+                           r"lay the model out padded to kernel_shape"):
             tdc._check_params(params(E, R, F), 1, F, torch.float32)
-    with pytest.raises(ValueError, match="multiple of 128"):
+    with pytest.raises(ValueError, match="multiple of 128; lay the model "
+                       "out padded to kernel_shape"):
         tdc._check_params(params(256, 256, F=200), 1, 200, torch.float32)
 
 
 @pytest.mark.parametrize("widths,ok", [
     ((256, 256, 256), True), ((512, 512, 2048), True),
-    ((192, 192, 256), False), ((256, 128, 256), False),
-    ((256, 256, 200), False)],
-    ids=["E256", "E512", "E192", "E_ne_R", "F200"])
+    ((192, 192, 256), True), ((256, 128, 256), True),
+    ((256, 256, 200), True), ((1024, 1024, 2048), False),
+    ((300, 513, 2048), False)],
+    ids=["E256", "E512", "E192", "E_ne_R", "F200", "W1024", "R513"])
 def test_resolve_fused_on_the_card(widths, ok):
-    """On a CUDA device a no-norm captioner of E = R = 256 or 512 goes to
-    the kernels; another width, E != R or features that are not a multiple
-    of 128 raise under "auto" and true; false decodes eagerly."""
+    """On a CUDA device a no-norm captioner of E, R <= 512 and any feature
+    width goes to the kernels (laid out at kernel_shape); a wider one
+    raises under "auto" and true with a message that names 512; false
+    decodes eagerly."""
     from nes_img_captioning_tpu_torch.tasks.captioning import resolve_fused
 
     E, R, F = widths
@@ -283,7 +287,8 @@ def test_resolve_fused_on_the_card(widths, ok):
         if ok:
             assert resolve_fused(o, want, card) is True
         else:
-            with pytest.raises(ValueError, match="E = R in 128, 256, 512"):
+            with pytest.raises(ValueError, match="E and R up to 512.*"
+                               "fused_decode: false"):
                 resolve_fused(o, want, card)
     assert resolve_fused(o, False, card) is False
     assert resolve_fused(o, "auto", torch.device("cpu")) is True
