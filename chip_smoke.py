@@ -5721,6 +5721,16 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
             "decode_sample": err["K3"], "decode_rows": err["rows"],
             "decode_pair_perturb": err["K2"], "decode_pair_rng": 0.0,
             "pair_grad_rng": 0.0, "pair_delta_dump": err["K7"]}
+    pinfo = dc.pair_cluster_info(torch.bfloat16, torch.float32, width=W)
+    log(f"{tag} the pair kernel (K2, K5's decode) at {P} pairs x {B} rows, "
+        f"f32 delta: {P} clusters of {pinfo['cluster']} CTAs "
+        f"({pinfo['row_blocks']} row blocks x 2 signs x 2 halves), "
+        f"cudaOccupancyMaxActiveClusters {pinfo['max_active_clusters']}: "
+        f"{P / pinfo['max_active_clusters']:.2f} waves; K2 "
+        f"{k_ms['decode_pair_perturb']:.3f} ms, K5 "
+        f"{k_ms['decode_pair_rng']:.3f} ms per launch ({card})")
+    ctas = {"decode_pair_perturb": pinfo["cluster"] * P,
+            "decode_pair_rng": pinfo["cluster"] * P}
     for name in k_ms:
         b_ms, b_by = bounds[name][:2]
         rows_out.append({
@@ -5731,7 +5741,8 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
             + replaces[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": k_ms[name],
             "plain_ms": plain[name], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms[name]})
+            "library_ms": lib_ms[name],
+            **({"ctas_per_launch": ctas[name]} if name in ctas else {})})
         lib_txt = ("none" if lib_ms[name] is None
                    else f"{lib_ms[name]:.3f} ms")
         log(f"{tag} {name}: {k_ms[name]:.3f} ms per launch (plain "
@@ -5786,9 +5797,11 @@ def widths_phase(card: str, data, builds: dict, dev=None) -> list:
             if info["ring_slots"] < 2 or info["rows"] != R:
                 raise AssertionError(f"[34] pair kernel at {W}: {info}")
             log(f"[34] W={W} pair kernel, weights {wdt}, delta {ddt}: "
-                f"{info['rows']} rows per cluster of {info['cluster']} CTAs, "
-                f"{info['smem_bytes']} B shared memory, {info['ring_slots']} "
-                f"ring slots of {info['tile_rows']} k-rows, "
+                f"one cluster of {info['cluster']} CTAs per pair at 128 "
+                f"rows ({info['row_blocks']} blocks of {info['rows']} rows x "
+                f"2 signs x 2 halves), {info['smem_bytes']} B shared memory, "
+                f"{info['ring_slots']} ring slots ({info['tile_rows']}-row "
+                f"gate tiles, {info['tiles_in_flight']} in flight), "
                 f"cudaOccupancyMaxActiveClusters "
                 f"{info['max_active_clusters']}")
         for wdt, sampled in ((torch.bfloat16, False), (torch.float32, False),

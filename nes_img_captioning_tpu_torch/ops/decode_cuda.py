@@ -58,10 +58,11 @@ file's many kernel instantiations in parallel over the machine's cores.
 
 What bounds them on an H100, and the design. A launch takes at most 128
 rows of each member, lane or pair (callers split a larger batch,
-``tasks/captioning.py``); a cluster holds ``cluster_rows(width)`` of them
-(all 128 at E = R = 128, blocks of 64 and 32 at 256 and 512, one cluster
-per block, so x_t and h fit its shared memory), and the batch-wide early
-exit stays inside each cluster. The figures below are those of 128. The
+``tasks/captioning.py``); a block of ``cluster_rows(width)`` of them (all
+128 at E = R = 128, 64 and 32 at 256 and 512, so that a CTA's x_t and h
+fit its shared memory) takes the batch-wide early exit on its own rows: a
+member cluster holds one block, a pair cluster at 256 and 512 all of the
+pair's. The figures below are those of 128. The
 17-step recurrence is serial; the work per step is three products (i2h,
 h2h: 128x128x640 each; logits: 128x128xVpad) whose
 weights (~5.8 MB per member in bf16, far above an SM's 227 KB of shared
@@ -75,7 +76,11 @@ split cluster barrier. K2 and K5 give each pair a cluster of 4 CTAs (2
 signs x 2 column halves, 96 CTAs for 24 pairs): the two signs of a half
 share each raw base and delta tile, copied once by multicast into a ring,
 and each forms ``dt(base + sign*delta)`` from it, so no perturbed weight
-vector is written out. K5 first draws each pair's delta once over the
+vector is written out. At E = R = 256 and 512 a pair's cluster also holds
+its row blocks (8 or 16 CTAs for 128 rows): each tile reaches both signs
+and every block at once, each warp forms ``dt(base + sign*delta)`` at its
+operand load and releases the slot on its own, and a block exits on its
+own rows. K5 first draws each pair's delta once over the
 whole card (K7's loop) into a (P, dim) scratch. In both cluster kernels
 the halves split every product's columns and swap h and the logit
 partials through distributed shared memory. With bf16 weights the logit
@@ -924,8 +929,10 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
     or bf16, one pair or a leading pair axis P; feats (B, F) or (P, B, F).
     ``dtype`` is the compute dtype of the perturbed weights. Returns (seq,
     lp) of shape (2, B, T) or (P, 2, B, T); index 0 is +delta. One launch,
-    one cluster of 4 CTAs per pair (2 signs x 2 column halves): the signs
-    share each base and delta tile, copied once from L2 into both. Tokens
+    one cluster per pair: 4 CTAs at E = R = 128 (2 signs x 2 column
+    halves), at 256 and 512 those 4 for each block of ``cluster_rows`` of
+    the B rows; the signs (and blocks) share each base and delta tile,
+    copied once from L2 into all of them. Tokens
     equal ``decode_fused(prep(base ± delta))`` bit for bit: the same sum,
     rounded once to the same dtype, feeds products in K1's order; lp sums
     exp over the columns in another order (two halves merged), within 2e-5
@@ -985,16 +992,20 @@ def pair_cluster_info(dtype=torch.bfloat16, delta_dtype=torch.bfloat16,
                       width: int = 128) -> dict:
     """The pair kernel's launch shape on the current card at E = R =
     ``width`` for compute dtype ``dtype`` and delta dtype ``delta_dtype``
-    (K5: f32): CTAs per cluster (one cluster per pair and block of
-    ``rows`` image rows), threads per CTA, dynamic shared memory bytes,
-    ring slots, k-rows per tile, and the clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
-    out = (ctypes.c_int * 6)()
+    (K5: f32), for a batch of 128 rows: CTAs per cluster (at 128 one
+    cluster of 2 signs x 2 column halves per pair; at 256 and 512 one
+    cluster per pair holding its ``row_blocks`` blocks of ``rows`` image
+    rows, 2 signs x 2 halves each), threads per CTA, dynamic shared memory
+    bytes, ring slots, k-rows per (gate) tile, the clusters the card holds
+    at once (``cudaOccupancyMaxActiveClusters``) and the tiles in flight.
+    ``rows`` is the early exit's granularity at every width."""
+    out = (ctypes.c_int * 8)()
     err = _kernels(width).nes_pair_cluster_info(
         _DTYPE_CODE[dtype], _DTYPE_CODE[delta_dtype], out)
     _raise_on(err, "pair_cluster_info")
     return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
-                     "tile_rows", "max_active_clusters"), out),
+                     "tile_rows", "max_active_clusters", "tiles_in_flight",
+                     "row_blocks"), out),
                 rows=cluster_rows(width))
 
 

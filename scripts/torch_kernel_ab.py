@@ -2,7 +2,8 @@
 """Time the seven decode kernels of two checkouts of the port on one card,
 interleaved, to compare them within one run.
 
-    python3 scripts/torch_kernel_ab.py ROOT_A ROOT_B
+    python3 scripts/torch_kernel_ab.py [--width 128|256|512] [--ptxas DIR]
+        ROOT_A ROOT_B
 
 Each ROOT holds a ``nes_img_captioning_tpu_torch`` package (for example this
 checkout and an unpacked ``git archive`` of its parent). Both are built at
@@ -25,6 +26,21 @@ gradient and K7's dump; and the card's name and power limit. Then one line
 of each time's mean per root and B's change against A in percent. Neither
 the decode nor the delta stream may move: the run exits non-zero when a
 digest differs between the runs.
+
+``--width 256`` or ``512`` (default 128, the run above) builds and times
+that width's library in both roots at ``chip_smoke.py`` [34]'s shapes: E = R
+= width, 48 pairs x 128 rows, vocab 9487, 2048-d features, bf16 compute, T
+= 16; K1 on the first 24 pairs' 48 members (the member kernel, a control),
+K2 with an f32 delta (as [34] times it) and with a bf16 delta, and K5, with
+K5's draw and decode under ``torch.profiler``. The digests are SHA-256 of
+K1's, K2's (both deltas) and K5's tokens and lp, logprobs on: the pair
+kernel's lp merges the row partials per column half and then across the
+halves in both designs, so lp is digested too, and the run exits non-zero
+when any digest differs.
+
+``--ptxas DIR`` writes each root's ptxas report of the width's build into
+``DIR/ptxas_<root directory name>_w<width>.txt`` (registers and spills of
+every kernel, to compare the two builds).
 """
 
 from __future__ import annotations
@@ -33,11 +49,14 @@ import hashlib
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 
 KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
 PROFILED = ("k7_kernel", "k5_draw", "k5_decode", "gen_noise")
+# --width 256 / 512
+WIDE_TIMED = ("k1", "k2", "k2_bf16_delta", "k5", "k5_draw", "k5_decode")
 
 
 def sha256(*tensors) -> str:
@@ -102,7 +121,70 @@ def profiled_ms(fn, reps: int) -> dict:
     return out
 
 
-def worker(root: str, build: bool):
+def wide_worker(width: int):
+    """One timing run at E = R = ``width`` (the module docstring's shapes)
+    in the package first on ``sys.path``: one JSON line."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.models.fc_caption import (
+        FCModelOptions,
+        build_spec,
+    )
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
+
+    P, B, T, M = 48, 128, 16, 48
+    opts = FCModelOptions(vocab_size=9487, fc_feat_size=2048,
+                          input_encoding_size=width, rnn_size=width)
+    lay = DecodeLayout(build_spec(opts), opts)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    theta = lay.spec.init_theta(g)
+    base_vec = lay.to_dec(theta)
+    scale_vec = lay.to_dec(torch.full_like(theta, 0.01), pad_scale=0.0)
+    d32 = torch.stack([scale_vec * torch.randn(
+        lay.dim_dec, generator=g, device="cuda") for _ in range(P)])
+    members = torch.stack([base_vec + d32[:M // 2],
+                           base_vec - d32[:M // 2]], 1).reshape(M, -1)
+    feats = torch.randn((P, B, 2048), generator=g, device="cuda")
+    feats2 = feats[:M // 2].repeat_interleave(2, 0)
+    base = lay.prep(base_vec, torch.float32)
+    scale = lay.prep(scale_vec, torch.float32)
+    dp32 = lay.prep(d32, torch.float32)
+    dp16 = lay.prep(d32.to(torch.bfloat16), torch.bfloat16)
+    params = lay.prep(members, torch.bfloat16)
+    del d32, members
+    seeds = np.random.default_rng(0).integers(0, 2**32, size=P,
+                                              dtype=np.uint32)
+    runs = {
+        "k1": lambda lp=False: dc.decode_fused(params, feats2, T, lp),
+        "k2": lambda lp=False: dc.decode_pair_perturb(
+            base, dp32, feats, T, torch.bfloat16, lp),
+        "k2_bf16_delta": lambda lp=False: dc.decode_pair_perturb(
+            base, dp16, feats, T, torch.bfloat16, lp),
+        "k5": lambda lp=False: dc.decode_pair_rng(
+            base, scale, seeds, feats, T, torch.bfloat16, lp),
+    }
+    row = {"width": width}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(5):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        row[f"{name}_ms"] = a.elapsed_time(b) / 5
+    k5 = profiled_ms(runs["k5"], 3)
+    row["k5_draw_ms"], row["k5_decode_ms"] = k5["draw"], k5["decode"]
+    row["digest"] = {name: sha256(*fn(True)) for name, fn in runs.items()}
+    row["pair_cluster_info"] = dc.pair_cluster_info(
+        torch.bfloat16, torch.float32, width=width)
+    return row
+
+
+def worker(root: str, build: bool, width: int = 128, ptxas: str = ""):
     sys.path.insert(0, root)
     import torch
 
@@ -115,7 +197,16 @@ def worker(root: str, build: bool):
     from nes_img_captioning_tpu_torch.ops.noise import lane_seeds
 
     if build:
-        dc.build_kernels()
+        _, report = dc.build_kernels(width)
+        if ptxas:
+            Path(ptxas).mkdir(parents=True, exist_ok=True)
+            name = Path(root).resolve().name or "root"
+            (Path(ptxas) / f"ptxas_{name}_w{width}.txt").write_text(report)
+        return
+    if width != 128:
+        row = {"root": root, **wide_worker(width)}
+        row["card"] = card()
+        print(json.dumps(row), flush=True)
         return
     P, B, T, F = 24, 128, 16, 144
     opts = FCModelOptions(vocab_size=9487, fc_feat_size=2048)
@@ -181,29 +272,45 @@ def worker(root: str, build: bool):
         "k5": sha256(seq5, lp5),
         "k6": sha256(*(g6[k] for k in dc.PAIR_TENSORS)),
         "k7": sha256(*(d7[k] for k in dc.PAIR_TENSORS))}
-    row["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
+    row["card"] = card()
     print(json.dumps(row), flush=True)
 
 
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+
+
 def main():
-    if sys.argv[1] == "--worker":
-        worker(sys.argv[2], "--build" in sys.argv)
+    args = sys.argv[1:]
+    opts = {"--width": "128", "--ptxas": ""}
+    for key in opts:
+        if key in args:
+            i = args.index(key)
+            opts[key] = args[i + 1]
+            del args[i:i + 2]
+    width = int(opts["--width"])
+    if args[0] == "--worker":
+        worker(args[1], "--build" in args, width, opts["--ptxas"])
         return
-    a, b = sys.argv[1:3]
+    a, b = args[:2]
+    wide = ["--width", str(width)]
     builds = [subprocess.Popen([sys.executable, __file__, "--worker", r,
-                                "--build"]) for r in (a, b)]
+                                "--build", *wide, "--ptxas", opts["--ptxas"]])
+              for r in (a, b)]
     if any(p.wait() for p in builds):
         raise SystemExit("a build failed")
     rows = []
     for r in (a, b, b, a):
-        out = subprocess.run([sys.executable, __file__, "--worker", r],
-                             check=True, capture_output=True, text=True)
+        # a worker whose kernel stalls is killed, not waited for
+        out = subprocess.run([sys.executable, __file__, "--worker", r, *wide],
+                             check=True, capture_output=True, text=True,
+                             timeout=600)
         print(out.stdout, end="", flush=True)
         rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
-    names = KERNELS + PROFILED
+    names = KERNELS + PROFILED if width == 128 else WIDE_TIMED
     mean = {r: {k: np.mean([x[f"{k}_ms"] for x in rows if x["root"] == r])
                 for k in names} for r in (a, b)}
     same = all(x["digest"] == rows[0]["digest"] for x in rows)
@@ -211,8 +318,9 @@ def main():
         k: 100.0 * (mean[b][k] / mean[a][k] - 1.0) for k in names},
         "digests_equal": same}))
     if not same:
-        raise SystemExit("the K1, K2, K5, K6 or K7 digests differ between "
-                         "the roots: the decode or the delta stream moved")
+        raise SystemExit("the K1, K2, K5 (K6 or K7) digests differ "
+                         "between the roots: the decode or the delta "
+                         "stream moved")
 
 
 if __name__ == "__main__":

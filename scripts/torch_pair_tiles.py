@@ -46,6 +46,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "nes_img_captioning_tpu_torch"
+WORKER_TIMEOUT_S = 600
 
 
 def rewrite(text: str, values: dict) -> str:
@@ -79,7 +80,116 @@ def variant_dir(spec: str) -> Path:
     return out
 
 
-def worker(root: str):
+def wide_worker(root: str, width: int):
+    """Time K2 of the package under ``root`` at E = R = ``width``
+    (``--width``): [34]'s shapes, 48 pairs x 128 rows, vocab 9487, 2048-d
+    features, bf16 compute, T = 16, with an f32 delta (as [34] times it)
+    and a bf16 delta, at Vpad 9600 and cut to its first 15 vocab tiles;
+    tokens held to the committed build's."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.models.fc_caption import (
+        FCModelOptions,
+        build_spec,
+    )
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
+
+    P, B, T = 48, 128, 16
+    opts = FCModelOptions(vocab_size=9487, fc_feat_size=2048,
+                          input_encoding_size=width, rnn_size=width)
+    lay = DecodeLayout(build_spec(opts), opts)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    theta = lay.spec.init_theta(g)
+    base_vec = lay.to_dec(theta)
+    scale = lay.to_dec(torch.full_like(theta, 0.01), pad_scale=0.0)
+    d32 = torch.stack([scale * torch.randn(lay.dim_dec, generator=g,
+                                           device="cuda") for _ in range(P)])
+    feats = torch.randn((P, B, 2048), generator=g, device="cuda")
+    base = lay.prep(base_vec, torch.float32)
+    deltas = {"f32": lay.prep(d32, torch.float32),
+              "bf16": lay.prep(d32.to(torch.bfloat16), torch.bfloat16)}
+    del d32
+    cut = 1920
+
+    def narrow(d, lead):
+        out = dict(d)
+        out["logit_w"] = d["logit_w"][..., :cut].contiguous()
+        out["logit_b"] = d["logit_b"][..., :cut].contiguous()
+        out["embed"] = d["embed"][(slice(None),) * lead
+                                  + (slice(0, cut),)].contiguous()
+        return out
+
+    def k2(b, d):
+        return dc.decode_pair_perturb(b, d, feats, T, torch.bfloat16, False)
+
+    row = {"root": root, "width": width,
+           "pair": dc.pair_cluster_info(torch.bfloat16, torch.float32,
+                                        width=width)}
+    tokens = {f"k2_{k}_delta": k2(base, d)[0] for k, d in deltas.items()}
+    ref_path = ROOT / PKG / "_build" / "variants" / f"reference_w{width}.pt"
+    if Path(root) == ROOT:
+        ref_path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in tokens.items()}, ref_path)
+    ref = torch.load(ref_path)
+    bad = [k for k, v in tokens.items() if not torch.equal(v.cpu(), ref[k])]
+    if bad:
+        row["invalid"] = bad
+        print(json.dumps(row), flush=True)
+        return
+    base_n = narrow(base, 0)
+    for k, d in deltas.items():
+        full_ms = time_ms(lambda: k2(base, d))
+        d_n = narrow(d, 1)
+        cut_ms = time_ms(lambda: k2(base_n, d_n))
+        steps = [int(executed(k2(b, dd)[0], 128, T).max())
+                 for b, dd in ((base, d), (base_n, d_n))]
+        per_tile = (full_ms / steps[0] - cut_ms / steps[1]) / (
+            lay.Vpad // 128 - cut // 128)
+        row[f"k2_{k}_delta_ms"] = full_ms
+        row[f"k2_{k}_delta_vpad{cut}_ms"] = cut_ms
+        row[f"k2_{k}_longest_steps"] = steps
+        row[f"k2_{k}_us_per_step_and_vocab_tile"] = per_tile * 1e3
+        row[f"k2_{k}_us_fixed_per_step"] = (
+            cut_ms / steps[1] - per_tile * (cut // 128)) * 1e3
+    row["card"] = card()
+    print(json.dumps(row), flush=True)
+
+
+def time_ms(fn, reps=5):
+    """ms per call of fn between CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def executed(seq, rows, T):
+    """Token steps each cluster (of ``rows`` rows) ran: up to the step on
+    which its last row emitted 0."""
+    import torch
+
+    zero = (seq == 0).reshape(-1, rows, T)
+    first = torch.where(zero.any(-1), zero.int().argmax(-1), T - 1)
+    return (first.max(-1).values + 1).clamp(max=T)
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+
+
+def worker(root: str, width: int = 128):
     """Build (if needed) and time the package under ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -93,7 +203,10 @@ def worker(root: str):
     from nes_img_captioning_tpu_torch.ops.noise import lane_seeds
 
     if "--build" in sys.argv:
-        dc.build_kernels()
+        dc.build_kernels(width)
+        return
+    if width != 128:
+        wide_worker(root, width)
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     P, B, T = 24, 128, 16
@@ -115,18 +228,6 @@ def worker(root: str):
     # K3's lanes: 5 per member, the lane seeds the engine draws
     lanes = lane_seeds(np.repeat(np.arange(P, dtype=np.uint32) + 7, 2),
                        np.tile([1, -1], P), 5)
-
-    def time_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
 
     def k1(p):
         return dc.decode_fused(p, feats2, T, False)
@@ -188,13 +289,6 @@ def worker(root: str):
                                   + (slice(0, cut),)].contiguous()
         return out
 
-    def executed(seq, rows):
-        """Token steps each cluster ran: up to the step on which its last
-        row emitted 0."""
-        zero = (seq == 0).reshape(-1, rows, T)
-        first = torch.where(zero.any(-1), zero.int().argmax(-1), T - 1)
-        return (first.max(-1).values + 1).clamp(max=T)
-
     base_n, dp16_n, params_n = narrow(base, 0), narrow(dp16, 1), \
         narrow(params, 1)
     for name, full, cut_fn, full_fn, rows in (
@@ -203,7 +297,7 @@ def worker(root: str):
              lambda: k2(base, dp16), 2 * B),
             ("k3", "k3_ms", lambda: k3(params_n), lambda: k3(params), B)):
         row[f"{name}_vpad{cut}_ms"] = time_ms(cut_fn)
-        steps = [int(executed(fn()[0], rows).max())
+        steps = [int(executed(fn()[0], rows, T).max())
                  for fn in (full_fn, cut_fn)]
         row[f"{name}_longest_steps"] = steps
         step_full = row[full] / steps[0]
@@ -213,28 +307,34 @@ def worker(root: str):
         row[f"{name}_us_fixed_per_step"] = (
             step_cut - per_tile * (cut // 128)) * 1e3
     # K3's draw: one Gumbel value per row, column and executed step
-    row["k3_gumbels_per_s"] = float(executed(tokens["k3"], B).sum()) * B \
+    row["k3_gumbels_per_s"] = float(executed(tokens["k3"], B, T).sum()) * B \
         * lay.Vpad / (row["k3_ms"] * 1e-3)
-    row["card"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
+    row["card"] = card()
     print(json.dumps(row), flush=True)
 
 
 def main():
-    if len(sys.argv) > 2 and sys.argv[1] == "--worker":
-        worker(sys.argv[2])
+    args = sys.argv[1:]
+    width = 128
+    if "--width" in args:
+        i = args.index("--width")
+        width = int(args[i + 1])
+        del args[i:i + 2]
+    if len(args) > 1 and args[0] == "--worker":
+        worker(args[1], width)
         return
     roots = [str(ROOT)]
-    for arg in sys.argv[1:]:
+    for arg in args:
         roots.append(str(variant_dir(arg)))
+    wide = ["--width", str(width)]
     builds = [subprocess.Popen([sys.executable, __file__, "--worker", r,
-                                "--build"]) for r in roots]
+                                "--build", *wide]) for r in roots]
     if any(p.wait() for p in builds):
         raise SystemExit("a build failed")
     for r in roots:
-        subprocess.run([sys.executable, __file__, "--worker", r], check=True)
+        # a worker whose kernel stalls is killed, not waited for
+        subprocess.run([sys.executable, __file__, "--worker", r, *wide],
+                       check=True, timeout=WORKER_TIMEOUT_S)
 
 
 if __name__ == "__main__":

@@ -104,25 +104,101 @@ def _held_to_k1(base, d, feats, dt, seq2, lp2):
             assert float((lp2[p, s] - lp1).abs().max()) < 2e-5, (p, s)
 
 
+def _pair_edge_inputs(width):
+    """The pair kernel's edge cases' inputs at E = R = ``width``: at 128
+    ``small_members``' (vocab 300, 256-d features, 32 rows, seed 0); at 256
+    and 512 100 rows (2 or 4 row blocks of 64 or 32, the last ragged), the
+    same vocab and feature width. Returns (layout, members, feats, delta)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opts = FCModelOptions(vocab_size=300, fc_feat_size=256,
+                          input_encoding_size=width, rnn_size=width)
+    lay = DecodeLayout(build_spec(opts), opts)
+    g = torch.Generator(device="cuda").manual_seed(0 if width == 128
+                                                   else width)
+    theta = lay.spec.init_theta(g) * 3
+    feats = torch.randn((2, 32 if width == 128 else 100, 256), generator=g,
+                        device="cuda")
+    members = torch.stack([lay.to_dec(theta), lay.to_dec(theta * 0.5)])
+    sc = lay.to_dec(torch.full_like(theta, 0.05), pad_scale=0.0)
+    delta = (sc * torch.randn(lay.dim_dec, generator=g, device="cuda")
+             ).to(torch.bfloat16)
+    return lay, members, feats, delta
+
+
+def _held_to_plain(base, d, feats, dt, seq2):
+    """K2's tokens against its plain twin's: equal at f32; at bf16 a row
+    may differ only where the twin's top two logits lie within 1e-3."""
+    for p in range(seq2.shape[0]):
+        for s, sign in ((0, 1.0), (1, -1.0)):
+            params = tdc._perturbed(base, {k: v[p] for k, v in d.items()},
+                                    sign, dt)
+            seq_p, _, gap_p = tdc.decode_fused_plain(params, feats[p],
+                                                     top2_gap=True)
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                assert torch.equal(seq2[p, s], seq_p), (p, s)
+            else:
+                _first_diffs_at_near_ties(seq2[p, s], seq_p, gap_p)
+
+
+def _block_finish(seq, rows):
+    """The step after which each block of ``rows`` rows has no unfinished
+    row (its last row's finish step), per (pair, sign)."""
+    steps = _finish_steps(seq)
+    return torch.stack([steps[..., lo:lo + rows].max(-1).values
+                        for lo in range(0, seq.shape[-2], rows)], -1)
+
+
+# (width, case, delta dtype): K5 draws its own f32 delta
+_PAIR_EDGES = [(w, c, d) for w in (128, 256, 512)
+               for c in ("tie_across_halves", "signs_finish_apart")
+               for d in ("bf16", "f32")] + [
+    (w, "k5_odd_pairs", "f32") for w in (128, 256, 512)] + [
+    (w, c, d) for w in (256, 512)
+    for c in ("blocks_finish_apart", "below_one_block")
+    for d in ("bf16", "f32")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", ["tie_across_halves", "signs_finish_apart",
-                                  "k5_odd_pairs"])
-def test_pair_cluster_edges(small_members, case, dt):
-    """The pair kernel's cluster (2 signs x 2 column halves per pair) at the
-    fixture's Vpad 384 (3 vocab tiles, an odd count) and 32 of 128 rows:
-    tie_across_halves: two columns with the same weights and the row's
-    largest bias, one in each half (70 in half 1 of tile 0, 130 in half 0
-    of tile 1): every token is the smaller index, as in K1; signs_finish_apart:
-    an EOS bias of +-50 in the delta ends pair 0's + sign (pair 1's - sign)
-    at step 0 while the other sign decodes all 16 steps, so the finished
-    CTAs serve their peers' loads to the end; k5_odd_pairs: K5 on 3 seeds,
-    bitwise K2 fed K7's dump, with one launch counted."""
-    lay, members, feats, delta = small_members
+@pytest.mark.parametrize("width,case,delta", _PAIR_EDGES,
+                         ids=[f"w{w}-{c}-delta_{d}" for w, c, d in _PAIR_EDGES])
+def test_pair_cluster_edges(width, case, delta, dt):
+    """The pair kernel's cluster at the fixture's Vpad 384 (3 vocab tiles,
+    an odd count): at 128 one cluster of 2 signs x 2 column halves per
+    pair over 32 rows; at 256 and 512 one cluster per pair of 2 signs x 2
+    halves x 2 or 4 row blocks over 100 rows (the last block ragged), each
+    block exiting on its own rows. Every (pair, sign) is held to K1 on
+    prep(base ± delta) (tokens bit for bit, lp within 2e-5) and to the
+    plain twin's tokens. tie_across_halves: two columns with the same
+    weights and the row's largest bias, one in each half (70 in half 1 of
+    tile 0, 130 in half 0 of tile 1): every token is the smaller index;
+    signs_finish_apart: an EOS bias of +-50 in the delta ends pair 0's +
+    sign (pair 1's - sign) at step 0 while the other sign decodes all 16
+    steps, so the finished CTAs serve their peers' tiles to the end;
+    k5_odd_pairs: K5 on 3 seeds, bitwise K2 fed K7's dump, with one launch
+    counted; blocks_finish_apart: the first block's rows share one image
+    and an EOS bias (from the plain twin) ends that block before another
+    block's last row, which decodes on; below_one_block: 5 rows, one
+    block (a cluster of 4)."""
+    ddt = {"bf16": torch.bfloat16, "f32": torch.float32}[delta]
+    lay, members, feats, delta = _pair_edge_inputs(width)
+    rows = tdc.cluster_rows(width)
     P = 3 if case == "k5_odd_pairs" else 2
     fe = torch.cat([feats, feats[:1]])[:P]
+    if case == "below_one_block":
+        fe = fe[:, :5].contiguous()
+    elif case == "blocks_finish_apart":
+        fe = fe.clone()
+        fe[:, :rows] = fe[:, :1]
     base, d = _pair_inputs(lay, members, delta, P)
+    if case != "k5_odd_pairs":
+        d = {k: v.to(torch.float32 if k.endswith("_b") else ddt)
+             for k, v in d.items()}
     if case == "tie_across_halves":
         lo, hi = 70, 130
         base["logit_w"][:, hi] = base["logit_w"][:, lo]
@@ -132,6 +208,18 @@ def test_pair_cluster_edges(small_members, case, dt):
     elif case == "signs_finish_apart":
         d["logit_b"][:, 0, 0] = torch.tensor([50.0, -50.0], device="cuda")
         base["logit_b"][0, 0] = 0.0
+    elif case == "blocks_finish_apart":
+        # the EOS bias at which pair 0's + sign has its first block end
+        # earliest before the latest other block
+        best = None
+        for b0 in np.linspace(-4.0, 12.0, 33):
+            base["logit_b"][0, 0] = float(b0)
+            seq_p = tdc.decode_pair_perturb_plain(base, d, fe, dtype=dt)[0]
+            ends = _block_finish(seq_p[0, 0], rows)
+            gap = int(ends[1:].max() - ends[0])
+            if best is None or gap > best[0]:
+                best = (gap, float(b0))
+        base["logit_b"][0, 0] = best[1]
     if case == "k5_odd_pairs":
         sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05,
                                    device="cuda"), pad_scale=0.0)
@@ -146,39 +234,66 @@ def test_pair_cluster_edges(small_members, case, dt):
         seq2, lp2 = tdc.decode_pair_perturb(base, dump, fe, dtype=dt,
                                             need_logprobs=True)
         assert torch.equal(seq5, seq2) and torch.equal(lp5, lp2)
-        assert seq5.shape == (3, 2, 32, 16)
+        assert seq5.shape == (3, 2, fe.shape[1], 16)
         _held_to_k1(base, dump, fe, dt, seq2, lp2)
+        _held_to_plain(base, dump, fe, dt, seq2)
         return
-    d = {k: v.to(torch.float32 if k.endswith("_b") else torch.bfloat16)
-         for k, v in d.items()}
     seq2, lp2 = tdc.decode_pair_perturb(base, d, fe, dtype=dt,
                                         need_logprobs=True)
     _held_to_k1(base, d, fe, dt, seq2, lp2)
+    _held_to_plain(base, d, fe, dt, seq2)
     if case == "tie_across_halves":
         assert (seq2 == lo).all()
-    else:
+    elif case == "signs_finish_apart":
         for p, early in ((0, 0), (1, 1)):
             assert (seq2[p, early] == 0).all()
             assert (lp2[p, early, :, 1:] == 0).all()
             assert (seq2[p, 1 - early] > 0).all()
+    elif case == "blocks_finish_apart":
+        # somewhere a block has stopped while another one decodes on: its
+        # rows emit 0 and lp 0 past its end
+        ends = _block_finish(seq2, rows)
+        assert ((ends[..., 1:].max(-1).values - ends[..., 0]) > 0).any(), \
+            ends
+        for p in range(P):
+            for s in range(2):
+                e0 = int(ends[p, s, 0])
+                if e0 < 15:
+                    assert (seq2[p, s, :rows, e0 + 1:] == 0).all()
+                    assert (lp2[p, s, :rows, e0 + 1:] == 0).all()
+    elif case == "below_one_block":
+        assert seq2.shape == (P, 2, 5, 16)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 512])
 @pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16),
                                     (torch.bfloat16, torch.float32),
                                     (torch.float32, torch.bfloat16),
                                     (torch.float32, torch.float32)],
                          ids=["bf16-bf16", "bf16-f32", "f32-bf16", "f32-f32"])
-def test_pair_cluster_holds_a_chunk(small_members, dtypes):
-    """A chunk of 24 pairs (96 CTAs) is resident at once: the card holds at
-    least 24 clusters of the pair kernel, at every compute and delta dtype;
-    the bf16 main path keeps 2 ring slots in flight."""
-    info = tdc.pair_cluster_info(*dtypes)
-    assert info["cluster"] == 4 and info["threads"] == 512
-    assert info["max_active_clusters"] >= 24, info
-    assert info["smem_bytes"] <= 232448
-    if dtypes[0] == torch.bfloat16:
-        assert info["ring_slots"] >= 2, info
+def test_pair_cluster_holds_a_chunk(dtypes, width):
+    """The pair kernel's launch shape at every width and compute and delta
+    dtype. At 128 a chunk of 24 pairs (96 CTAs, clusters of 2 signs x 2
+    column halves) is resident at once and the bf16 main path keeps 2 ring
+    slots. At 256 and 512 a pair's 128 rows are one cluster of 2 signs x 2
+    halves x 2 or 4 row blocks (8 or 16 CTAs, the latter a non-portable
+    size); the card holds at least 14 or 6 of them at once (15 and 7 on
+    an H100 80GB HBM3), and every dtype keeps 2 ring slots at least."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    info = tdc.pair_cluster_info(*dtypes, width=width)
+    assert info["threads"] == 512 and info["smem_bytes"] <= 232448
+    if width == 128:
+        assert info["cluster"] == 4 and info["row_blocks"] == 1
+        assert info["max_active_clusters"] >= 24, info
+        if dtypes[0] == torch.bfloat16:
+            assert info["ring_slots"] >= 2, info
+        return
+    nb = 128 // tdc.cluster_rows(width)
+    assert info["row_blocks"] == nb and info["cluster"] == 4 * nb, info
+    assert info["max_active_clusters"] >= (14 if width == 256 else 6), info
+    assert info["ring_slots"] >= 2 and info["tiles_in_flight"] >= 1, info
 
 
 def _member_held_to_plain(params, feats, kernel, dt, tile=128):
