@@ -222,9 +222,9 @@ Phases, each printed as it ends (any failure exits non-zero):
     kernel's occupancy;
 34. the decode kernels at E = R = 256 and 512 (the widths of the JAX
     package's scripts/exp_model_scale.py), each width's library built from
-    csrc/ beside [1]'s: build time, ptxas registers and spills, both
-    cluster kernels' launch shapes; K1, K2, K3, K4, K5, K6 and decode_rows
-    against their plain twins and each other (K4, decode_rows and K2
+    csrc/ after [1]'s, beside the phases: build time, ptxas registers and
+    spills, both cluster kernels' launch shapes; K1, K2, K3, K4, K5, K6 and
+    decode_rows against their plain twins and each other (K4, decode_rows and K2
     bitwise K1, K5 bitwise K2 fed K7's dump, K6 the ordered sum of K7's
     dumps, K3's seed stream bitwise K3 fed its table, K7 held to its plain
     version, its dumps and K6's gradient 0 at every pad); then
@@ -2731,9 +2731,10 @@ def norm_phase(card: str, data) -> None:
 
 
 # [27]: XENT pretraining at the CLI's lr 5e-4, batch 64 and seed 0 on the
-# fixture's 2048 train images, for half the CLI's 3000 steps (the whole
-# 3000 until [37] came, cut to keep the smoke in its time limit)
-XENT_STEPS, XENT_LR, XENT_BATCH = 1500, 5e-4, 64
+# fixture's 2048 train images, for a third of the CLI's 3000 steps (the
+# whole 3000 until [37] came, then 1500; cut to keep the smoke in its time
+# limit on a slow host)
+XENT_STEPS, XENT_LR, XENT_BATCH = 1000, 5e-4, 64
 # [27]: the card's loss within XENT_LOSS_RTOL of the CPU's, its gradient
 # within XENT_GRAD_RTOL plus XENT_GRAD_ATOL x the CPU gradient's largest
 # element (f32 sums in cuBLAS's order against the CPU's, TF32 off)
@@ -5224,16 +5225,24 @@ WIDE_ROWS, WIDE_GENS = 5000, 1
 WIDE_TILE = 1920
 
 
+# [34]: the niceness of the wide builds, which start once [1]'s build of
+# 128 is done (started beside it, the three held [1] for 116-122 s on the
+# card machine's 8 cores), so that the phases they overlap keep the cores
+# first; the wide libraries are needed only at [34]
+WIDE_BUILD_NICE = 10
+
+
 def start_wide_builds() -> dict:
-    """The libraries of WIDE built in threads beside the rest of the run:
-    {width: future of (library, ptxas report, seconds)}."""
+    """The libraries of WIDE built in threads beside the rest of the run, at
+    niceness WIDE_BUILD_NICE: {width: future of (library, ptxas report,
+    seconds)}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
 
     def build(width):
         t0 = time.time()
-        lib, report = dc.build_kernels(width)
+        lib, report = dc.build_kernels(width, nice=WIDE_BUILD_NICE)
         return lib, report, time.time() - t0
 
     pool = ThreadPoolExecutor(len(WIDE))
@@ -5312,8 +5321,8 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
               for dt in (torch.float32, torch.bfloat16)}
     log(f"{tag}: (E, R, F) = ({E0}, {R0}, {Fd}) laid out at W = {W}, "
         f"F_k = {lay.sizes['F']}: {task.spec.num_params:,} params, dim_dec "
-        f"{lay.dim_dec:,} ({lay0.dim_dec:,} unpadded), {R} rows per cluster "
-        f"({B // R} clusters per 128-row batch)")
+        f"{lay.dim_dec:,} ({lay0.dim_dec:,} unpadded), {R} rows per CTA "
+        f"({B // R} row blocks of one cluster per 128-row batch)")
     err = {}
 
     # ---- K1 against its plain twin
@@ -5657,9 +5666,8 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
     lib_ms["decode_pair_rng"] = lib_ms["decode_pair_perturb"]
     del pair16
 
-    def cluster_steps(seq, rows):
-        return executed_steps(seq.reshape(-1, R, T), T) \
-            if rows % R == 0 else executed_steps(seq, T)
+    def batch_steps(seq):  # a batch of B rows shares one early exit
+        return executed_steps(seq.reshape(-1, B, T), T)
 
     def nbytes(*ts):
         return float(sum(t.numel() * t.element_size() for t in ts))
@@ -5670,12 +5678,12 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
                               seeds=lanes)
     seq2, _ = dc.decode_pair_perturb(base, dp32, feats, T,
                                      torch.bfloat16, False)
-    steps1 = cluster_steps(seq1, B)
-    steps3 = cluster_steps(seq3, B)
-    steps2 = cluster_steps(seq2, B)
-    f1 = decode_flops(steps1, R, Fd, V1, E0, R0)
-    f3 = decode_flops(steps3, R, Fd, V1, E0, R0)
-    f2 = decode_flops(steps2, R, Fd, V1, E0, R0)
+    steps1 = batch_steps(seq1)
+    steps3 = batch_steps(seq3)
+    steps2 = batch_steps(seq2)
+    f1 = decode_flops(steps1, B, Fd, V1, E0, R0)
+    f3 = decode_flops(steps3, B, Fd, V1, E0, R0)
+    f2 = decode_flops(steps2, B, Fd, V1, E0, R0)
     n6 = SCALE["pairs"] * lay0.dim_dec
     bounds = {
         "decode_fused": regime_bound(w16 + nbytes(feats2) / 2
@@ -5685,11 +5693,11 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
         "decode_sample": regime_bound(
             w16 + nbytes(feats2) / 2 + lanes.size * 4
             + seq3.numel() * 8, f3,
-            f32_ops=GUMBEL_OPS * float(steps3.sum()) * R * V1),
+            f32_ops=GUMBEL_OPS * float(steps3.sum()) * B * V1),
         "decode_rows": regime_bound(
             nbytes(*one_0.values()) + nbytes(vfeats) / 2
             + seq_r.numel() * 8,
-            rows_flops(seq_r, Fd, V1, E0, R0, R)),
+            rows_flops(seq_r, Fd, V1, E0, R0)),
         "decode_pair_perturb": regime_bound(
             nbytes(*base_0.values()) + nbytes(*dp32_0.values())
             + nbytes(feats) / 2 + seq2.numel() * 8, f2),
@@ -5784,7 +5792,7 @@ def widths_phase(card: str, data, builds: dict, dev=None) -> list:
     for W in WIDE:
         lib, report, build_s = builds[W].result()
         log(f"[34] E = R = {W}: {lib.name} built in {build_s:.1f} s (started "
-            f"beside [1]; its own wall time)")
+            f"after [1]'s build; its own wall time)")
         for name, line in ptxas_lines(report):
             if "decode" in name or "_kernel<" in name:
                 log(f"    ptxas {name}: {line}")
@@ -5807,14 +5815,18 @@ def widths_phase(card: str, data, builds: dict, dev=None) -> list:
         for wdt, sampled in ((torch.bfloat16, False), (torch.float32, False),
                              (torch.bfloat16, True)):
             info = dc.member_cluster_info(wdt, sampled, width=W)
-            if info["ring_slots"] < 2 or info["rows"] != R:
+            if info["ring_slots"] < 2 or info["rows"] != R \
+                    or info["row_blocks"] != 128 // R \
+                    or info["cluster"] != 2 * (128 // R):
                 raise AssertionError(f"[34] member kernel at {W}: {info}")
             log(f"[34] W={W} member kernel ({'K3' if sampled else 'K1, K4'}"
-                f"), weights {wdt}: {info['rows']} rows per cluster of "
-                f"{info['cluster']} CTAs, {info['smem_bytes']} B shared "
-                f"memory, {info['ring_slots']} ring slots of "
-                f"{info['tile_rows']} k-rows, {info['tiles_in_flight']} in "
-                f"flight, cudaOccupancyMaxActiveClusters "
+                f"), weights {wdt}: one cluster of {info['cluster']} CTAs "
+                f"per member{' and lane' if sampled else ''} at 128 rows "
+                f"({info['row_blocks']} blocks of {info['rows']} rows x 2 "
+                f"halves), {info['smem_bytes']} B shared memory, "
+                f"{info['ring_slots']} ring slots ({info['tile_rows']}-row "
+                f"gate tiles, {info['tiles_in_flight']} in flight), "
+                f"cudaOccupancyMaxActiveClusters "
                 f"{info['max_active_clusters']}")
         rows_out += shape_case(
             f"[34] W={W}", card,
@@ -5926,12 +5938,13 @@ def main() -> int:
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    # the libraries of E = R = 256 and 512 ([34]) build beside this one
-    wide_builds = start_wide_builds()
     lib, report = dc.build_kernels()
+    # the libraries of E = R = 256 and 512 ([34]) build beside the phases
+    # from here
+    wide_builds = start_wide_builds()
     log(f"[1] kernels built in {time.time() - t0:.1f} s: {lib.name} (the "
-        f"libraries of E = R = {', '.join(map(str, WIDE))} building at the "
-        "same time)")
+        f"libraries of E = R = {', '.join(map(str, WIDE))} build from here "
+        "on, beside the phases)")
     for name, line in ptxas_lines(report):
         log(f"    ptxas {name}: {line}")
     for wdt, ddt in ((torch.bfloat16, torch.bfloat16),

@@ -58,11 +58,15 @@ file's many kernel instantiations in parallel over the machine's cores.
 
 What bounds them on an H100, and the design. A launch takes at most 128
 rows of each member, lane or pair (callers split a larger batch,
-``tasks/captioning.py``); a block of ``cluster_rows(width)`` of them (all
-128 at E = R = 128, 64 and 32 at 256 and 512, so that a CTA's x_t and h
-fit its shared memory) takes the batch-wide early exit on its own rows: a
-member cluster holds one block, a pair cluster at 256 and 512 all of the
-pair's. The figures below are those of 128. The
+``tasks/captioning.py``; the row-block launch takes each 128 rows of its N
+as one batch), and a member's, lane's or sign's batch takes one early exit,
+the JAX kernel's: every row writes its token (0 once it has ended) and lp
+until no row of the batch is unfinished. A CTA holds a block of
+``cluster_rows(width)`` rows (all 128 at E = R = 128, 64 and 32 at 256 and
+512, so that its x_t and h fit its shared memory), and at 256 and 512 one
+cluster holds all of a batch's blocks: 2 column halves x 2 or 4 blocks (4
+or 8 CTAs) per member or lane, 2 signs x 2 halves x the blocks (8 or 16)
+per pair. The figures below are those of 128. The
 17-step recurrence is serial; the work per step is three products (i2h,
 h2h: 128x128x640 each; logits: 128x128xVpad) whose
 weights (~5.8 MB per member in bf16, far above an SM's 227 KB of shared
@@ -76,11 +80,12 @@ split cluster barrier. K2 and K5 give each pair a cluster of 4 CTAs (2
 signs x 2 column halves, 96 CTAs for 24 pairs): the two signs of a half
 share each raw base and delta tile, copied once by multicast into a ring,
 and each forms ``dt(base + sign*delta)`` from it, so no perturbed weight
-vector is written out. At E = R = 256 and 512 a pair's cluster also holds
-its row blocks (8 or 16 CTAs for 128 rows): each tile reaches both signs
-and every block at once, each warp forms ``dt(base + sign*delta)`` at its
-operand load and releases the slot on its own, and a block exits on its
-own rows. K5 first draws each pair's delta once over the
+vector is written out. At E = R = 256 and 512 a member's and a pair's
+cluster also hold their row blocks: each tile reaches every block (and
+both signs) of a half by one multicast copy, each warp releases the slot
+on its own, and the member kernel reads the bf16 tile in place while the
+pair kernel converts ``dt(base + sign*delta)`` once per column group. K5
+first draws each pair's delta once over the
 whole card (K7's loop) into a (P, dim) scratch. In both cluster kernels
 the halves split every product's columns and swap h and the logit
 partials through distributed shared memory. With bf16 weights the logit
@@ -163,13 +168,6 @@ def cluster_rows(width: int) -> int:
     _check(width in KERNEL_WIDTHS, f"E = R = {width}: the kernels take "
            f"E = R in {KERNEL_WIDTHS}")
     return MAX_ROWS * MAX_ROWS // width
-
-
-def _exit_rows(width: int, B: int) -> int:
-    """The rows that share a batch-wide early exit in a plain twin: the
-    kernel's cluster at the widths past 128 it is built for, else the whole
-    launch (the JAX kernel's)."""
-    return cluster_rows(width) if width in KERNEL_WIDTHS[1:] else max(B, 1)
 
 
 def kernel_shape(E: int, R: int, F: int) -> tuple[int, int]:
@@ -269,7 +267,7 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
     batch of M members (leading axis), feats (M, B, F). Each member decodes
     ``lanes`` copies of its B rows, lane-major ((M, lanes * B) rows), each
     copy with its own batch-wide early exit, as one cluster of the kernels
-    (at E = R = 256 and 512 each block of ``cluster_rows`` of them).
+    and the JAX kernel's launch.
     ``gumbel_at(t)``: the (M, lanes * B, Vpad) noise of step t; the token is
     then argmax(logits + G) and lp = logit[token] - lse (K3). ``vocab_tile``:
     K4's tiled reduction. Returns (seq, lp[, gap]), each (M, lanes * B, T);
@@ -304,18 +302,14 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
     rows = torch.arange(M, device=dev)[:, None]
     tok = torch.zeros((M, N), dtype=torch.long, device=dev)
     unfin = torch.ones((M, N), dtype=torch.bool, device=dev)
-    # the rows of each early exit: a cluster's block of a lane's B
-    step = _exit_rows(R, B)
-    blocks = [(lo, min(lo + step, B)) for lo in range(0, B, step)]
-    alive = torch.ones((M, lanes, len(blocks)), dtype=torch.bool, device=dev)
-    size = torch.tensor([hi - lo for lo, hi in blocks], device=dev)
+    # each lane's batch shares one early exit
+    alive = torch.ones((M, lanes), dtype=torch.bool, device=dev)
     seq, lps, gaps = [], [], []
     for t in range(seq_length):
         h, c = lstm(params["embed"][rows, tok], h, c)
         logits = dott(h.to(dt), params["logit_w"]) + params["logit_b"]
         key = logits if gumbel_at is None else logits + gumbel_at(t)
-        row_alive = alive.repeat_interleave(size, dim=-1,
-                                            output_size=B).reshape(M, N)
+        row_alive = alive.repeat_interleave(B, dim=-1, output_size=N)
         if top2_gap:
             top = key.topk(2, dim=-1).values
             gaps.append(torch.where(row_alive, top[..., 0] - top[..., 1], 0.0))
@@ -336,13 +330,12 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
             lp_tok = logits.gather(-1, new[..., None])[..., 0] - lse
         unfin = unfin & (new > 0)
         tok = new * unfin
-        # a cluster whose rows have all finished skips its remaining steps:
-        # its outputs stay 0, as in the kernel
+        # a batch whose rows have all finished skips its remaining steps:
+        # its outputs stay 0, as in the kernel; until then a finished row
+        # writes token 0 and its argmax lp
         seq.append(torch.where(row_alive, tok, 0).to(torch.int32))
         lps.append(torch.where(row_alive, lp_tok, 0.0))
-        u = unfin.view(M, lanes, B)
-        alive = alive & torch.stack([u[..., lo:hi].any(-1)
-                                     for lo, hi in blocks], -1)
+        alive = alive & unfin.view(M, lanes, B).any(-1)
     out = [torch.stack(seq, -1), torch.stack(lps, -1)]
     if top2_gap:
         out.append(torch.stack(gaps, -1))
@@ -385,14 +378,13 @@ def decode_rows_plain(params: dict, feats: torch.Tensor,
                       seq_length: int = 16, need_logprobs: bool = True, *,
                       vocab_tile: int = 0, top2_gap: bool = False):
     """Plain twin of ``decode_rows``: K1's (K4's) plain twin on each block
-    of 128 rows of feats (N, F) (``cluster_rows`` at E = R = 256 and 512),
-    one member's params; (seq, lp[, gap]), each (N, T). Blocks as the
-    kernel's, so the early exits, and with them lp, are the kernel's too."""
-    step = _exit_rows(params["h2h_w"].shape[-2], MAX_ROWS)
-    outs = [decode_fused_plain(params, feats[lo:lo + step],
+    of 128 rows of feats (N, F), one member's params; (seq, lp[, gap]),
+    each (N, T). Blocks as the kernel's, so the early exits, and with them
+    lp, are the kernel's too."""
+    outs = [decode_fused_plain(params, feats[lo:lo + MAX_ROWS],
                                seq_length, need_logprobs,
                                vocab_tile=vocab_tile, top2_gap=top2_gap)
-            for lo in range(0, feats.shape[0], step)]
+            for lo in range(0, feats.shape[0], MAX_ROWS)]
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
@@ -570,11 +562,13 @@ def _nvcc() -> str:
     return found
 
 
-def build_kernels(width: int = 128) -> tuple[Path, str]:
+def build_kernels(width: int = 128, nice: int = 0) -> tuple[Path, str]:
     """Compile ``csrc/decode.cu`` at E = R = ``width`` (``-DNES_W``) for
     sm_90a into ``_build/libnes_decode_w<width>_<digest>.so`` unless a
-    library built from the same sources is already there. Returns (library
-    path, the compiler's ptxas report; empty when nothing was compiled)."""
+    library built from the same sources is already there; ``nice`` > 0 runs
+    ``nvcc`` at that niceness (a build needed later, beside one needed
+    now). Returns (library path, the compiler's ptxas report; empty when
+    nothing was compiled)."""
     _check(width in KERNEL_WIDTHS,
            f"E = R = {width}: the kernels are built for {KERNEL_WIDTHS}")
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in _SOURCES))
@@ -583,9 +577,11 @@ def build_kernels(width: int = 128) -> tuple[Path, str]:
         return lib, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
-           f"-DNES_W={width}", "-Xptxas", "-v", "-o", str(tmp),
+    lower = ["nice", "-n", str(nice)] if nice > 0 and shutil.which("nice") \
+        else []
+    cmd = [*lower, _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "--split-compile=0", "-shared", "-Xcompiler",
+           "-fPIC", f"-DNES_W={width}", "-Xptxas", "-v", "-o", str(tmp),
            *map(str, _SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -808,7 +804,8 @@ decode_tiled.launches = 0
 def decode_rows(params: dict, feats: torch.Tensor, seq_length: int = 16,
                 need_logprobs: bool = True, *, vocab_tile: int = 0):
     """K1 (K4 with ``vocab_tile``) over all N rows of feats (N, F) under one
-    member's params, in one launch: ceil(N / 128) clusters of 2 CTAs, every
+    member's params, in one launch: ceil(N / 128) clusters (of 2 CTAs at E
+    = R = 128, of 2 per block of ``cluster_rows`` at 256 and 512), every
     one reading the member's weights (one member's tensor maps) and cluster
     b rows [128 b, 128 b + 128), the last block ragged. Returns (seq (N, T)
     int32, lp (N, T) f32), bit for bit those of one ``decode_fused`` (or
@@ -823,9 +820,9 @@ def decode_rows(params: dict, feats: torch.Tensor, seq_length: int = 16,
     params, feats, (_, N, F), Vpad, code, stream, _, lib = _launch_args(
         params, feats, "params", max_rows=None)
     _check_aligned(params, "params")
-    # the last block's outputs are written in full; its rows past N are
-    # padding, sliced off here
-    block = min(N, cluster_rows(params["img_w"].shape[-1]))
+    # the last block's outputs are written in full at E = R = 128; its rows
+    # past N are padding, sliced off here
+    block = min(N, MAX_ROWS)
     rows = -(-N // block) * block
     seq = torch.empty((rows, seq_length), dtype=torch.int32,
                       device=feats.device)
@@ -1013,18 +1010,19 @@ def member_cluster_info(dtype=torch.bfloat16, sampled: bool = False,
                         width: int = 128) -> dict:
     """The member kernel's launch shape on the current card at E = R =
     ``width`` for weight dtype ``dtype``, greedy (K1, K4) or ``sampled``
-    (K3, whose row partials carry two more fields): CTAs per cluster (one
-    cluster per member or lane and block of ``rows`` image rows), threads
-    per CTA, dynamic shared memory bytes, ring slots, k-rows per tile, the
-    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``)
-    and tiles in flight."""
-    out = (ctypes.c_int * 7)()
+    (K3, whose row partials carry two more fields), for a batch of 128
+    rows: CTAs per cluster (one cluster per member or lane: at 128 its 2
+    column halves, at 256 and 512 those 2 for each of its ``row_blocks``
+    blocks of ``rows`` image rows), threads per CTA, dynamic shared memory
+    bytes, ring slots, k-rows per (gate) tile, the clusters the card holds
+    at once (``cudaOccupancyMaxActiveClusters``) and tiles in flight."""
+    out = (ctypes.c_int * 8)()
     err = _kernels(width).nes_member_cluster_info(_DTYPE_CODE[dtype],
                                                   int(sampled), out)
     _raise_on(err, "member_cluster_info")
     return dict(zip(("cluster", "threads", "smem_bytes", "ring_slots",
-                     "tile_rows", "max_active_clusters", "tiles_in_flight"),
-                    out), rows=cluster_rows(width))
+                     "tile_rows", "max_active_clusters", "tiles_in_flight",
+                     "row_blocks"), out), rows=cluster_rows(width))
 
 
 def _seeds_on(u32: np.ndarray, device) -> torch.Tensor:

@@ -30,13 +30,19 @@ digest differs between the runs.
 ``--width 256`` or ``512`` (default 128, the run above) builds and times
 that width's library in both roots at ``chip_smoke.py`` [34]'s shapes: E = R
 = width, 48 pairs x 128 rows, vocab 9487, 2048-d features, bf16 compute, T
-= 16; K1 on the first 24 pairs' 48 members (the member kernel, a control),
-K2 with an f32 delta (as [34] times it) and with a bf16 delta, and K5, with
-K5's draw and decode under ``torch.profiler``. The digests are SHA-256 of
-K1's, K2's (both deltas) and K5's tokens and lp, logprobs on: the pair
-kernel's lp merges the row partials per column half and then across the
-halves in both designs, so lp is digested too, and the run exits non-zero
-when any digest differs.
+= 16; on the first 24 pairs' 48 members the member kernel's K1, K3 (5
+lanes per member, seeded), K4 (vocab tile 1920) and K1 over 5000 rows of
+one member (``k1_rows``, ``decode_rows``, validation's launch); K2 with an
+f32 delta (as [34] times it) and with a bf16 delta, and K5, with K5's
+draw and decode under ``torch.profiler``; and the row records both
+kernels' launch shapes (``member_cluster_info``, ``pair_cluster_info``).
+The digests are SHA-256 of each kernel's tokens and, apart, of its lp
+through each row's EOS (the step on which it first emits 0), logprobs on:
+past a row's EOS a batch's rows now share one early exit, where a root
+from before the wide member kernel wrote 0 once the row's block of 64 or
+32 rows had finished (`ROADMAP.md` §3, F8), so lp there may differ
+between such roots; through EOS it may not. The run exits non-zero when
+any digest differs.
 
 ``--ptxas DIR`` writes each root's ptxas report of the width's build into
 ``DIR/ptxas_<root directory name>_w<width>.txt`` (registers and spills of
@@ -56,7 +62,8 @@ import numpy as np
 KERNELS = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
 PROFILED = ("k7_kernel", "k5_draw", "k5_decode", "gen_noise")
 # --width 256 / 512
-WIDE_TIMED = ("k1", "k2", "k2_bf16_delta", "k5", "k5_draw", "k5_decode")
+WIDE_TIMED = ("k1", "k3", "k4", "k1_rows", "k2", "k2_bf16_delta", "k5",
+              "k5_draw", "k5_decode")
 
 
 def sha256(*tensors) -> str:
@@ -64,6 +71,16 @@ def sha256(*tensors) -> str:
     for t in tensors:
         h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def digest_to_eos(seq, lp) -> dict:
+    """SHA-256 of the tokens and, apart, of lp through each row's EOS (lp
+    after it set to 0)."""
+    import torch
+
+    ended = torch.cumsum((seq == 0).int(), -1)
+    read = (ended == 0) | ((ended == 1) & (seq == 0))
+    return {"tokens": sha256(seq), "lp_to_eos": sha256(lp * read)}
 
 
 def noise_generation_ms(reps: int = 9) -> float:
@@ -152,11 +169,19 @@ def wide_worker(width: int):
     dp32 = lay.prep(d32, torch.float32)
     dp16 = lay.prep(d32.to(torch.bfloat16), torch.bfloat16)
     params = lay.prep(members, torch.bfloat16)
+    one = {k: v[0] for k, v in params.items()}
+    vfeats = torch.randn((5000, 2048), generator=g, device="cuda")
     del d32, members
-    seeds = np.random.default_rng(0).integers(0, 2**32, size=P,
-                                              dtype=np.uint32)
+    rng = np.random.default_rng(0)
+    seeds = rng.integers(0, 2**32, size=P, dtype=np.uint32)
+    lanes = rng.integers(0, 2**32, size=(M, 5), dtype=np.uint32)
     runs = {
         "k1": lambda lp=False: dc.decode_fused(params, feats2, T, lp),
+        "k3": lambda lp=False: dc.decode_fused(params, feats2, T, lp,
+                                               greedy=False, seeds=lanes),
+        "k4": lambda lp=False: dc.decode_fused(params, feats2, T, lp,
+                                               vocab_tile=1920),
+        "k1_rows": lambda lp=False: dc.decode_rows(one, vfeats, T, lp),
         "k2": lambda lp=False: dc.decode_pair_perturb(
             base, dp32, feats, T, torch.bfloat16, lp),
         "k2_bf16_delta": lambda lp=False: dc.decode_pair_perturb(
@@ -178,7 +203,10 @@ def wide_worker(width: int):
         row[f"{name}_ms"] = a.elapsed_time(b) / 5
     k5 = profiled_ms(runs["k5"], 3)
     row["k5_draw_ms"], row["k5_decode_ms"] = k5["draw"], k5["decode"]
-    row["digest"] = {name: sha256(*fn(True)) for name, fn in runs.items()}
+    row["digest"] = {name: digest_to_eos(*fn(True))
+                     for name, fn in runs.items()}
+    row["member_cluster_info"] = dc.member_cluster_info(
+        torch.bfloat16, width=width)
     row["pair_cluster_info"] = dc.pair_cluster_info(
         torch.bfloat16, torch.float32, width=width)
     return row
@@ -318,9 +346,8 @@ def main():
         k: 100.0 * (mean[b][k] / mean[a][k] - 1.0) for k in names},
         "digests_equal": same}))
     if not same:
-        raise SystemExit("the K1, K2, K5 (K6 or K7) digests differ "
-                         "between the roots: the decode or the delta "
-                         "stream moved")
+        raise SystemExit("a kernel's digests differ between the roots: "
+                         "the decode or the delta stream moved")
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ stream their weights
 through rings of KT-row tiles in shared memory, as many slots as fit up to
 MAXNS, with up to AHEAD_MAX tiles in flight (``pair::`` and ``member::``
 constants in ``nes_img_captioning_tpu_torch/csrc/decode.cu``). A bare NAME
-is a ``pair::`` constant, ``member.NAME`` a ``member::`` one. Each variant
+is a ``pair::`` constant, ``NS.NAME`` one of namespace NS (``member``, or
+the wide kernels' ``wmember`` and ``wpair``; ``wmember.AT_128=1`` builds
+the wide member kernel into the W = 128 library, ``wpair.AT_128=1`` the
+wide pair kernel). Each variant
 named on the command line (for example ``KT=32,MAXNS=6`` or
 ``member.KT=64,member.AHEAD_MAX=2``; ``member.GUMBEL_SKIP=0`` draws every
 Gumbel value of K3, ``member.GUMBEL_COUNT=1`` counts the values K3 draws)
@@ -31,6 +34,15 @@ delta (K5's decode), K3; K1, K2 and K3 on the first 15 vocab tiles (Vpad
 that each pair of times gives; K3's Gumbel values per second, and with
 ``member.GUMBEL_COUNT=1`` the share of them that took the two logf; the
 kernels' ring shapes and the card.
+
+``--width 256`` or ``512`` times that width's library at ``chip_smoke.py``
+[34]'s shapes (48 pairs x 128 rows, bf16, 2048-d features, vocab 9487):
+K2 with an f32 and a bf16 delta; K1, K3 (5 lanes per member) and K4 at
+vocab tiles 1920 and 128 on the first 24 pairs' 48 members; K1 and K2 also
+on the first 15 vocab tiles, for the fixed cost per step and the cost per
+step and vocab tile; and K4's split cluster barrier per vocab tile, from
+(K4 - K1) / (steps x vocab tiles per step) at each tile. The tokens of
+every kernel timed (K3: and its lp) are held to the committed build's.
 """
 
 from __future__ import annotations
@@ -81,11 +93,11 @@ def variant_dir(spec: str) -> Path:
 
 
 def wide_worker(root: str, width: int):
-    """Time K2 of the package under ``root`` at E = R = ``width``
-    (``--width``): [34]'s shapes, 48 pairs x 128 rows, vocab 9487, 2048-d
-    features, bf16 compute, T = 16, with an f32 delta (as [34] times it)
-    and a bf16 delta, at Vpad 9600 and cut to its first 15 vocab tiles;
-    tokens held to the committed build's."""
+    """Time K1, K2, K3 and K4 of the package under ``root`` at E = R =
+    ``width`` (``--width``, the module docstring's shapes): K2 with an f32
+    delta (as [34] times it) and a bf16 delta, at Vpad 9600 and cut to its
+    first 15 vocab tiles; K1 likewise; K3 and K4 at vocab tiles 1920 and
+    128; tokens held to the committed build's."""
     import torch
 
     from nes_img_captioning_tpu_torch.models.fc_caption import (
@@ -95,7 +107,7 @@ def wide_worker(root: str, width: int):
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
     from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
 
-    P, B, T = 48, 128, 16
+    P, B, T, M = 48, 128, 16, 48
     opts = FCModelOptions(vocab_size=9487, fc_feat_size=2048,
                           input_encoding_size=width, rnn_size=width)
     lay = DecodeLayout(build_spec(opts), opts)
@@ -109,7 +121,13 @@ def wide_worker(root: str, width: int):
     base = lay.prep(base_vec, torch.float32)
     deltas = {"f32": lay.prep(d32, torch.float32),
               "bf16": lay.prep(d32.to(torch.bfloat16), torch.bfloat16)}
-    del d32
+    members = torch.stack([base_vec + d32[:M // 2],
+                           base_vec - d32[:M // 2]], 1).reshape(M, -1)
+    params = lay.prep(members, torch.bfloat16)
+    feats2 = feats[:M // 2].repeat_interleave(2, 0)
+    lanes = np.random.default_rng(0).integers(0, 2**32, size=(M, 5),
+                                              dtype=np.uint32)
+    del d32, members
     cut = 1920
 
     def narrow(d, lead):
@@ -123,35 +141,62 @@ def wide_worker(root: str, width: int):
     def k2(b, d):
         return dc.decode_pair_perturb(b, d, feats, T, torch.bfloat16, False)
 
+    def k1(p, tile=0):
+        return dc.decode_fused(p, feats2, T, False, vocab_tile=tile)
+
+    def k3(need_lp=False):
+        return dc.decode_fused(params, feats2, T, need_lp, greedy=False,
+                               seeds=lanes)
+
     row = {"root": root, "width": width,
+           "member": dc.member_cluster_info(torch.bfloat16, width=width),
+           "member_sampled": dc.member_cluster_info(torch.bfloat16, True,
+                                                    width=width),
            "pair": dc.pair_cluster_info(torch.bfloat16, torch.float32,
                                         width=width)}
     tokens = {f"k2_{k}_delta": k2(base, d)[0] for k, d in deltas.items()}
+    tokens["k1"] = k1(params)[0]
+    tokens["k4_tile1920"] = k1(params, 1920)[0]
+    tokens["k4_tile128"] = k1(params, 128)[0]
+    tokens["k3"], tokens["k3_lp"] = k3(True)
     ref_path = ROOT / PKG / "_build" / "variants" / f"reference_w{width}.pt"
     if Path(root) == ROOT:
         ref_path.parent.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in tokens.items()}, ref_path)
     ref = torch.load(ref_path)
     bad = [k for k, v in tokens.items() if not torch.equal(v.cpu(), ref[k])]
+    bad += [k for k in ("k4_tile1920", "k4_tile128")
+            if not torch.equal(tokens[k], tokens["k1"])]
     if bad:
         row["invalid"] = bad
         print(json.dumps(row), flush=True)
         return
-    base_n = narrow(base, 0)
-    for k, d in deltas.items():
-        full_ms = time_ms(lambda: k2(base, d))
-        d_n = narrow(d, 1)
-        cut_ms = time_ms(lambda: k2(base_n, d_n))
-        steps = [int(executed(k2(b, dd)[0], 128, T).max())
-                 for b, dd in ((base, d), (base_n, d_n))]
+    base_n, params_n = narrow(base, 0), narrow(params, 1)
+    timed = [(f"k2_{k}_delta", lambda d=d: k2(base, d),
+              lambda d=d, dn=narrow(d, 1): k2(base_n, dn), 2 * B)
+             for k, d in deltas.items()]
+    timed.append(("k1", lambda: k1(params), lambda: k1(params_n), B))
+    for name, full_fn, cut_fn, rows in timed:
+        full_ms, cut_ms = time_ms(full_fn), time_ms(cut_fn)
+        steps = [int(executed(fn()[0], rows, T).max())
+                 for fn in (full_fn, cut_fn)]
         per_tile = (full_ms / steps[0] - cut_ms / steps[1]) / (
             lay.Vpad // 128 - cut // 128)
-        row[f"k2_{k}_delta_ms"] = full_ms
-        row[f"k2_{k}_delta_vpad{cut}_ms"] = cut_ms
-        row[f"k2_{k}_longest_steps"] = steps
-        row[f"k2_{k}_us_per_step_and_vocab_tile"] = per_tile * 1e3
-        row[f"k2_{k}_us_fixed_per_step"] = (
+        row[f"{name}_ms"] = full_ms
+        row[f"{name}_vpad{cut}_ms"] = cut_ms
+        row[f"{name}_longest_steps"] = steps
+        row[f"{name}_us_per_step_and_vocab_tile"] = per_tile * 1e3
+        row[f"{name}_us_fixed_per_step"] = (
             cut_ms / steps[1] - per_tile * (cut // 128)) * 1e3
+    row["k3_ms"] = time_ms(k3)
+    # K4's fold: one split cluster barrier and merge per vocab tile
+    steps1 = row["k1_longest_steps"][0]
+    for tile in (1920, 128):
+        ms = time_ms(lambda: k1(params, tile))
+        row[f"k4_tile{tile}_ms"] = ms
+        row[f"k4_tile{tile}_us_per_fold"] = (ms - row["k1_ms"]) * 1e3 / (
+            steps1 * (lay.Vpad // tile))
+        row[f"k4_tile{tile}_us_per_step"] = (ms - row["k1_ms"]) * 1e3 / steps1
     row["card"] = card()
     print(json.dumps(row), flush=True)
 

@@ -1,7 +1,8 @@
 """The ring-shape sweep's constant rewrite (``scripts/torch_pair_tiles.py``)
 on the committed kernel source: a bare name sets a ``pair::`` constant,
-``member.NAME`` a ``member::`` one, ``wpair.NAME`` one of the wide pair
-kernel's, and nothing else in the file moves."""
+``member.NAME`` a ``member::`` one, ``wpair.NAME`` and ``wmember.NAME``
+one of the wide pair or member kernel's, and nothing else in the file
+moves."""
 
 import importlib.util
 import re
@@ -36,11 +37,13 @@ def _namespace(key: str) -> tuple:
     {"member.GUMBEL_COUNT": "1", "member.KT": "64"},
     {"wpair.TILE": "2048", "wpair.TKL": "32", "wpair.MAXNS": "8"},
     {"wpair.AT_128": "1", "KT": "32"},
+    {"wmember.TILE": "4096", "wmember.TKL": "64", "wmember.MAXNS": "6"},
+    {"wmember.AT_128": "1", "member.KT": "64"},
 ], ids=["pair", "member", "both", "k3_no_skip", "k3_count", "wide_pair",
-        "wide_pair_at_128"])
+        "wide_pair_at_128", "wide_member", "wide_member_at_128"])
 def test_rewrite_sets_each_constant_in_its_namespace(values):
     out = tiles.rewrite(SRC, values)
-    for ns in ("pair", "member", "wpair"):
+    for ns in ("pair", "member", "wpair", "wmember"):
         want = {name: v for key, v in values.items()
                 for n, name in [_namespace(key)] if n == ns}
         before, after = _constants(SRC, ns), _constants(out, ns)
@@ -53,7 +56,8 @@ def test_rewrite_sets_each_constant_in_its_namespace(values):
 
 @pytest.mark.parametrize("key", ["member.NSLOT", "member.KPW", "LDB",
                                  "member.THREADS", "member.SWIZZLE",
-                                 "GUMBEL_SKIP", "wpair.KT", "wpair.GW"])
+                                 "GUMBEL_SKIP", "wpair.KT", "wpair.GW",
+                                 "wmember.KT", "wmember.GW"])
 def test_rewrite_refuses_a_constant_its_namespace_lacks(key):
     with pytest.raises(ValueError, match="not defined once"):
         tiles.rewrite(SRC, {key: "3"})

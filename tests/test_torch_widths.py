@@ -169,39 +169,67 @@ def test_k4_twin_matches_pallas_at_a_vocab_tile(width):
     assert torch.equal(seq_t, tdc.decode_fused(tp, torch.from_numpy(feats))[0])
 
 
+def _finish_steps(seq):
+    """The step on which each row first emits 0 (T when it never does)."""
+    zero = seq == 0
+    return torch.where(zero.any(-1), zero.int().argmax(-1), seq.shape[-1])
+
+
 @pytest.mark.parametrize("width", WIDTHS)
 def test_twin_exits_per_cluster_of_rows(width):
-    """At these widths a cluster holds cluster_rows(width) rows, each block
-    with its own early exit: the twin over 100 rows equals it over each
-    block alone, bit for bit, and a block whose rows all end early leaves
-    its later steps 0 while another block decodes on."""
+    """At these widths too every row of a batch shares one early exit (the
+    JAX kernel's; the kernels' cluster holds all of the batch's blocks of
+    cluster_rows(width) rows). Over 100 rows whose blocks end at different
+    steps, a row that has ended writes token 0 and its argmax lp (< 0)
+    while another row decodes, and every output after the batch's last
+    row has ended is 0; decode_rows over the same rows (one block of 128)
+    gives the same outputs. A batch whose rows all end at step 0 leaves
+    steps 1 and later at 0."""
     jm, theta, spec, topts = _setup(width, seed=5)
-    boosted = theta.copy()
-    boosted[jm.spec.offset("logit.bias")] += 8.0  # EOS: rows end at once
-    tp = tdc.prepare_decode_params(spec, torch.from_numpy(boosted), topts)
     rows = tdc.cluster_rows(width)
     feats = torch.from_numpy(_feats(100, seed=2))
-    feats[rows:] *= 0.0  # another block: the same rows, zero features
-    seq, lp = tdc.decode_fused(tp, feats)
-    parts = [tdc.decode_fused(tp, feats[lo:lo + rows])
-             for lo in range(0, 100, rows)]
-    assert torch.equal(seq, torch.cat([p[0] for p in parts]))
-    assert torch.equal(lp, torch.cat([p[1] for p in parts]))
+    feats[rows:] *= 0.0  # the other blocks: the same rows, zero features
+    eos = jm.spec.offset("logit.bias")
+
+    def decode(boost):
+        boosted = theta.copy()
+        boosted[eos] += boost
+        tp = tdc.prepare_decode_params(spec, torch.from_numpy(boosted),
+                                       topts)
+        return tp, tdc.decode_fused(tp, feats)
+
+    # the EOS bias at which the other blocks (their rows end together) end
+    # longest before the first block, whose last row still ends in time
+    best = None
+    for boost in np.linspace(0.0, 0.3, 13):
+        steps = _finish_steps(decode(float(boost))[1][0])
+        gap = int(steps[:rows].max() - steps[rows:].max())
+        if steps.max() < T - 1 and (best is None or gap > best[0]):
+            best = (gap, float(boost))
+    assert best[0] > 0, best
+    tp, (seq, lp) = decode(best[1])
+    steps = _finish_steps(seq)
+    last = int(steps.max())
+    t = torch.arange(T)
+    past = (t[None] > steps[:, None]) & (t[None] <= last)
+    assert past[rows:].any(-1).all()  # a block ended while another decodes
+    assert (seq[past] == 0).all() and (lp[past] < 0).all()
+    assert (seq[:, last + 1:] == 0).all() and (lp[:, last + 1:] == 0).all()
     seq_r, lp_r = tdc.decode_rows(tp, feats)
     assert torch.equal(seq_r, seq) and torch.equal(lp_r, lp)
-    assert (seq[:, 1:] == 0).all() and (lp[:, 1:] == 0).all()
+    _, (seq, lp) = decode(8.0)  # EOS: every row ends at step 0
+    assert (seq == 0).all() and (lp[:, 1:] == 0).all() and (lp[:, 0] < 0).all()
 
 
 @pytest.mark.parametrize("width,rows", [(256, 80), (512, 48)])
 def test_twin_past_one_cluster_matches_pallas(width, rows):
-    """A batch of more rows than one cluster holds (2 clusters here), f32:
-    K1's and K3's (host-table) plain twins against JAX's kernels in
-    interpret mode, whose batch shares one early exit where each of the
-    port's clusters has its own. Tokens equal everywhere; lp within 2e-5
-    through each row's EOS (what the criteria read). Past that the port
-    writes 0 once a row's cluster has finished, where JAX writes the
-    finished row's argmax lp while any row of the batch decodes on, and
-    this batch has such positions (its K1 clusters end apart)."""
+    """A batch of more rows than one block of cluster_rows(width) holds (2
+    blocks here), f32: K1's and K3's (host-table) plain twins against
+    JAX's kernels in interpret mode, whose batch shares one early exit, as
+    the port's does. Tokens equal everywhere and lp within 2e-5 at every
+    position, also past each row's EOS, where a finished row writes its
+    argmax lp while another row decodes on; this batch has such
+    positions (its rows end apart)."""
     jm, theta, spec, topts = _setup(width, seed=7)
     boosted = theta.copy()
     boosted[jm.spec.offset("logit.bias")] += 0.05  # EOS: rows end apart
@@ -220,17 +248,16 @@ def test_twin_past_one_cluster_matches_pallas(width, rows):
                [o[0] for o in tdc.decode_fused(
                    tp, torch.from_numpy(feats), greedy=False,
                    gumbel=torch.from_numpy(g)[None])])}
-    zeroed = 0
+    past_eos = 0
     for name, ((seq_j, lp_j), (seq_t, lp_t)) in outs.items():
         seq_j, lp_j = np.asarray(seq_j), np.asarray(lp_j)
         seq_t, lp_t = seq_t.numpy(), lp_t.numpy()
         np.testing.assert_array_equal(seq_t, seq_j, err_msg=name)
+        np.testing.assert_allclose(lp_t, lp_j, atol=2e-5, err_msg=name)
         ended = np.cumsum(seq_t == 0, axis=1)
-        read = (ended == 0) | ((ended == 1) & (seq_t == 0))  # through EOS
-        np.testing.assert_allclose(lp_t[read], lp_j[read], atol=2e-5,
-                                   err_msg=name)
-        zeroed += int(((lp_t == 0) & (lp_j != 0)).sum())
-    assert zeroed > 0
+        after = (ended > 1) | ((ended == 1) & (seq_t != 0))  # past EOS
+        past_eos += int((after & (lp_j != 0)).sum())
+    assert past_eos > 0
 
 
 def test_cluster_rows_and_param_checks():
