@@ -263,15 +263,23 @@ Phases, each printed as it ends (any failure exits non-zero):
     under torch.profiler (idle share); K1 at the ES launch shape and the
     row-block launch over the 5000 val rows against their plain twins,
     cuBLAS and their bounds; the SM-G file's sweep at pop_chunk 16 and 48;
-37. [34]'s checks, generations and times for two captioners of widths no
-    library is built for, zero-padded onto [34]'s libraries (no new
-    build): (E, R, F) = (300, 512, 2048) at W = 512 and (256, 192, 960) at
-    W = 256 with F padded to 1024, the cuBLAS yardstick and the bound on
-    the true shapes; at the second also experiments/mscoco_es.json at its
-    widths with the children in decode order (4 generations, the last two
-    a block), its layout sweep bit for bit task.rollout of its children
-    mapped back. A ``[time]`` line after each group of phases gives its
-    wall seconds.
+37. [34]'s checks and times (one untimed generation per path) for two
+    captioners of widths no library is built for, zero-padded onto [34]'s
+    libraries (no new build): (E, R, F) = (300, 512, 2048) at W = 512 and
+    (256, 192, 960) at W = 256 with F padded to 1024, the cuBLAS yardstick
+    and the bound on the true shapes; at the second also
+    experiments/mscoco_es.json at its widths with the children in decode
+    order (4 generations, the last two a block), its layout sweep bit for
+    bit task.rollout of its children mapped back;
+38. K-W3, the library of E = R = 1024 (built beside the run with [34]'s):
+    its build time, ptxas registers and spills and both cluster kernels'
+    launch shapes (a member's 128 rows one 16-CTA cluster, a pair's sign
+    one), then [34]'s checks, generations and times at E = R = 1024, and
+    [34]'s checks and times with one untimed generation per path at
+    Up-Down's (1000, 1000, 2048) padded to it; then F9's gate at 128 and 1024: 256 rows with lp through
+    the task's row blocks (launches with no exit of their own, joined)
+    against the plain twin over the whole batch, K1, K3 and K2. A
+    ``[time]`` line after each group of phases gives its wall seconds.
 
 Then one JSON line of kernel measurements, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. No phase catches a failure.
@@ -2731,10 +2739,10 @@ def norm_phase(card: str, data) -> None:
 
 
 # [27]: XENT pretraining at the CLI's lr 5e-4, batch 64 and seed 0 on the
-# fixture's 2048 train images, for a third of the CLI's 3000 steps (the
-# whole 3000 until [37] came, then 1500; cut to keep the smoke in its time
-# limit on a slow host)
-XENT_STEPS, XENT_LR, XENT_BATCH = 1000, 5e-4, 64
+# fixture's 2048 train images, for a sixth of the CLI's 3000 steps (the
+# whole 3000 until [37] came, then 1500, then 1000 until [38]; cut to keep
+# the smoke in its time limit on a slow host)
+XENT_STEPS, XENT_LR, XENT_BATCH = 500, 5e-4, 64
 # [27]: the card's loss within XENT_LOSS_RTOL of the CPU's, its gradient
 # within XENT_GRAD_RTOL plus XENT_GRAD_ATOL x the CPU gradient's largest
 # element (f32 sums in cuBLAS's order against the CPU's, TF32 off)
@@ -5223,6 +5231,19 @@ WIDE_MEMBERS, WIDE_LANES = 48, 5
 WIDE_ROWS, WIDE_GENS = 5000, 1
 # [34]: K4's vocab tile (Vpad / 5)
 WIDE_TILE = 1920
+# [34], [37], [38]: the plain twins, K3's table (all WIDE_LANES lanes) and
+# K2's gates on the first TWIN_CHUNK members or pairs, decode_rows' twin on
+# its first TWIN_ROWS rows (all 48 and all 5000 until [38] came: the chunk
+# keeps the smoke in its time limit)
+TWIN_CHUNK, TWIN_ROWS = 8, 1024
+# [38]: the widest library (K-W3), and P3, Up-Down's captioner (Anderson et
+# al. 2018, section 3.2.3: a 1000-wide word embedding and LSTM on 2048-d
+# pooled features) zero-padded to it (one untimed generation per path: its
+# kernels run at 1024's shapes)
+W3 = 1024
+P3 = ("P3", (1000, 1000, 2048))
+# [38]: F9's gate, the batch of the task's row blocks, at these widths
+F9_ROWS, F9_WIDTHS = 256, (128, 1024)
 
 
 # [34]: the niceness of the wide builds, which start once [1]'s build of
@@ -5233,9 +5254,10 @@ WIDE_BUILD_NICE = 10
 
 
 def start_wide_builds() -> dict:
-    """The libraries of WIDE built in threads beside the rest of the run, at
-    niceness WIDE_BUILD_NICE: {width: future of (library, ptxas report,
-    seconds)}."""
+    """The libraries of WIDE and then of W3 ([38]) built in threads beside
+    the rest of the run at niceness WIDE_BUILD_NICE, two at a time (the
+    three at once held [1]-[11] 17 s longer): {width: future of (library,
+    ptxas report, seconds)}."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
@@ -5246,13 +5268,13 @@ def start_wide_builds() -> dict:
         return lib, report, time.time() - t0
 
     pool = ThreadPoolExecutor(len(WIDE))
-    futures = {w: pool.submit(build, w) for w in WIDE}
+    futures = {w: pool.submit(build, w) for w in WIDE + (W3,)}
     pool.shutdown(wait=False)
     return futures
 
 
 def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
-               dev) -> list:
+               dev, gens: int = WIDE_GENS) -> list:
     """[34]'s and [37]'s checks of one captioner on its kernel library.
     ``make_task(**tpu)`` builds its task in scripts/torch_model_scale.py's
     regime (on the card the decode layout pads a shape no library is built
@@ -5277,7 +5299,13 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
     (decode_rows), each kernel's launches counted around its path; every
     kernel timed beside its plain twin, a cuBLAS yardstick at the model's
     own widths and its bound on the model's own operations; one profiled
-    generation. Returns the kernels line's rows, ``<kernel>_<suffix>``."""
+    generation. The plain twins, K3's table (all WIDE_LANES lanes) and
+    K2's gates are held on the first TWIN_CHUNK members or pairs (and
+    decode_rows' twin on its first TWIN_ROWS rows), the kernel-to-kernel
+    gates of K4, K5 and K6 on the whole chunk. ``gens`` timed generations
+    per path after a warm-up, or with 0 one untimed generation per path
+    (the same gates and launch counts). Returns the kernels line's rows,
+    ``<kernel>_<suffix>``."""
     import torch
 
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
@@ -5319,6 +5347,10 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
     feats2 = feats[:M // 2].repeat_interleave(2, 0)   # (M, B, F)
     params = {dt: lay.prep(members, dt)
               for dt in (torch.float32, torch.bfloat16)}
+    # the plain twins' chunk
+    tM, tP = min(TWIN_CHUNK, M), min(TWIN_CHUNK, P)
+    tparams = {dt: {k: v[:tM] for k, v in prm.items()}
+               for dt, prm in params.items()}
     log(f"{tag}: (E, R, F) = ({E0}, {R0}, {Fd}) laid out at W = {W}, "
         f"F_k = {lay.sizes['F']}: {task.spec.num_params:,} params, dim_dec "
         f"{lay.dim_dec:,} ({lay0.dim_dec:,} unpadded), {R} rows per CTA "
@@ -5326,11 +5358,11 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
     err = {}
 
     # ---- K1 against its plain twin
-    for dt, prm in params.items():
+    for dt, prm in tparams.items():
         for need_lp in (True, False):
-            seq_k, lp_k = dc.decode_fused(prm, feats2, T, need_lp)
+            seq_k, lp_k = dc.decode_fused(prm, feats2[:tM], T, need_lp)
             seq_p, lp_p, gap_p = dc.decode_fused_plain(
-                prm, feats2, T, need_lp, top2_gap=True)
+                prm, feats2[:tM], T, need_lp, top2_gap=True)
             torch.cuda.synchronize()
             if dt == torch.float32:
                 share, n_diff = check_near_ties(
@@ -5363,11 +5395,11 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
             # as K1's: f32 rows may differ from the twin only at near-ties,
             # and lp is held to it on the rows that agree
             seq_p, lp_p, gap_p = dc.decode_tiled_plain(
-                prm, feats2, WIDE_TILE, T, top2_gap=True)
-            _, n_diff4 = check_near_ties(seq4, seq_p, gap_p,
+                tparams[dt], feats2[:tM], WIDE_TILE, T, top2_gap=True)
+            _, n_diff4 = check_near_ties(seq4[:tM], seq_p, gap_p,
                                          f"{tag} K4 f32", F32_TIE_GAP)
-            same = (seq4 == seq_p).all(-1)
-            err["K4"] = float((lp4 - lp_p).abs()[same].max())
+            same = (seq4[:tM] == seq_p).all(-1)
+            err["K4"] = float((lp4[:tM] - lp_p).abs()[same].max())
             if err["K4"] > LP_F32_TOL:
                 raise AssertionError(f"{tag} K4 f32 lp {err['K4']}")
     log(f"{tag} K4 at vocab tile {WIDE_TILE}: tokens bitwise K1's at f32 "
@@ -5379,19 +5411,19 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
     # stream's table, and the table form against its plain twin
     lanes = np.random.default_rng(seed).integers(
         0, 2**32, size=(M, WIDE_LANES), dtype=np.uint32)
-    table = torch.empty((M, WIDE_LANES, T, B, Vpad), device=dev)
-    for m in range(M):
+    table = torch.empty((tM, WIDE_LANES, T, B, Vpad), device=dev)
+    for m in range(tM):
         for ln in range(WIDE_LANES):
             for t in range(T):
                 table[m, ln, t] = dc.gumbel_table(int(lanes[m, ln]), t,
                                                   B, Vpad, dev)
-    for dt, prm in params.items():
-        seq_s, lp_s = dc.decode_fused(prm, feats2, T, True, greedy=False,
-                                      seeds=lanes)
-        seq_t, lp_t = dc.decode_fused(prm, feats2, T, True, greedy=False,
-                                      gumbel=table)
+    for dt, prm in tparams.items():
+        seq_s, lp_s = dc.decode_fused(prm, feats2[:tM], T, True,
+                                      greedy=False, seeds=lanes[:tM])
+        seq_t, lp_t = dc.decode_fused(prm, feats2[:tM], T, True,
+                                      greedy=False, gumbel=table)
         seq_p, lp_p, gap_p = dc.decode_sample_plain(
-            prm, feats2, T, True, gumbel=table, top2_gap=True)
+            prm, feats2[:tM], T, True, gumbel=table, top2_gap=True)
         torch.cuda.synchronize()
         if not (torch.equal(seq_s, seq_t) and torch.equal(lp_s, lp_t)):
             raise AssertionError(f"{tag} K3 {dt}: the seed stream "
@@ -5404,7 +5436,7 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
             err["K3"] = float((lp_t - lp_p).abs()[same].max())
             if err["K3"] > LP_F32_TOL:
                 raise AssertionError(f"{tag} K3 f32 lp {err['K3']}")
-        log(f"{tag} K3 {dt}, {M} members x {WIDE_LANES} lanes x {B} "
+        log(f"{tag} K3 {dt}, {tM} members x {WIDE_LANES} lanes x {B} "
             f"rows: the seed stream bitwise K3 fed its table; the table "
             f"form {share:.4%} of rows identical to its plain twin, "
             f"{n_diff} at near-ties" + (
@@ -5422,34 +5454,36 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
     if not (torch.equal(seq_r, torch.cat([b[0] for b in blocks]))
             and torch.equal(lp_r, torch.cat([b[1] for b in blocks]))):
         raise AssertionError(f"{tag} decode_rows: not K1 per block")
-    seq_rp, lp_rp, gap_rp = dc.decode_rows_plain(one, vfeats, T, True,
+    nr = TWIN_ROWS
+    seq_rp, lp_rp, gap_rp = dc.decode_rows_plain(one, vfeats[:nr], T, True,
                                                  top2_gap=True)
     torch.cuda.synchronize()
-    share, n_diff = check_near_ties(seq_r, seq_rp, gap_rp,
+    share, n_diff = check_near_ties(seq_r[:nr], seq_rp, gap_rp,
                                     f"{tag} decode_rows bf16")
-    same = (seq_r == seq_rp).all(-1)
-    err["rows"] = float((lp_r - lp_rp).abs()[same].max())
+    same = (seq_r[:nr] == seq_rp).all(-1)
+    err["rows"] = float((lp_r[:nr] - lp_rp).abs()[same].max())
     if err["rows"] > LP_BF16_TOL:
         raise AssertionError(f"{tag} decode_rows lp {err['rows']}")
     log(f"{tag} decode_rows over {WIDE_ROWS} rows: bitwise "
-        f"{len(blocks)} launches of K1 on 128 rows; {share:.4%} of rows "
+        f"{len(blocks)} launches of K1 on 128 rows; of the first {nr}, "
+        f"{share:.4%} of rows "
         f"identical to its plain twin, {n_diff} at near-ties, max |lp - "
         f"plain| {err['rows']:.3g}")
     # ---- K2 on 48 pairs: bitwise K1 on prep(base ± delta)
     base = lay.prep(base_vec, torch.float32)
     for ddt in (torch.bfloat16, torch.float32):
-        dp = lay.prep(d32.to(ddt), ddt)
+        dp = lay.prep(d32[:tP].to(ddt), ddt)
         for dt in (torch.bfloat16, torch.float32):
-            seq2, lp2 = dc.decode_pair_perturb(base, dp, feats, T, dt,
+            seq2, lp2 = dc.decode_pair_perturb(base, dp, feats[:tP], T, dt,
                                                True)
-            mem = torch.stack([base_vec + d32.to(ddt).float(),
-                               base_vec - d32.to(ddt).float()],
-                              1).reshape(2 * P, -1)
+            mem = torch.stack([base_vec + d32[:tP].to(ddt).float(),
+                               base_vec - d32[:tP].to(ddt).float()],
+                              1).reshape(2 * tP, -1)
             prm = lay.prep(mem, dt)
-            f2 = feats.repeat_interleave(2, 0)
+            f2 = feats[:tP].repeat_interleave(2, 0)
             seq1, lp1 = dc.decode_fused(prm, f2, T, True)
-            lp_k1 = float((lp2.reshape(2 * P, B, T) - lp1).abs().max())
-            if not torch.equal(seq2.reshape(2 * P, B, T), seq1) \
+            lp_k1 = float((lp2.reshape(2 * tP, B, T) - lp1).abs().max())
+            if not torch.equal(seq2.reshape(2 * tP, B, T), seq1) \
                     or lp_k1 > 2e-5:
                 raise AssertionError(
                     f"{tag} K2 {dt}, delta {ddt}: not K1 on "
@@ -5461,13 +5495,13 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
                 F32_TIE_GAP if dt == torch.float32 else 1e-2)
             if dt == torch.float32:
                 same = (seq1 == seq_p).all(-1)
-                e = float((lp2.reshape(2 * P, B, T)
+                e = float((lp2.reshape(2 * tP, B, T)
                            - lp_p).abs()[same].max())
                 if e > LP_F32_TOL:
                     raise AssertionError(f"{tag} K2 f32: lp "
                                          f"{e:.3g} > {LP_F32_TOL}")
                 err.setdefault("K2", e)
-            log(f"{tag} K2 {dt}, delta {ddt}, {P} pairs: tokens "
+            log(f"{tag} K2 {dt}, delta {ddt}, {tP} pairs: tokens "
                 f"bitwise K1's on prep(base ± delta), max |lp - K1| "
                 f"{lp_k1:.3g}; {share:.4%} of rows identical to the "
                 f"plain twin, {n_diff} at near-ties")
@@ -5484,8 +5518,9 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
                                        torch.bfloat16, True)
     if not (torch.equal(seq5, seq2) and torch.equal(lp5, lp2)):
         raise AssertionError(f"{tag} K5: not K2 fed K7's dump")
-    dump_p = dc.pair_delta_dump_plain(scale, gseeds[:P])
-    err["K7"] = max(float((dump[k] - dump_p[k]).abs().max()) for k in dump)
+    dump_p = dc.pair_delta_dump_plain(scale, gseeds[:tP])
+    err["K7"] = max(float((dump[k][:tP] - dump_p[k]).abs().max())
+                    for k in dump)
     del dump, dump_p
     w6 = torch.as_tensor(np.random.default_rng(seed).uniform(
         -1, 1, size=SCALE["pairs"]).astype(np.float32), device=dev)
@@ -5512,8 +5547,21 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
         f"{task.spec.num_params:,} long")
 
     # ---- the main path: torch_model_scale's generation
-    seeds, batches = scale_inputs(task, WIDE_GENS + 1)
+    del tparams, params[torch.float32]
+    torch.cuda.empty_cache()
+    seeds, batches = scale_inputs(task, max(gens, 1) + 1)
     n_chunks = -(-SCALE["pairs"] // P)
+
+    def generations(eng, s, b):
+        """run_generations, or (gens 0) one untimed generation: (theta,
+        packed vectors, ms each)."""
+        if gens:
+            return run_generations(eng, theta, s[:gens + 1], b[:gens + 1])
+        th, _, packed = eng.generation(
+            theta, eng.optimizer.init(eng.dim, dev), torch.ones_like(theta),
+            SCALE["sigma"], s[0], b[0], SCALE["stepsize"], SCALE["l2coeff"])
+        torch.cuda.synchronize()
+        return th, packed[None], []
     counters = (dc.decode_fused, dc.decode_pair_perturb,
                 dc.decode_pair_rng, dc.pair_grad_rng, dc.decode_sample,
                 dc.decode_tiled, dc.decode_rows, dc.pair_delta_dump)
@@ -5524,17 +5572,18 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
         eng = scale_engine(task, **kw)
         for c in counters:
             c.launches = 0
-        runs[path] = (eng,) + run_generations(eng, theta, seeds, batches)
+        runs[path] = (eng,) + generations(eng, seeds, batches)
         counts[path] = tuple(c.launches for c in counters)
         th, packs, times = runs[path][1:]
-        log(f"{tag} {path}: {WIDE_GENS} generations after a "
-            f"warm-up, ms each {[round(t, 3) for t in times]}, median "
-            f"{np.median(times):.3f}; launches (K1, K2, K5, K6) "
-            f"{counts[path][:4]} ({card})")
-    want = n_chunks * (WIDE_GENS + 1)
+        log(f"{tag} {path}: " + (
+            f"{gens} generations after a warm-up, ms each "
+            f"{[round(t, 3) for t in times]}, median {np.median(times):.3f}"
+            if gens else "one generation (untimed)")
+            + f"; launches (K1, K2, K5, K6) {counts[path][:4]} ({card})")
+    want = n_chunks * (gens + 1)
     if counts["pair kernel"][:4] != (0, want, 0, 0) \
             or counts["per-member"][:4] != (want, 0, 0, 0) \
-            or counts["kernel noise"][:4] != (0, 0, want, WIDE_GENS + 1):
+            or counts["kernel noise"][:4] != (0, 0, want, gens + 1):
         raise AssertionError(f"{tag} launch counts {counts}")
     (_, th_a, pk_a, t_a), (_, th_b, pk_b, _) = (runs["pair kernel"],
                                                 runs["per-member"])
@@ -5564,6 +5613,9 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
         f"bit (packed vectors, theta); fitnesses finite, theta moved; "
         f"the kernel-noise generation bit for bit the delta-operand one "
         f"fed K7's dumps")
+    eng = runs["pair kernel"][0]  # profiled below
+    del runs, eng_n, eng_d, outs
+    torch.cuda.empty_cache()
     # K3 and K4 on their path: a self_critical generation with
     # decode_vocab_tile 1920 (K3 samples, K4 baselines); decode_rows on
     # validate_device's
@@ -5572,8 +5624,7 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
     sc_eng = scale_engine(sc_task)
     for c in counters:
         c.launches = 0
-    _, sc_packs, sc_times = run_generations(sc_eng, theta, seeds[:2],
-                                            batches[:2])
+    _, sc_packs, sc_times = generations(sc_eng, seeds[:2], batches[:2])
     counts["self_critical"] = tuple(c.launches for c in counters)
     vconsts = task.device_val_consts()
     for c in counters:
@@ -5587,8 +5638,9 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
                              f"launches {counts}, fitness finite "
                              f"{bool(torch.isfinite(sc_packs).all())}, "
                              f"val {val}")
-    log(f"{tag} self_critical with decode_vocab_tile {WIDE_TILE}: 2 "
-        f"generations {[round(t, 3) for t in sc_times]} ms, K3 "
+    log(f"{tag} self_critical with decode_vocab_tile {WIDE_TILE}: "
+        f"{len(sc_times) + 1} generations, timed "
+        f"{[round(t, 3) for t in sc_times]} ms, K3 "
         f"{counts['self_critical'][4]} and K4 {counts['self_critical'][5]}"
         f" launches; validate_device over {vconsts['feats'].shape[0]} val "
         f"images: one decode_rows launch, CIDEr {val:.6f} ({card})")
@@ -5647,7 +5699,8 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
 
     p16_0 = own(members, torch.bfloat16)
     one_0 = {k: v[0] for k, v in p16_0.items()}
-    pair16 = own(torch.cat([members, members])[:2 * P], torch.bfloat16)
+    # the pair yardstick's 2P members: the M members twice over, as bf16
+    pair16 = {k: torch.cat([v, v])[:2 * P] for k, v in p16_0.items()}
     base_0 = own(base_vec, torch.float32)
     dp32_0 = own(d32, torch.float32, 0.0)
     scale_0 = lay0.to_dec(lay.from_dec(scale_dec), 0.0)
@@ -5730,15 +5783,19 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
             "decode_pair_perturb": err["K2"], "decode_pair_rng": 0.0,
             "pair_grad_rng": 0.0, "pair_delta_dump": err["K7"]}
     pinfo = dc.pair_cluster_info(torch.bfloat16, torch.float32, width=W)
+    # 2 signs per cluster, or (at 1024) a cluster per sign
+    signs = pinfo["cluster"] // (2 * pinfo["row_blocks"])
+    n_cl = P * 2 // signs
     log(f"{tag} the pair kernel (K2, K5's decode) at {P} pairs x {B} rows, "
-        f"f32 delta: {P} clusters of {pinfo['cluster']} CTAs "
-        f"({pinfo['row_blocks']} row blocks x 2 signs x 2 halves), "
+        f"f32 delta: {n_cl} clusters of {pinfo['cluster']} CTAs "
+        f"({pinfo['row_blocks']} row blocks x {signs} sign"
+        f"{'s' if signs > 1 else ''} x 2 halves), "
         f"cudaOccupancyMaxActiveClusters {pinfo['max_active_clusters']}: "
-        f"{P / pinfo['max_active_clusters']:.2f} waves; K2 "
+        f"{n_cl / pinfo['max_active_clusters']:.2f} waves; K2 "
         f"{k_ms['decode_pair_perturb']:.3f} ms, K5 "
         f"{k_ms['decode_pair_rng']:.3f} ms per launch ({card})")
-    ctas = {"decode_pair_perturb": pinfo["cluster"] * P,
-            "decode_pair_rng": pinfo["cluster"] * P}
+    ctas = {"decode_pair_perturb": pinfo["cluster"] * n_cl,
+            "decode_pair_rng": pinfo["cluster"] * n_cl}
     for name in k_ms:
         b_ms, b_by = bounds[name][:2]
         rows_out.append({
@@ -5757,7 +5814,6 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
             f"{plain[name]:.3f} ms, cuBLAS yardstick {lib_txt}, bound "
             f"{b_ms:.4f} ms by {b_by}, {b_ms / k_ms[name]:.1%} of it); "
             f"{launches[name]} launches on its path ({card})")
-    eng = runs["pair kernel"][0]
     wall_ms, busy, prof = profile_call(lambda: eng.generation(
         theta, eng.optimizer.init(eng.dim, dev), torch.ones_like(theta),
         SCALE["sigma"], seeds[0], batches[0], SCALE["stepsize"],
@@ -5767,10 +5823,64 @@ def shape_case(tag: str, card: str, make_task, suffix: str, seed: int,
         f"{1 - busy / wall_ms:.2%}) ({card})")
     for ms, count, key in prof[:8]:
         log(f"    {ms:10.3f} ms  x{count:<5d} {key[:90]}")
-    del task, runs, eng, eng_n, eng_d, params, p16, members, d32, dp32
+    del task, eng, params, p16, members, d32, dp32
     del p16_0, one_0, base_0, dp32_0
     torch.cuda.empty_cache()
     return rows_out
+
+
+def library_report(phase: str, W: int, builds: dict) -> None:
+    """The library of E = R = ``W`` from ``builds``: its build time, ptxas
+    registers and spills, and both cluster kernels' launch shapes (rows per
+    cluster, shared memory, ring slots, cudaOccupancyMaxActiveClusters),
+    checked against cluster_rows(W)."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+
+    lib, report, build_s = builds[W].result()
+    log(f"{phase} E = R = {W}: {lib.name} built in {build_s:.1f} s (queued "
+        f"after [1]'s build, two at a time; its own wall time)")
+    for name, line in ptxas_lines(report):
+        if "decode" in name or "_kernel<" in name:
+            log(f"    ptxas {name}: {line}")
+    R = dc.cluster_rows(W)
+    for wdt, ddt in ((torch.bfloat16, torch.bfloat16),
+                     (torch.bfloat16, torch.float32),
+                     (torch.float32, torch.bfloat16),
+                     (torch.float32, torch.float32)):
+        info = dc.pair_cluster_info(wdt, ddt, width=W)
+        signs = 1 if info["cluster"] == 2 * info["row_blocks"] else 2
+        if info["ring_slots"] < 2 or info["rows"] != R \
+                or info["row_blocks"] != 128 // R \
+                or info["cluster"] > 16 or (signs == 1 and W < 1024):
+            raise AssertionError(f"{phase} pair kernel at {W}: {info}")
+        log(f"{phase} W={W} pair kernel, weights {wdt}, delta {ddt}: "
+            f"one cluster of {info['cluster']} CTAs per "
+            f"{'pair' if signs == 2 else 'sign of a pair'} at 128 "
+            f"rows ({info['row_blocks']} blocks of {info['rows']} rows x "
+            f"{signs} sign{'s' if signs == 2 else ''} x 2 halves), "
+            f"{info['smem_bytes']} B shared memory, "
+            f"{info['ring_slots']} ring slots ({info['tile_rows']}-row "
+            f"gate tiles, {info['tiles_in_flight']} in flight), "
+            f"cudaOccupancyMaxActiveClusters "
+            f"{info['max_active_clusters']}")
+    for wdt, sampled in ((torch.bfloat16, False), (torch.float32, False),
+                         (torch.bfloat16, True)):
+        info = dc.member_cluster_info(wdt, sampled, width=W)
+        if info["ring_slots"] < 2 or info["rows"] != R \
+                or info["row_blocks"] != 128 // R \
+                or info["cluster"] != 2 * (128 // R):
+            raise AssertionError(f"{phase} member kernel at {W}: {info}")
+        log(f"{phase} W={W} member kernel ({'K3' if sampled else 'K1, K4'}"
+            f"), weights {wdt}: one cluster of {info['cluster']} CTAs "
+            f"per member{' and lane' if sampled else ''} at 128 rows "
+            f"({info['row_blocks']} blocks of {info['rows']} rows x 2 "
+            f"halves), {info['smem_bytes']} B shared memory, "
+            f"{info['ring_slots']} ring slots ({info['tile_rows']}-row "
+            f"gate tiles, {info['tiles_in_flight']} in flight), "
+            f"cudaOccupancyMaxActiveClusters "
+            f"{info['max_active_clusters']}")
 
 
 def widths_phase(card: str, data, builds: dict, dev=None) -> list:
@@ -5790,44 +5900,7 @@ def widths_phase(card: str, data, builds: dict, dev=None) -> list:
     dev = torch.device("cuda") if dev is None else dev
     rows_out = []
     for W in WIDE:
-        lib, report, build_s = builds[W].result()
-        log(f"[34] E = R = {W}: {lib.name} built in {build_s:.1f} s (started "
-            f"after [1]'s build; its own wall time)")
-        for name, line in ptxas_lines(report):
-            if "decode" in name or "_kernel<" in name:
-                log(f"    ptxas {name}: {line}")
-        R = dc.cluster_rows(W)
-        for wdt, ddt in ((torch.bfloat16, torch.bfloat16),
-                         (torch.bfloat16, torch.float32),
-                         (torch.float32, torch.bfloat16),
-                         (torch.float32, torch.float32)):
-            info = dc.pair_cluster_info(wdt, ddt, width=W)
-            if info["ring_slots"] < 2 or info["rows"] != R:
-                raise AssertionError(f"[34] pair kernel at {W}: {info}")
-            log(f"[34] W={W} pair kernel, weights {wdt}, delta {ddt}: "
-                f"one cluster of {info['cluster']} CTAs per pair at 128 "
-                f"rows ({info['row_blocks']} blocks of {info['rows']} rows x "
-                f"2 signs x 2 halves), {info['smem_bytes']} B shared memory, "
-                f"{info['ring_slots']} ring slots ({info['tile_rows']}-row "
-                f"gate tiles, {info['tiles_in_flight']} in flight), "
-                f"cudaOccupancyMaxActiveClusters "
-                f"{info['max_active_clusters']}")
-        for wdt, sampled in ((torch.bfloat16, False), (torch.float32, False),
-                             (torch.bfloat16, True)):
-            info = dc.member_cluster_info(wdt, sampled, width=W)
-            if info["ring_slots"] < 2 or info["rows"] != R \
-                    or info["row_blocks"] != 128 // R \
-                    or info["cluster"] != 2 * (128 // R):
-                raise AssertionError(f"[34] member kernel at {W}: {info}")
-            log(f"[34] W={W} member kernel ({'K3' if sampled else 'K1, K4'}"
-                f"), weights {wdt}: one cluster of {info['cluster']} CTAs "
-                f"per member{' and lane' if sampled else ''} at 128 rows "
-                f"({info['row_blocks']} blocks of {info['rows']} rows x 2 "
-                f"halves), {info['smem_bytes']} B shared memory, "
-                f"{info['ring_slots']} ring slots ({info['tile_rows']}-row "
-                f"gate tiles, {info['tiles_in_flight']} in flight), "
-                f"cudaOccupancyMaxActiveClusters "
-                f"{info['max_active_clusters']}")
+        library_report("[34]", W, builds)
         rows_out += shape_case(
             f"[34] W={W}", card,
             lambda W=W, **kw: scale_task(W, dev, data, **kw), f"w{W}", W,
@@ -5878,7 +5951,7 @@ def padded_phase(card: str, data, builds: dict, dev=None) -> list:
         rows_out += shape_case(
             f"[37] {name}", card,
             lambda s=shape, d=shape_data, **kw: scale_task(s, dev, d, **kw),
-            name.lower(), E + R + F, dev)
+            name.lower(), E + R + F, dev, gens=0)
         if name != "P2":
             continue
         runs_dir = os.path.join("logs", f"chip_smoke_padded_{os.getpid()}")
@@ -5918,6 +5991,185 @@ def padded_phase(card: str, data, builds: dict, dev=None) -> list:
     return rows_out
 
 
+def batch_exit_gate(card: str, data, W: int, dev) -> int:
+    """F9 at E = R = ``W``: a batch of F9_ROWS rows with lp asked for, f32,
+    through the task's row blocks of 128 (``CocoTask._by_rows``: launches
+    with no exit of their own, ``join_row_blocks``) is the one-launch
+    result, the plain twin's over the whole batch at once: K1
+    (``_greedy``), K3 (``_sample``, 2 lanes) and K2 (the pair rollout's
+    blocks), rows differing only at near-ties (F32_TIE_GAP) and lp within
+    LP_F32_TOL at every position of the rows that agree. Rows 128.. share
+    one blank (zero) image, theta is the init's times 3, and an EOS bias (from the plain twin: 9 in -4..12, then 9
+    within 1 of the first that ends a row) ends that block before the
+    other's last row, so its finished rows write their
+    argmax lp while the batch decodes on (a block with its own exit would
+    write 0 there). Returns the count of such positions over the three
+    kernels (0 where no bias ends one block before the other: the
+    whole-batch gate still holds)."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from scripts.torch_model_scale import scale_task
+
+    t0 = time.time()
+    B = F9_ROWS
+    n_past = 0
+    task = scale_task(W, dev, data, fitness="sc_loss")
+    lay, T = task.decode_layout, task.model.options.seq_length
+    gen = torch.Generator(device=dev).manual_seed(W + 9)
+    theta = task.generate_theta(gen) * 3  # rows that differ by image
+    sc = lay.to_dec(torch.full_like(theta, 0.01), pad_scale=0.0)
+    members = torch.stack([lay.to_dec(theta), lay.to_dec(theta * 0.9)])
+    delta = lay.prep(torch.stack([sc * torch.randn(
+        lay.dim_dec, generator=gen, device=dev) for _ in range(2)]),
+        torch.float32)
+    idx = torch.as_tensor(np.random.default_rng(W).integers(
+        0, task.train_n, size=(2, B)), device=dev)
+    feats = task.train_fc[idx]
+    feats[:, 128:] = 0.0  # the second block: one blank image
+    seeds = np.array([[11, 12], [13, 14]], np.uint32)
+    f32 = torch.float32
+
+    for kernel in ("K1", "K3", "K2"):
+        if kernel == "K2":
+            params = lay.prep(members[0], f32)
+            bias = params["logit_b"][0]
+
+            def plain(p, gap=False):
+                seq, lp = dc.decode_pair_perturb_plain(p, delta, feats, T,
+                                                       f32, True)
+                if not gap:
+                    return seq, lp
+                g = torch.stack([dc.decode_fused_plain(
+                    dc._perturbed(p, {k: v[i] for k, v in delta.items()},
+                                  s, f32), feats[i], T, True,
+                    top2_gap=True)[2] for i in range(2)
+                    for s in (1.0, -1.0)]).reshape(seq.shape)
+                return seq, lp, g
+
+            def run(p):
+                return task._by_rows(lambda lo, hi, hold: dc.decode_pair_perturb(
+                    p, delta, feats[:, lo:hi], T, f32, True, min_steps=hold),
+                    B, 2, True)
+        else:
+            params = lay.prep(members, f32)
+            bias = params["logit_b"][:, 0]
+            if kernel == "K3":
+                def plain(p, gap=False):
+                    return dc.decode_sample_plain(p, feats, T, True,
+                                                  seeds=seeds, top2_gap=gap)
+
+                def run(p):
+                    return task._sample(p, feats, seeds)
+            else:
+                def plain(p, gap=False):
+                    return dc.decode_fused_plain(p, feats, T, True,
+                                                 top2_gap=gap)
+
+                def run(p):
+                    return task._greedy(p, feats, need_logprobs=True)
+
+        def block_gap(seq):  # how long the one-image block ends before
+            a = executed_steps(seq[..., :128, :], T)
+            b = executed_steps(seq[..., 128:, :], T)
+            return int((a - b).max())
+
+        # a coarse scan finds where rows begin to end, a fine one around it
+        # the bias that ends the one-image block longest before the other
+        best, start = None, None
+        for lo, hi in ((-4.0, 12.0), (None, None)):
+            if lo is None:
+                lo, hi = (start - 1.0, start + 1.0) if start is not None \
+                    else (-4.0, 12.0)
+            for b0 in np.linspace(lo, hi, 9):
+                bias[..., 0] = float(b0)
+                seq_b = plain(params)[0]
+                n = block_gap(seq_b)
+                if start is None and bool((seq_b == 0).any()):
+                    start = float(b0)
+                if best is None or n > best[0]:
+                    best = (n, float(b0))
+        bias[..., 0] = best[1]
+        launches = (dc.decode_fused.launches, dc.decode_sample.launches,
+                    dc.decode_pair_perturb.launches)
+        seq, lp = run(params)
+        launches = tuple(a - b for a, b in zip(
+            (dc.decode_fused.launches, dc.decode_sample.launches,
+             dc.decode_pair_perturb.launches), launches))
+        seq_p, lp_p, gap_p = plain(params, True)
+        torch.cuda.synchronize()
+        share, n_diff = check_near_ties(seq, seq_p, gap_p,
+                                        f"[38] F9 W={W} {kernel}",
+                                        F32_TIE_GAP)
+        same = (seq == seq_p).all(-1)
+        e = float((lp - lp_p).abs()[same].max())
+        zero = seq == 0
+        first = torch.where(zero.any(-1), zero.int().argmax(-1), T)
+        t = torch.arange(T, device=dev)
+        last = first.max(-1, keepdim=True).values
+        past = (t > first[..., None]) & (t <= last[..., None])
+        past_lo = past[..., 128:, :] & (
+            t > first[..., 128:].max(-1, keepdim=True).values[..., None])
+        if e > LP_F32_TOL or (best[0] > 0 and not (
+                past_lo.any() and (lp[..., 128:, :][past_lo] < 0).any())) \
+                or launches != {"K1": (2, 0, 0), "K3": (0, 2, 0),
+                                "K2": (0, 0, 2)}[kernel]:
+            raise AssertionError(
+                f"[38] F9 W={W} {kernel}: lp {e:.3g}, positions past the "
+                f"block's own exit {int(past_lo.sum())}, launches "
+                f"{launches}")
+        log(f"[38] F9 W={W} {kernel}: {B} rows in 2 launches with no exit "
+            f"of their own, EOS bias {best[1]:.1f} (the one-image block "
+            f"ends {best[0]} steps before the batch): {share:.2%} of rows "
+            f"the plain twin's over the whole batch, {n_diff} at near-ties, "
+            f"max |lp - plain| {e:.3g} at every step; "
+            f"{int(past_lo.sum())} positions past that block's own exit "
+            f"hold its rows' argmax lp ({card})")
+        n_past += int(past_lo.sum())
+    del task
+    torch.cuda.empty_cache()
+    log(f"[38] F9's gate at W={W} in {time.time() - t0:.1f} s")
+    return n_past
+
+
+def w1024_phase(card: str, data, builds: dict, dev=None) -> list:
+    """Phase 38: K-W3, the decode kernels at E = R = W3 = 1024 on the
+    library built beside the run ([34]'s builds): its build time, ptxas
+    registers and spills and both cluster kernels' launch shapes
+    (``library_report``); ``shape_case``'s gates, generations and times at
+    E = R = 1024, and at P3 zero-padded to it with one untimed generation
+    per path (its kernels run at 1024's shapes, its yardstick and bounds
+    at its own); then F9's gate at F9_WIDTHS
+    (``batch_exit_gate``), blocks that
+    end at different steps at one width at least. Returns the kernels
+    line's rows."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
+    from scripts.torch_model_scale import scale_task
+
+    t_phase = time.time()
+    dev = torch.device("cuda") if dev is None else dev
+    library_report("[38]", W3, builds)
+    rows_out = shape_case(
+        f"[38] W={W3}", card,
+        lambda **kw: scale_task(W3, dev, data, **kw), f"w{W3}", W3, dev)
+    name, shape = P3
+    E, R, F = shape
+    if dc.kernel_shape(E, R, F)[0] != W3:
+        raise AssertionError(f"[38] {name} {shape}: not laid out at {W3}")
+    rows_out += shape_case(
+        f"[38] {name}", card,
+        lambda **kw: scale_task(shape, dev, data, **kw), name.lower(),
+        E + R + F, dev, gens=0)
+    n_past = sum(batch_exit_gate(card, data, W, dev) for W in F9_WIDTHS)
+    if not n_past:
+        raise AssertionError("[38] F9: at no width did a block end before "
+                             "another (no position past a block's own exit)")
+    log(f"[38] the 1024 library in {time.time() - t_phase:.1f} s ({card})")
+    return rows_out
+
+
 def main() -> int:
     import torch
 
@@ -5943,8 +6195,8 @@ def main() -> int:
     # from here
     wide_builds = start_wide_builds()
     log(f"[1] kernels built in {time.time() - t0:.1f} s: {lib.name} (the "
-        f"libraries of E = R = {', '.join(map(str, WIDE))} build from here "
-        "on, beside the phases)")
+        f"libraries of E = R = {', '.join(map(str, WIDE + (W3,)))} build "
+        "from here on, beside the phases)")
     for name, line in ptxas_lines(report):
         log(f"    ptxas {name}: {line}")
     for wdt, ddt in ((torch.bfloat16, torch.bfloat16),
@@ -6612,8 +6864,10 @@ def main() -> int:
     kernels += widths_phase(card, task.data, wide_builds)
     t_lap = lap(t_lap, "[34]")
     kernels += padded_phase(card, task.data, wide_builds)
-    lap(t_lap, "[37]")
-    log(f"[end] phases [1]-[37] in {time.time() - t_smoke:.1f} s with the "
+    t_lap = lap(t_lap, "[37]")
+    kernels += w1024_phase(card, task.data, wide_builds)
+    lap(t_lap, "[38]")
+    log(f"[end] phases [1]-[38] in {time.time() - t_smoke:.1f} s with the "
         f"kernels' build ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,9 +9,9 @@ per-image caption comparisons.
 Each checkpoint is decoded greedily at f32, as the JAX package's
 ``model.sample`` does: on the card one row-block launch of K1 over the
 split (``tasks/captioning.greedy_rows``, the decode of ``CocoTask``'s
-validation). The kernels take any E, R <= 512 and any feature width,
-zero-padded to the next built width (128, 256, 512) and to a multiple of
-128; a wider model is refused on the card unless ``--eager_decode``
+validation). The kernels take any E, R <= 1024 and any feature width,
+zero-padded to the next built width (128, 256, 512, 1024) and to a
+multiple of 128; a wider model is refused on the card unless ``--eager_decode``
 (``eager=True``) asks for the eager decoder, which then decodes in chunks
 of ``batch_size``.
 
@@ -180,7 +180,7 @@ def run(argv=None, data: CocoData | None = None):
                         help="decode with the eager decoder instead of the "
                         "kernels (tpu.fused_decode: false); needed on the "
                         "card for input_encoding_size or rnn_size above "
-                        "512")
+                        "1024")
     args = parser.parse_args(argv)
 
     setup_logging()

@@ -51,7 +51,7 @@ kernel's design.
 Kernel sources: ``csrc/decode.cu``, built with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface (loaded with ``ctypes``) on first
 use, into ``_build/`` inside this package: one library per width E = R in
-``KERNEL_WIDTHS`` (128, 256, 512; ``-DNES_W``), each built at the first
+``KERNEL_WIDTHS`` (128, 256, 512, 1024; ``-DNES_W``), each built at the first
 launch of its width, so a run at 128 does not pay for the others. One
 ``nvcc`` with ``--split-compile=0`` runs the optimiser and ``ptxas`` on the
 file's many kernel instantiations in parallel over the machine's cores.
@@ -62,11 +62,15 @@ rows of each member, lane or pair (callers split a larger batch,
 as one batch), and a member's, lane's or sign's batch takes one early exit,
 the JAX kernel's: every row writes its token (0 once it has ended) and lp
 until no row of the batch is unfinished. A CTA holds a block of
-``cluster_rows(width)`` rows (all 128 at E = R = 128, 64 and 32 at 256 and
-512, so that its x_t and h fit its shared memory), and at 256 and 512 one
-cluster holds all of a batch's blocks: 2 column halves x 2 or 4 blocks (4
-or 8 CTAs) per member or lane, 2 signs x 2 halves x the blocks (8 or 16)
-per pair. The figures below are those of 128. The
+``cluster_rows(width)`` rows (all 128 at E = R = 128, 64, 32 and 16 at
+256, 512 and 1024, so that its x_t and h fit its shared memory), and past
+128 one cluster holds all of a batch's blocks: 2 column halves x 2, 4 or 8
+blocks (4, 8 or 16 CTAs) per member or lane, 2 signs x 2 halves x the
+blocks (8 or 16) per pair, and at 1024 2 halves x 8 blocks per sign of a
+pair (16 CTAs; 32 would exceed a cluster). A batch above 128 rows is
+decoded in launches of 128 (``tasks/captioning.py``); with lp those run
+with ``min_steps`` = T, no exit of their own, and ``join_row_blocks``
+gives the one-launch result. The figures below are those of 128. The
 17-step recurrence is serial; the work per step is three products (i2h,
 h2h: 128x128x640 each; logits: 128x128xVpad) whose
 weights (~5.8 MB per member in bf16, far above an SM's 227 KB of shared
@@ -80,7 +84,7 @@ split cluster barrier. K2 and K5 give each pair a cluster of 4 CTAs (2
 signs x 2 column halves, 96 CTAs for 24 pairs): the two signs of a half
 share each raw base and delta tile, copied once by multicast into a ring,
 and each forms ``dt(base + sign*delta)`` from it, so no perturbed weight
-vector is written out. At E = R = 256 and 512 a member's and a pair's
+vector is written out. Past E = R = 128 a member's and a pair's
 cluster also hold their row blocks: each tile reaches every block (and
 both signs) of a half by one multicast copy, each warp releases the slot
 on its own, and the member kernel reads the bf16 tile in place while the
@@ -131,7 +135,8 @@ __all__ = ["PAD_LANE", "NEG", "pad_vocab", "kernel_shape",
            "decode_rows", "decode_rows_plain",
            "gumbel_table", "gumbel_counts", "decode_pair_perturb",
            "decode_pair_perturb_plain", "decode_pair_rng",
-           "decode_pair_rng_plain", "pair_delta_dump", "pair_delta_dump_flat",
+           "decode_pair_rng_plain", "join_row_blocks", "pair_delta_dump",
+           "pair_delta_dump_flat",
            "pair_delta_dump_plain", "pair_grad_rng", "pair_grad_rng_flat",
            "pair_grad_rng_plain", "philox_words", "box_muller_table",
            "build_kernels",
@@ -144,7 +149,7 @@ NEG = -1e9
 # the first launch of that width); a launch takes at most MAX_ROWS rows of
 # each member or pair, a cluster cluster_rows(width) of them; the feature
 # width is a multiple of 128 at every width
-KERNEL_WIDTHS = (128, 256, 512)
+KERNEL_WIDTHS = (128, 256, 512, 1024)
 MAX_ROWS = 128
 FEAT_MULTIPLE = 128
 
@@ -163,8 +168,8 @@ def pad_vocab(v1: int) -> int:
 
 def cluster_rows(width: int) -> int:
     """The image rows a cluster of the kernels holds at E = R = ``width``:
-    128 * 128 / width (128, 64, 32), so that a CTA's f32 x_t and h fit its
-    shared memory (csrc/decode.cu, the note on W and ROWS)."""
+    128 * 128 / width (128, 64, 32, 16), so that a CTA's f32 x_t and h fit
+    its shared memory (csrc/decode.cu, the note on W and ROWS)."""
     _check(width in KERNEL_WIDTHS, f"E = R = {width}: the kernels take "
            f"E = R in {KERNEL_WIDTHS}")
     return MAX_ROWS * MAX_ROWS // width
@@ -262,12 +267,14 @@ def _tiled_argmax_lse(logits: torch.Tensor, vocab_tile: int,
 
 def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
                   need_logprobs: bool, *, lanes: int = 1, gumbel_at=None,
-                  vocab_tile: int = 0, top2_gap: bool = False):
+                  vocab_tile: int = 0, top2_gap: bool = False,
+                  min_steps: int = 0):
     """The plain decode shared by the twins of K1, K3 and K4. params: a
     batch of M members (leading axis), feats (M, B, F). Each member decodes
     ``lanes`` copies of its B rows, lane-major ((M, lanes * B) rows), each
     copy with its own batch-wide early exit, as one cluster of the kernels
-    and the JAX kernel's launch.
+    and the JAX kernel's launch; the exit waits until ``min_steps`` steps
+    are written (``seq_length``: no exit), as the kernels' does.
     ``gumbel_at(t)``: the (M, lanes * B, Vpad) noise of step t; the token is
     then argmax(logits + G) and lp = logit[token] - lse (K3). ``vocab_tile``:
     K4's tiled reduction. Returns (seq, lp[, gap]), each (M, lanes * B, T);
@@ -335,7 +342,7 @@ def _decode_plain(params: dict, feats: torch.Tensor, seq_length: int,
         # writes token 0 and its argmax lp
         seq.append(torch.where(row_alive, tok, 0).to(torch.int32))
         lps.append(torch.where(row_alive, lp_tok, 0.0))
-        alive = alive & unfin.view(M, lanes, B).any(-1)
+        alive = alive & (unfin.view(M, lanes, B).any(-1) | (t + 1 < min_steps))
     out = [torch.stack(seq, -1), torch.stack(lps, -1)]
     if top2_gap:
         out.append(torch.stack(gaps, -1))
@@ -346,7 +353,7 @@ def decode_fused_plain(params: dict, feats: torch.Tensor,
                        seq_length: int = 16, need_logprobs: bool = True, *,
                        greedy: bool = True, seeds=None, gumbel=None,
                        vocab_tile: int = 0, top2_gap: bool = False,
-                       row0: int = 0):
+                       row0: int = 0, min_steps: int = 0):
     """Plain twin of ``decode_fused``, the same signature: K1's for a greedy
     untiled call, else K3's (``decode_sample_plain``) or K4's
     (``decode_tiled_plain``). params: one member's dict
@@ -358,20 +365,23 @@ def decode_fused_plain(params: dict, feats: torch.Tensor,
     if not greedy:
         return decode_sample_plain(params, feats, seq_length, need_logprobs,
                                    seeds=seeds, gumbel=gumbel,
-                                   top2_gap=top2_gap, row0=row0)
+                                   top2_gap=top2_gap, row0=row0,
+                                   min_steps=min_steps)
     params, feats, single = _batched(params, feats)
     out = _decode_plain(params, feats, seq_length, need_logprobs,
-                        vocab_tile=vocab_tile, top2_gap=top2_gap)
+                        vocab_tile=vocab_tile, top2_gap=top2_gap,
+                        min_steps=min_steps)
     return tuple(o[0] for o in out) if single else out
 
 
 def decode_tiled_plain(params: dict, feats: torch.Tensor, vocab_tile: int,
                        seq_length: int = 16, need_logprobs: bool = True, *,
-                       top2_gap: bool = False):
+                       top2_gap: bool = False, min_steps: int = 0):
     """Plain twin of K4: K1's decode with the logits reduced over vocab
     tiles of ``vocab_tile`` columns (a multiple of 128 dividing Vpad)."""
     return decode_fused_plain(params, feats, seq_length, need_logprobs,
-                              vocab_tile=vocab_tile, top2_gap=top2_gap)
+                              vocab_tile=vocab_tile, top2_gap=top2_gap,
+                              min_steps=min_steps)
 
 
 def decode_rows_plain(params: dict, feats: torch.Tensor,
@@ -379,8 +389,11 @@ def decode_rows_plain(params: dict, feats: torch.Tensor,
                       vocab_tile: int = 0, top2_gap: bool = False):
     """Plain twin of ``decode_rows``: K1's (K4's) plain twin on each block
     of 128 rows of feats (N, F), one member's params; (seq, lp[, gap]),
-    each (N, T). Blocks as the kernel's, so the early exits, and with them
-    lp, are the kernel's too."""
+    each (N, T). Each block takes its own early exit, as each of the
+    kernel's clusters and each of the JAX package's validation chunks
+    (``lax.map`` of ``decode_fused`` over chunks of at most 128 rows) does,
+    so lp is theirs too; a batch of one launch (``tasks/captioning.py``'s
+    row blocks with lp) shares one exit instead."""
     outs = [decode_fused_plain(params, feats[lo:lo + MAX_ROWS],
                                seq_length, need_logprobs,
                                vocab_tile=vocab_tile, top2_gap=top2_gap)
@@ -419,7 +432,7 @@ def _lanes(params: dict, seeds, gumbel):
 def decode_sample_plain(params: dict, feats: torch.Tensor,
                         seq_length: int = 16, need_logprobs: bool = True, *,
                         seeds=None, gumbel=None, top2_gap: bool = False,
-                        row0: int = 0):
+                        row0: int = 0, min_steps: int = 0):
     """Plain twin of K3: L sampled captions per member, each lane's Gumbel
     values drawn from its uint32 lane seed (``seeds`` (M, L), the stream of
     ops/noise.py, for batch rows ``row0 ..``) or read from ``gumbel`` (M,
@@ -439,7 +452,8 @@ def decode_sample_plain(params: dict, feats: torch.Tensor,
         def gumbel_at(t):
             return g[:, :, t].to(torch.float32).reshape(M, L * B, Vpad)
     out = _decode_plain(params, feats, seq_length, need_logprobs, lanes=L,
-                        gumbel_at=gumbel_at, top2_gap=top2_gap)
+                        gumbel_at=gumbel_at, top2_gap=top2_gap,
+                        min_steps=min_steps)
     out = tuple(o.reshape(M, L, B, seq_length) for o in out)
     return tuple(o[0] for o in out) if single else out
 
@@ -453,13 +467,15 @@ def _perturbed(base: dict, delta: dict, sign: float, dtype) -> dict:
 
 def decode_pair_perturb_plain(base: dict, delta: dict, feats: torch.Tensor,
                               seq_length: int = 16, dtype=torch.float32,
-                              need_logprobs: bool = False):
+                              need_logprobs: bool = False,
+                              min_steps: int = 0):
     """Plain twin of K2. base: f32 dict (one member, unbatched). delta: the
     same shapes in f32 or bf16, for one pair or with a leading pair axis P.
     feats (B, F) or (P, B, F). Returns (seq, lp) of shape (2, B, T) for one
     pair or (P, 2, B, T); index 0 is +delta."""
     outs = [decode_fused_plain(_perturbed(base, delta, s, dtype), feats,
-                               seq_length, need_logprobs) for s in (1.0, -1.0)]
+                               seq_length, need_logprobs,
+                               min_steps=min_steps) for s in (1.0, -1.0)]
     axis = 0 if delta["img_w"].dim() == 2 else 1
     return (torch.stack([o[0] for o in outs], axis),
             torch.stack([o[1] for o in outs], axis))
@@ -538,12 +554,30 @@ def pair_grad_rng_plain(scale: dict, seeds, weights) -> dict:
 
 def decode_pair_rng_plain(base: dict, scale: dict, seeds, feats: torch.Tensor,
                           seq_length: int = 16, dtype=torch.float32,
-                          need_logprobs: bool = False):
+                          need_logprobs: bool = False, min_steps: int = 0):
     """Plain twin of K5: K2's plain twin fed K7's plain f32 delta of each
     seed. Returns (seq, lp) of shape (2, B, T) for a single seed or
     (P, 2, B, T); index 0 is +delta."""
     return decode_pair_perturb_plain(base, pair_delta_dump_plain(scale, seeds),
-                                     feats, seq_length, dtype, need_logprobs)
+                                     feats, seq_length, dtype, need_logprobs,
+                                     min_steps)
+
+
+def join_row_blocks(outs, axis: int):
+    """(seq, lp) of a batch decoded in row blocks with no early exit of
+    their own (``min_steps`` = T) -> the result of one launch over the whole
+    batch, the JAX kernel's: the blocks joined along the row ``axis`` (T
+    last), and lp 0 after the batch's last live step, the latest step at
+    which one of its rows emitted its first token 0 (a row that never did
+    keeps the batch alive to the end). Before it, a finished row keeps its
+    token 0 and argmax lp, as in one launch."""
+    seq, lp = (torch.cat(o, axis) for o in zip(*outs))
+    T = seq.shape[-1]
+    ended = seq == 0
+    first = torch.where(ended.any(-1), ended.to(torch.int8).argmax(-1), T - 1)
+    last = first.amax(dim=axis + 1 if axis < 0 else axis, keepdim=True)
+    steps = torch.arange(T, device=seq.device)
+    return seq, torch.where(steps <= last[..., None], lp, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -611,22 +645,22 @@ def _bind(lib: ctypes.CDLL, width: int) -> ctypes.CDLL:
            and rows.value == cluster_rows(width),
            f"the library of E = R = {width} reports another width")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.nes_decode_fused.argtypes = [ci] * 7 + [vp] * 10 + [vp] * 2 + [vp]
+    lib.nes_decode_fused.argtypes = [ci] * 8 + [vp] * 10 + [vp] * 2 + [vp]
     lib.nes_decode_fused.restype = ci
-    lib.nes_decode_tiled.argtypes = [ci] * 8 + [vp] * 10 + [vp] * 2 + [vp]
+    lib.nes_decode_tiled.argtypes = [ci] * 9 + [vp] * 10 + [vp] * 2 + [vp]
     lib.nes_decode_tiled.restype = ci
     lib.nes_decode_rows.argtypes = [ci] * 7 + [vp] * 10 + [vp] * 2 + [vp]
     lib.nes_decode_rows.restype = ci
-    lib.nes_decode_sample.argtypes = [ci] * 9 + [vp] * 10 + [vp] * 3 + [vp]
+    lib.nes_decode_sample.argtypes = [ci] * 10 + [vp] * 10 + [vp] * 3 + [vp]
     lib.nes_decode_sample.restype = ci
     lib.nes_decode_sample_table.argtypes = \
-        [ci] * 8 + [vp] * 10 + [vp] * 3 + [vp]
+        [ci] * 9 + [vp] * 10 + [vp] * 3 + [vp]
     lib.nes_decode_sample_table.restype = ci
     lib.nes_decode_pair_perturb.argtypes = \
-        [ci] * 8 + [vp] * (1 + 9 + 9) + [vp] * 2 + [vp]
+        [ci] * 9 + [vp] * (1 + 9 + 9) + [vp] * 2 + [vp]
     lib.nes_decode_pair_perturb.restype = ci
     lib.nes_decode_pair_rng.argtypes = \
-        [ci] * 7 + [vp] * (1 + 9) + [vp] * 3 + [vp] * 2 + [vp]
+        [ci] * 8 + [vp] * (1 + 9) + [vp] * 3 + [vp] * 2 + [vp]
     lib.nes_decode_pair_rng.restype = ci
     lib.nes_pair_cluster_info.argtypes = [ci, ci, vp]
     lib.nes_pair_cluster_info.restype = ci
@@ -733,7 +767,8 @@ def _launch_args(params: dict, feats: torch.Tensor, what: str,
 
 def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
                  need_logprobs: bool = True, *, greedy: bool = True,
-                 seeds=None, gumbel=None, vocab_tile: int = 0, row0: int = 0):
+                 seeds=None, gumbel=None, vocab_tile: int = 0, row0: int = 0,
+                 min_steps: int = 0):
     """Decode of one member, or of a batch of members in one launch (params
     with a leading member axis M, feats (M, B, F)): K1, the greedy decode,
     one cluster of 2 CTAs per member; with ``vocab_tile`` K4
@@ -742,16 +777,21 @@ def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
     T) f32), with a lane axis before B when sampling. CPU tensors run the
     plain twin; CUDA tensors launch the kernel. Tokens equal K2's on
     ``prep(base ± delta)`` bit for bit; lp sums exp over the columns in the
-    halves' order, within 2e-5 of the plain twin at f32."""
+    halves' order, within 2e-5 of the plain twin at f32. A batch exits
+    early once every row has finished and ``min_steps`` steps are written
+    (``seq_length``: no early exit, the row blocks of a larger batch,
+    ``join_row_blocks``)."""
     _check_variant(params, greedy, seeds, gumbel, vocab_tile)
     if not greedy:
         return decode_sample(params, feats, seq_length, need_logprobs,
-                             seeds=seeds, gumbel=gumbel, row0=row0)
+                             seeds=seeds, gumbel=gumbel, row0=row0,
+                             min_steps=min_steps)
     if vocab_tile:
         return decode_tiled(params, feats, vocab_tile, seq_length,
-                            need_logprobs)
+                            need_logprobs, min_steps=min_steps)
     if not feats.is_cuda:
-        return decode_fused_plain(params, feats, seq_length, need_logprobs)
+        return decode_fused_plain(params, feats, seq_length, need_logprobs,
+                                  min_steps=min_steps)
     params, feats, (M, B, F), Vpad, code, stream, single, lib = _launch_args(
         params, feats, "params")
     _check_aligned(params, "params")
@@ -760,7 +800,7 @@ def decode_fused(params: dict, feats: torch.Tensor, seq_length: int = 16,
     lp = torch.empty((M, B, seq_length), dtype=torch.float32,
                      device=feats.device)
     err = lib.nes_decode_fused(
-        code, int(need_logprobs), M, B, F, Vpad, seq_length,
+        code, int(need_logprobs), M, B, F, Vpad, seq_length, min_steps,
         feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
         seq.data_ptr(), lp.data_ptr(), stream)
     _raise_on(err, "decode_fused")
@@ -772,7 +812,8 @@ decode_fused.launches = 0
 
 
 def decode_tiled(params: dict, feats: torch.Tensor, vocab_tile: int,
-                 seq_length: int = 16, need_logprobs: bool = True):
+                 seq_length: int = 16, need_logprobs: bool = True, *,
+                 min_steps: int = 0):
     """K4: K1 with the logits reduced over vocab tiles of ``vocab_tile``
     columns (a multiple of 128 dividing Vpad; ``tpu.decode_vocab_tile``):
     the same tokens as K1, bit for bit, and lp summed in the tiled order.
@@ -781,7 +822,7 @@ def decode_tiled(params: dict, feats: torch.Tensor, vocab_tile: int,
     _check_variant(params, True, None, None, vocab_tile)
     if not feats.is_cuda:
         return decode_tiled_plain(params, feats, vocab_tile, seq_length,
-                                  need_logprobs)
+                                  need_logprobs, min_steps=min_steps)
     params, feats, (M, B, F), Vpad, code, stream, single, lib = _launch_args(
         params, feats, "params")
     _check_aligned(params, "params")
@@ -790,7 +831,8 @@ def decode_tiled(params: dict, feats: torch.Tensor, vocab_tile: int,
     lp = torch.empty((M, B, seq_length), dtype=torch.float32,
                      device=feats.device)
     err = lib.nes_decode_tiled(
-        code, int(need_logprobs), M, B, F, Vpad, seq_length, vocab_tile,
+        code, int(need_logprobs), M, B, F, Vpad, seq_length, min_steps,
+        vocab_tile,
         feats.data_ptr(), *(params[k].data_ptr() for k in PAIR_TENSORS),
         seq.data_ptr(), lp.data_ptr(), stream)
     _raise_on(err, "decode_tiled")
@@ -805,7 +847,7 @@ def decode_rows(params: dict, feats: torch.Tensor, seq_length: int = 16,
                 need_logprobs: bool = True, *, vocab_tile: int = 0):
     """K1 (K4 with ``vocab_tile``) over all N rows of feats (N, F) under one
     member's params, in one launch: ceil(N / 128) clusters (of 2 CTAs at E
-    = R = 128, of 2 per block of ``cluster_rows`` at 256 and 512), every
+    = R = 128, of 2 per block of ``cluster_rows`` past it), every
     one reading the member's weights (one member's tensor maps) and cluster
     b rows [128 b, 128 b + 128), the last block ragged. Returns (seq (N, T)
     int32, lp (N, T) f32), bit for bit those of one ``decode_fused`` (or
@@ -842,7 +884,7 @@ decode_rows.launches = 0
 
 def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
                   need_logprobs: bool = True, *, seeds=None, gumbel=None,
-                  row0: int = 0):
+                  row0: int = 0, min_steps: int = 0):
     """K3: L Gumbel-max sampled captions per member in one launch of the
     member kernel, one 2-CTA cluster per (member, lane). ``seeds``: (M, L)
     uint32 lane seeds (host ints or array), the Gumbel values drawn in the
@@ -855,7 +897,8 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
     _check_lanes(seeds, gumbel, row0)
     if not feats.is_cuda:
         return decode_sample_plain(params, feats, seq_length, need_logprobs,
-                                   seeds=seeds, gumbel=gumbel, row0=row0)
+                                   seeds=seeds, gumbel=gumbel, row0=row0,
+                                   min_steps=min_steps)
     single, M, L, u32, g = _lanes(params, seeds, gumbel)
     params, feats, (M_, B, F), Vpad, code, stream, _, lib = _launch_args(
         params, feats, "params")
@@ -868,7 +911,8 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
     if u32 is not None:
         seeds_d = _seeds_on(u32.reshape(-1), dev)
         err = lib.nes_decode_sample(
-            code, int(need_logprobs), M, L, B, F, Vpad, seq_length, row0,
+            code, int(need_logprobs), M, L, B, F, Vpad, seq_length, min_steps,
+            row0,
             feats.data_ptr(), *prm, seeds_d.data_ptr(), seq.data_ptr(),
             lp.data_ptr(), stream)
     else:
@@ -879,7 +923,7 @@ def decode_sample(params: dict, feats: torch.Tensor, seq_length: int = 16,
                and g.is_contiguous(),
                "gumbel: not a contiguous f32 tensor on the weights' card")
         err = lib.nes_decode_sample_table(
-            code, int(need_logprobs), M, L, B, F, Vpad, seq_length,
+            code, int(need_logprobs), M, L, B, F, Vpad, seq_length, min_steps,
             feats.data_ptr(), *prm, g.data_ptr(), seq.data_ptr(),
             lp.data_ptr(), stream)
     _raise_on(err, "decode_sample")
@@ -920,15 +964,15 @@ def gumbel_counts() -> tuple[int, int]:
 
 def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
                         seq_length: int = 16, dtype=torch.float32,
-                        need_logprobs: bool = False):
+                        need_logprobs: bool = False, min_steps: int = 0):
     """K2: both signs of antithetic pairs with the perturbation applied in
     the kernel. base: f32 dict (unbatched, shared by the pairs); delta: f32
     or bf16, one pair or a leading pair axis P; feats (B, F) or (P, B, F).
     ``dtype`` is the compute dtype of the perturbed weights. Returns (seq,
     lp) of shape (2, B, T) or (P, 2, B, T); index 0 is +delta. One launch,
     one cluster per pair: 4 CTAs at E = R = 128 (2 signs x 2 column
-    halves), at 256 and 512 those 4 for each block of ``cluster_rows`` of
-    the B rows; the signs (and blocks) share each base and delta tile,
+    halves), past 128 those 4 for each block of ``cluster_rows`` of
+    the B rows (at 1024 a cluster per sign, 2 halves x 8 blocks); the signs (and blocks) share each base and delta tile,
     copied once from L2 into all of them. Tokens
     equal ``decode_fused(prep(base ± delta))`` bit for bit: the same sum,
     rounded once to the same dtype, feeds products in K1's order; lp sums
@@ -936,7 +980,7 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
     of K1's."""
     if not feats.is_cuda:
         return decode_pair_perturb_plain(base, delta, feats, seq_length,
-                                         dtype, need_logprobs)
+                                         dtype, need_logprobs, min_steps)
     _check(dtype in _DTYPE_CODE, f"compute dtype {dtype} is not f32 or bf16")
     ddt = delta["img_w"].dtype
     _check(ddt in _DTYPE_CODE, f"delta dtype {ddt} is not f32 or bf16")
@@ -964,7 +1008,7 @@ def decode_pair_perturb(base: dict, delta: dict, feats: torch.Tensor,
                      device=feats.device)
     err = _kernels(width).nes_decode_pair_perturb(
         _DTYPE_CODE[dtype], _DTYPE_CODE[ddt], int(need_logprobs), P, B, F,
-        Vpad, seq_length, feats.data_ptr(),
+        Vpad, seq_length, min_steps, feats.data_ptr(),
         *(base[k].data_ptr() for k in PAIR_TENSORS),
         *(delta[k].data_ptr() for k in PAIR_TENSORS),
         seq.data_ptr(), lp.data_ptr(),
@@ -991,7 +1035,7 @@ def pair_cluster_info(dtype=torch.bfloat16, delta_dtype=torch.bfloat16,
     ``width`` for compute dtype ``dtype`` and delta dtype ``delta_dtype``
     (K5: f32), for a batch of 128 rows: CTAs per cluster (at 128 one
     cluster of 2 signs x 2 column halves per pair; at 256 and 512 one
-    cluster per pair holding its ``row_blocks`` blocks of ``rows`` image
+    cluster per pair (at 1024 per sign of a pair) holding its ``row_blocks`` blocks of ``rows`` image
     rows, 2 signs x 2 halves each), threads per CTA, dynamic shared memory
     bytes, ring slots, k-rows per (gate) tile, the clusters the card holds
     at once (``cudaOccupancyMaxActiveClusters``) and the tiles in flight.
@@ -1012,7 +1056,7 @@ def member_cluster_info(dtype=torch.bfloat16, sampled: bool = False,
     ``width`` for weight dtype ``dtype``, greedy (K1, K4) or ``sampled``
     (K3, whose row partials carry two more fields), for a batch of 128
     rows: CTAs per cluster (one cluster per member or lane: at 128 its 2
-    column halves, at 256 and 512 those 2 for each of its ``row_blocks``
+    column halves, past 128 those 2 for each of its ``row_blocks``
     blocks of ``rows`` image rows), threads per CTA, dynamic shared memory
     bytes, ring slots, k-rows per (gate) tile, the clusters the card holds
     at once (``cudaOccupancyMaxActiveClusters``) and tiles in flight."""
@@ -1047,7 +1091,7 @@ def _check_scale(scale: dict, like: dict) -> torch.Tensor:
 
 def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
                     seq_length: int = 16, dtype=torch.float32,
-                    need_logprobs: bool = False):
+                    need_logprobs: bool = False, min_steps: int = 0):
     """K5: both signs of antithetic pairs, each pair's f32 delta ``scale *
     N(0, 1)`` drawn on the card from its uint32 seed. base, scale: f32
     dicts (unbatched, shared by the pairs; scale's pad lanes 0); seeds: one
@@ -1060,7 +1104,7 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
     ``tpu.delta_dtype`` says."""
     if not feats.is_cuda:
         return decode_pair_rng_plain(base, scale, seeds, feats, seq_length,
-                                     dtype, need_logprobs)
+                                     dtype, need_logprobs, min_steps)
     _check(dtype in _DTYPE_CODE, f"compute dtype {dtype} is not f32 or bf16")
     u32, single = _seeds_u32(seeds)
     P = u32.shape[0]
@@ -1087,8 +1131,8 @@ def decode_pair_rng(base: dict, scale: dict, seeds, feats: torch.Tensor,
     seeds_d = _seeds_on(u32, dev)
     err = _kernels(width).nes_decode_pair_rng(
         _DTYPE_CODE[dtype], int(need_logprobs), P, B, F, Vpad, seq_length,
-        feats.data_ptr(), *(base[k].data_ptr() for k in PAIR_TENSORS),
-        flat.data_ptr(), seeds_d.data_ptr(), scratch.data_ptr(),
+        min_steps, feats.data_ptr(),
+        *(base[k].data_ptr() for k in PAIR_TENSORS), flat.data_ptr(), seeds_d.data_ptr(), scratch.data_ptr(),
         seq.data_ptr(), lp.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "decode_pair_rng")

@@ -14,7 +14,7 @@ with ``pad_scale=0``, so pads draw zero noise, the padded bias stays at
 ``NEG`` and argmax never emits a pad token.
 
 Width pads (``pad=True``, which the card always takes) lay a model of any E,
-R <= 512 and any F out at the kernels' shape ``kernel_shape(E, R, F)``: E
+R <= 1024 and any F out at the kernels' shape ``kernel_shape(E, R, F)``: E
 and R padded to W, the smallest built width at least max(E, R), and F to
 the next multiple of 128. Every width pad holds 0, in theta and in every
 noise scale, and the 5R gate axis is padded per gate block (gate g's cell j

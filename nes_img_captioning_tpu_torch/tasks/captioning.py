@@ -12,14 +12,15 @@ A rollout is a decode and a score, each in one of two forms (JAX:
 captioning.py:221-319):
 
 * decode, fused (``tpu.fused_decode``; "auto" takes it for the no-norm
-  model, which on the card must have E, R <= 512 unless the knob is false;
-  the card lays it out zero-padded at ``kernel_shape``, E and R to the next
-  built width of 128, 256 and 512 and F to a multiple of 128, which
-  changes no token): the kernels of ops/decode_cuda.py, K1 per member (K4
+  model, which on the card must have E, R <= 1024 unless the knob is
+  false; the card lays it out zero-padded at ``kernel_shape``, E and R to
+  the next built width of 128, 256, 512 and 1024 and F to a multiple of
+  128, which changes no token): the kernels of ops/decode_cuda.py, K1 per member (K4
   with ``tpu.decode_vocab_tile``), K2 per antithetic pair, K5 per pair
   with the noise drawn in the kernel, and K3 for the sampling kinds, in
   launches of at most 128 rows (K3's blocks draw the Gumbel stream of one
-  launch over all rows);
+  launch over all rows; with lp the blocks share one early exit, the
+  batch's, as one launch over all rows would);
 * decode, eager: ``FCCaptionModel.sample_members``, f32, the whole batch of
   each member at once, so the vbn, vbn_e and layer_n variants keep their
   batch statistics over all of a member's rows as the JAX decoder does;
@@ -64,7 +65,8 @@ from ..fitness.criteria import FITNESS_CRITERIA, criterion_device
 from ..fitness.scorer import IndexedCiderScorer
 from ..fitness.criteria import apply_criterion
 from ..models.fc_caption import FCCaptionModel, FCModelOptions
-from ..ops.decode_cuda import MAX_ROWS, PAD_LANE, kernel_shape, pad_vocab
+from ..ops.decode_cuda import (MAX_ROWS, PAD_LANE, join_row_blocks,
+                               kernel_shape, pad_vocab)
 from ..ops.noise import gumbel_plain
 from ..utils.device import resolve_device
 
@@ -89,7 +91,7 @@ def resolve_fused(o: FCModelOptions, want, device: torch.device) -> bool:
     JAX's ``can_fuse`` does; false takes the eager decoder. True with a
     norm variant raises: JAX's fused path would decode it through
     ``prepare_decode_params``, which drops every norm leaf, another model.
-    On the card the kernels take any no-norm model of E, R <= 512 (the
+    On the card the kernels take any no-norm model of E, R <= 1024 (the
     decode layout zero-pads it to ``kernel_shape``); a wider one raises
     unless fused_decode is false, where JAX would still run its
     kernels."""
@@ -336,17 +338,25 @@ class CocoTask(Task):
         kernel, built once per generation."""
         return self.decode_layout.prep(base_dec, torch.float32)
 
-    @staticmethod
-    def _by_rows(decode, B: int, axis: int):
-        """``decode(lo, hi)`` on row blocks [lo, hi) of at most a launch's
-        128 rows (MAX_ROWS), one launch each, its (seq, lp) joined along
-        ``axis``.
-        Rows are independent but for the batch-wide early exit, which only
-        skips steps whose tokens are 0 anyway, so no token changes."""
-        outs = [decode(lo, min(lo + MAX_ROWS, B))
+    def _by_rows(self, decode, B: int, axis: int, need_lp: bool):
+        """``decode(lo, hi, min_steps)`` on row blocks [lo, hi) of at most a
+        launch's 128 rows (MAX_ROWS), one launch each, its (seq, lp) joined
+        along ``axis``: the result of one launch over the B rows, as the
+        JAX package decodes them. Rows are independent but for the
+        batch-wide early exit, which only skips steps whose tokens are 0
+        anyway, so no token changes; lp past a row's EOS is its argmax lp
+        until the batch's last live step. So when lp is asked for above 128
+        rows the blocks run with no exit of their own (min_steps T) and
+        ``join_row_blocks`` writes 0 after that step; tokens alone keep each
+        block's exit."""
+        T = self.model.options.seq_length
+        hold = T if need_lp and B > MAX_ROWS else 0
+        outs = [decode(lo, min(lo + MAX_ROWS, B), hold)
                 for lo in range(0, B, MAX_ROWS)]
         if len(outs) == 1:
             return outs[0]
+        if hold:
+            return join_row_blocks(outs, axis)
         return tuple(torch.cat(o, axis) for o in zip(*outs))
 
     def rollout_pair_dec(self, base_params: dict, delta_dec, idx,
@@ -362,11 +372,11 @@ class CocoTask(Task):
         # the delta keeps its own dtype into the kernel; the kernel's f32 +
         # f32(delta) sum is the per-member path's base + delta
         delta = self.decode_layout.prep(delta_dec, delta_dec.dtype)
-        seq2, lp2 = self._by_rows(lambda lo, hi: decode_pair_perturb(
+        seq2, lp2 = self._by_rows(lambda lo, hi, hold: decode_pair_perturb(
             base_params, delta, feats[:, lo:hi],
             seq_length=self.model.options.seq_length,
-            dtype=self._decode_dtype, need_logprobs=self.need_logprobs),
-            idx.shape[-1], 2)
+            dtype=self._decode_dtype, need_logprobs=self.need_logprobs,
+            min_steps=hold), idx.shape[-1], 2, self.need_logprobs)
         return self._pair_fitness(seq2, lp2, idx, consts)
 
     def rollout_pair_rng(self, base_params: dict, scale_params: dict, seeds,
@@ -380,11 +390,11 @@ class CocoTask(Task):
 
         consts = self.device_consts() if consts is None else consts
         feats = consts["train_fc"][idx]
-        seq2, lp2 = self._by_rows(lambda lo, hi: decode_pair_rng(
+        seq2, lp2 = self._by_rows(lambda lo, hi, hold: decode_pair_rng(
             base_params, scale_params, seeds, feats[:, lo:hi],
             seq_length=self.model.options.seq_length,
-            dtype=self._decode_dtype, need_logprobs=self.need_logprobs),
-            idx.shape[-1], 2)
+            dtype=self._decode_dtype, need_logprobs=self.need_logprobs,
+            min_steps=hold), idx.shape[-1], 2, self.need_logprobs)
         return self._pair_fitness(seq2, lp2, idx, consts)
 
     def _pair_fitness(self, seq2, lp2, idx, consts):
@@ -403,9 +413,10 @@ class CocoTask(Task):
         at most 128 rows."""
         from ..ops.decode_cuda import decode_fused
 
-        return self._by_rows(lambda lo, hi: decode_fused(
+        return self._by_rows(lambda lo, hi, hold: decode_fused(
             params, feats[..., lo:hi, :], self.model.options.seq_length,
-            need_logprobs, vocab_tile=self._vocab_tile), feats.shape[-2], -2)
+            need_logprobs, vocab_tile=self._vocab_tile, min_steps=hold),
+            feats.shape[-2], -2, need_logprobs)
 
     def _sample(self, params: dict, feats, lanes):
         """K3 on a batch of members, feats (M, B, F), in blocks of at most
@@ -414,16 +425,17 @@ class CocoTask(Task):
         sliced by row. Returns (seq, lp), each (M, spi, B, T)."""
         from ..ops.decode_cuda import decode_fused
 
-        def block(lo, hi):
+        def block(lo, hi, hold):
             if torch.is_tensor(lanes):
                 noise = {"gumbel": lanes[..., lo:hi, :].contiguous()}
             else:
                 noise = {"seeds": lanes, "row0": lo}
             return decode_fused(params, feats[:, lo:hi],
                                 self.model.options.seq_length,
-                                self.need_logprobs, greedy=False, **noise)
+                                self.need_logprobs, greedy=False,
+                                min_steps=hold, **noise)
 
-        return self._by_rows(block, feats.shape[1], 2)
+        return self._by_rows(block, feats.shape[1], 2, self.need_logprobs)
 
     def _decode_fused(self, params: dict, feats, lanes):
         """The kernels' decode of members (params with a leading member

@@ -25,7 +25,7 @@ built (``tasks/captioning.py``): "auto" as in the JAX package, and an
 explicit true that the port cannot honour (the decode kernels for a norm
 variant, the device scorer at V + 1 >= 16384) raises where the JAX
 package goes on with another path; on the card the decode kernels take
-E, R <= 512 (zero-padded to the next built width), so a wider no-norm
+E, R <= 1024 (zero-padded to the next built width), so a wider no-norm
 model raises unless ``fused_decode`` is false. ``rng_impl`` takes the names JAX's
 ``jax.random.key(..., impl=)`` takes (and "" for its default) and rejects
 any other, as JAX does; the port draws from its own Philox stream whatever

@@ -2,10 +2,13 @@
 """The port's NES generation at the captioner widths of the JAX package's
 ``scripts/exp_model_scale.py``, on one CUDA card.
 
-    python3 scripts/torch_model_scale.py [--widths 128,256,512] [--gens 6]
+    python3 scripts/torch_model_scale.py [--widths 128,256,512,1024,P3]
+        [--gens 6]
 
 Same regime as that script: fc_caption with input_encoding_size = rnn_size
-= 128, 256 and 512, vocab 9487, 2048-d features, pop 288 (144 antithetic
+= 128, 256 and 512 (and past it 1024, and ``P3``: Up-Down's (E, R, F) =
+(1000, 1000, 2048), Anderson et al. 2018, section 3.2.3, zero-padded to
+the 1024 library), vocab 9487, 2048-d features, pop 288 (144 antithetic
 pairs), batch 128, ``pop_chunk`` 48, bf16 compute, f32 deltas, greedy
 fitness on the on-device CIDEr-D, fused decode with the decode layout (the
 pair kernel K2 decodes each chunk of 48 pairs), Adam at 0.001, sigma 0.01.
@@ -37,7 +40,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 # exp_model_scale.py's regime (pop 288 = 144 pairs)
 SCALE = dict(pairs=144, batch=128, pop_chunk=48, sigma=0.01, stepsize=0.001,
              l2coeff=1e-7)
-WIDTHS = (128, 256, 512)
+WIDTHS = (128, 256, 512, 1024)
+# the padded captioner of the 1024 library: Up-Down's 1000-wide word
+# embedding and LSTM on 2048-d pooled features
+P3 = (1000, 1000, 2048)
 
 
 def scale_data(fc_feat_size: int = 2048):
@@ -136,11 +142,13 @@ def main(argv=None) -> int:
         return 2
     from nes_img_captioning_tpu_torch.ops import decode_cuda as dc
 
-    widths = [int(w) for w in args.widths.split(",")]
+    widths = [P3 if w == "P3" else int(w) for w in args.widths.split(",")]
+    libs = {dc.kernel_shape(*((w, w, 2048) if isinstance(w, int) else w))[0]
+            for w in widths}
     dev = torch.device("cuda")
     t0 = time.time()
-    with ThreadPoolExecutor(len(widths)) as pool:  # all nvcc runs at once
-        list(pool.map(dc.build_kernels, widths))
+    with ThreadPoolExecutor(len(libs)) as pool:  # all nvcc runs at once
+        list(pool.map(dc.build_kernels, sorted(libs)))
     build_s = time.time() - t0
     data = scale_data()
     for width in widths:
@@ -158,7 +166,8 @@ def main(argv=None) -> int:
             raise SystemExit(f"width {width}: non-finite fitness or theta "
                              "unchanged")
         print(json.dumps({
-            "width": width, "params": int(task.spec.num_params),
+            "width": width if isinstance(width, int) else list(width),
+            "params": int(task.spec.num_params),
             "dim_dec": int(task.decode_layout.dim_dec),
             "fused": bool(task._fused),
             "launches_per_generation": {

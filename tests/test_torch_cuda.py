@@ -106,10 +106,10 @@ def _held_to_k1(base, d, feats, dt, seq2, lp2):
 
 def _edge_inputs(width, vocab=300):
     """The cluster kernels' edge cases' inputs at E = R = ``width``: at 128
-    ``small_members``' (vocab 300, 256-d features, 32 rows, seed 0); at 256
-    and 512 100 rows (2 or 4 row blocks of 64 or 32, the last ragged), the
-    same vocab and feature width; ``vocab`` another vocabulary. Returns
-    (layout, members, feats, delta)."""
+    ``small_members``' (vocab 300, 256-d features, 32 rows, seed 0); at 256,
+    512 and 1024 100 rows (2, 4 or 7 row blocks of 64, 32 or 16, the last
+    ragged), the same vocab and feature width; ``vocab`` another
+    vocabulary. Returns (layout, members, feats, delta)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -130,8 +130,12 @@ def _edge_inputs(width, vocab=300):
 
 
 def _held_to_plain(base, d, feats, dt, seq2):
-    """K2's tokens against its plain twin's: equal at f32; at bf16 a row
-    may differ only where the twin's top two logits lie within 1e-3."""
+    """K2's tokens against its plain twin's: equal at f32 up to E = R = 512;
+    at 1024 (f32 FMA chains of 1024 k-rows against torch's blocked sums) an
+    f32 row may differ only where the twin's top two logits lie within
+    1e-4 (chip_smoke.py's F32_TIE_GAP); at bf16 only where they lie within
+    1e-3."""
+    wide = base["h2h_w"].shape[-2] > 512
     for p in range(seq2.shape[0]):
         for s, sign in ((0, 1.0), (1, -1.0)):
             params = tdc._perturbed(base, {k: v[p] for k, v in d.items()},
@@ -139,7 +143,9 @@ def _held_to_plain(base, d, feats, dt, seq2):
             seq_p, _, gap_p = tdc.decode_fused_plain(params, feats[p],
                                                      top2_gap=True)
             torch.cuda.synchronize()
-            if dt == torch.float32:
+            if dt == torch.float32 and wide:
+                _first_diffs_at_near_ties(seq2[p, s], seq_p, gap_p, 1e-4)
+            elif dt == torch.float32:
                 assert torch.equal(seq2[p, s], seq_p), (p, s)
             else:
                 _first_diffs_at_near_ties(seq2[p, s], seq_p, gap_p)
@@ -154,11 +160,11 @@ def _block_finish(seq, rows):
 
 
 # (width, case, delta dtype): K5 draws its own f32 delta
-_PAIR_EDGES = [(w, c, d) for w in (128, 256, 512)
+_PAIR_EDGES = [(w, c, d) for w in (128, 256, 512, 1024)
                for c in ("tie_across_halves", "signs_finish_apart")
                for d in ("bf16", "f32")] + [
-    (w, "k5_odd_pairs", "f32") for w in (128, 256, 512)] + [
-    (w, c, d) for w in (256, 512)
+    (w, "k5_odd_pairs", "f32") for w in (128, 256, 512, 1024)] + [
+    (w, c, d) for w in (256, 512, 1024)
     for c in ("blocks_finish_apart", "below_one_block")
     for d in ("bf16", "f32")]
 
@@ -172,8 +178,9 @@ def test_pair_cluster_edges(width, case, delta, dt):
     """The pair kernel's cluster at the fixture's Vpad 384 (3 vocab tiles,
     an odd count): at 128 one cluster of 2 signs x 2 column halves per
     pair over 32 rows; at 256 and 512 one cluster per pair of 2 signs x 2
-    halves x 2 or 4 row blocks over 100 rows (the last block ragged), a
-    sign's blocks sharing its exit. Every (pair, sign) is held to K1 on
+    halves x 2 or 4 row blocks over 100 rows (the last block ragged), at
+    1024 one per sign of 2 halves x 7 blocks, a sign's blocks sharing its
+    exit. Every (pair, sign) is held to K1 on
     prep(base ± delta) (tokens bit for bit, lp within 2e-5) and to the
     plain twin's tokens. tie_across_halves: two columns with the same
     weights and the row's largest bias, one in each half (70 in half 1 of
@@ -187,7 +194,7 @@ def test_pair_cluster_edges(width, case, delta, dt):
     block's last row, which decodes on: the ended block writes token 0
     and its rows' argmax lp (< 0) until its sign's last row ends, K1's lp
     (the batch's one exit); below_one_block: 5 rows, one block (a cluster
-    of 4)."""
+    of 4, or at 1024 of 2 per sign)."""
     ddt = {"bf16": torch.bfloat16, "f32": torch.float32}[delta]
     lay, members, feats, delta = _edge_inputs(width)
     rows = tdc.cluster_rows(width)
@@ -270,7 +277,7 @@ def test_pair_cluster_edges(width, case, delta, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 256, 512])
+@pytest.mark.parametrize("width", [128, 256, 512, 1024])
 @pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.bfloat16),
                                     (torch.bfloat16, torch.float32),
                                     (torch.float32, torch.bfloat16),
@@ -283,7 +290,9 @@ def test_pair_cluster_holds_a_chunk(dtypes, width):
     slots. At 256 and 512 a pair's 128 rows are one cluster of 2 signs x 2
     halves x 2 or 4 row blocks (8 or 16 CTAs, the latter a non-portable
     size); the card holds at least 14 or 6 of them at once (15 and 7 on
-    an H100 80GB HBM3), and every dtype keeps 2 ring slots at least."""
+    an H100 80GB HBM3), and every dtype keeps 2 ring slots at least. At
+    1024 each sign of a pair is a cluster of 2 halves x 8 row blocks (16
+    CTAs, two clusters per pair), of which the card holds at least 6."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU form")
     info = tdc.pair_cluster_info(*dtypes, width=width)
@@ -295,7 +304,9 @@ def test_pair_cluster_holds_a_chunk(dtypes, width):
             assert info["ring_slots"] >= 2, info
         return
     nb = 128 // tdc.cluster_rows(width)
-    assert info["row_blocks"] == nb and info["cluster"] == 4 * nb, info
+    signs = 1 if width == 1024 else 2
+    assert info["row_blocks"] == nb and info["cluster"] == 2 * signs * nb, \
+        info
     assert info["max_active_clusters"] >= (14 if width == 256 else 6), info
     assert info["ring_slots"] >= 2 and info["tiles_in_flight"] >= 1, info
 
@@ -350,13 +361,13 @@ def _past_eos(seq, steps):
     return (t > steps[..., None]) & (t <= last[..., None])
 
 
-# (width, case): the member kernel's edges at every width; at 256 and 512
-# over 100 rows (2 or 4 row blocks, the last ragged)
-_MEMBER_EDGES = [(w, c) for w in (128, 256, 512)
+# (width, case): the member kernel's edges at every width; past 128 over
+# 100 rows (2, 4 or 7 row blocks, the last ragged)
+_MEMBER_EDGES = [(w, c) for w in (128, 256, 512, 1024)
                  for c in ("tie_across_halves", "padding_rows",
                            "single_member", "rows_finish_apart",
                            "exit_at_step_0", "vocab_tile_1920")] + [
-    (w, "blocks_finish_apart") for w in (256, 512)]
+    (w, "blocks_finish_apart") for w in (256, 512, 1024)]
 
 
 @pytest.mark.cuda
@@ -472,22 +483,23 @@ def test_k4_vocab_tiles_on_a_wider_vocab(wide_vocab, tile, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 256, 512])
+@pytest.mark.parametrize("width", [128, 256, 512, 1024])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_member_cluster_holds_a_chunk(small_members, dt, width):
     """At 128 a chunk of 48 members (96 CTAs) is resident at once: the card
     holds at least 48 clusters of the member kernel at both weight dtypes.
-    At 256 and 512 a member's 128 rows are one cluster of 2 halves x 2 or
-    4 row blocks (4 or 8 CTAs, portable sizes), of which the card holds at
-    least 24 or 12 at once. The bf16 main path keeps 4 ring slots and
-    several tiles in flight, the f32 path 2 slots at least."""
+    At 256, 512 and 1024 a member's 128 rows are one cluster of 2 halves x
+    2, 4 or 8 row blocks (4 or 8 CTAs, portable sizes, or 16, a
+    non-portable one), of which the card holds at least 24, 12 or 6 at
+    once. The bf16 main path keeps 4 ring slots and several tiles in
+    flight, the f32 path 2 slots at least."""
     info = tdc.member_cluster_info(dt, width=width)
     nb = 128 // tdc.cluster_rows(width)
     assert info["row_blocks"] == nb and info["cluster"] == 2 * nb, info
     assert info["threads"] == 512 and info["smem_bytes"] <= 232448
-    assert info["max_active_clusters"] >= {128: 48, 256: 24, 512: 12}[
-        width], info
+    assert info["max_active_clusters"] >= {128: 48, 256: 24, 512: 12,
+                                           1024: 6}[width], info
     assert info["tiles_in_flight"] >= 1 and info["ring_slots"] >= 2, info
     if dt == torch.bfloat16:
         assert info["ring_slots"] >= 4 and info["tiles_in_flight"] >= 2, info
@@ -757,14 +769,14 @@ def test_k3_zero_table_is_k1(small_members, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 256, 512])
+@pytest.mark.parametrize("width", [128, 256, 512, 1024])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", ["single_member", "rows_finish_apart",
                                   "exit_at_step_0"])
 def test_k3_member_edges(case, dt, width):
-    """K3 on the member kernel, 3 lanes per member (at 256 and 512 over
-    100 rows, 2 or 4 row blocks per lane's cluster), against its plain
+    """K3 on the member kernel, 3 lanes per member (past 128 over 100
+    rows, 2, 4 or 7 row blocks per lane's cluster), against its plain
     twin (tokens equal but at near-ties of logits + G, lp within 2e-5 at
     f32 on equal rows): single_member: one unbatched member gives the
     batched call's lanes bit for bit; rows_finish_apart: an EOS bias under
@@ -922,15 +934,105 @@ def test_k2_k5_take_256_rows_through_the_task(card_task):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [128, 256, 512])
+@pytest.mark.parametrize("width", [128, 1024])
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K3", "K2"])
+def test_batch_above_128_rows_shares_one_exit(card_task, kernel, width):
+    """A batch of 256 rows with lp asked for (greedy_logprob; K3: sc_loss),
+    f32, through the task's row blocks of 128 (``CocoTask._by_rows``, two
+    launches with no exit of their own, joined by ``join_row_blocks``)
+    gives the one-launch result, the plain twin's over all 256 rows at
+    once: tokens equal (K3: but at near-ties of logits + G) and lp within
+    2e-5 at every position. Rows 128-255 share one image, and an EOS bias
+    (from the plain twin) ends that block before the other's last row, so
+    a finished row writes its argmax lp (< 0) there while the batch decodes
+    on, and 0 after the batch's last row ends."""
+    kind = "sc_loss" if kernel == "K3" else "greedy_logprob"
+    task = card_task(kind, mopts={"input_encoding_size": width,
+                                  "rnn_size": width},
+                     decode_vocab_tile=128 if kernel == "K4" else 0)
+    lay, members, g = _card_members(task, 2)
+    idx = torch.randint(0, 64, (2, 256), generator=g, device="cuda")
+    idx[:, 128:] = idx[:, 128:129]
+    feats = task.train_fc[idx]
+    seeds = np.array([[11, 12, 13, 14, 15], [16, 17, 18, 19, 20]], np.uint32)
+    if kernel == "K2":
+        base = task.pair_base_params(members[0])
+        sc = lay.to_dec(torch.full((lay.spec.num_params,), 0.05,
+                                   device="cuda"), pad_scale=0.0)
+        delta = lay.prep(torch.stack([sc * torch.randn(
+            lay.dim_dec, generator=g, device="cuda") for _ in range(2)]),
+            torch.float32)
+
+        def plain(b):
+            return tdc.decode_pair_perturb_plain(b, delta, feats,
+                                                 need_logprobs=True)
+
+        def run(b):
+            return task._by_rows(lambda lo, hi, hold: tdc.decode_pair_perturb(
+                b, delta, feats[:, lo:hi], need_logprobs=True,
+                min_steps=hold), 256, 2, True)
+        params, bias = base, base["logit_b"][0]
+    else:
+        params = lay.prep(members, torch.float32)
+        if kernel == "K3":
+            def plain(p):
+                return tdc.decode_sample_plain(p, feats, seeds=seeds)
+
+            def run(p):
+                return task._sample(p, feats, seeds)
+        else:
+            def plain(p):
+                return tdc.decode_fused_plain(
+                    p, feats, vocab_tile=128 if kernel == "K4" else 0)
+
+            def run(p):
+                return task._greedy(p, feats, need_logprobs=True)
+        bias = params["logit_b"][..., 0, :]
+
+    def gap(seq):  # how long the block of one image ends before the other
+        steps = _finish_steps(seq)
+        ends = torch.stack([steps[..., :128].max(-1).values,
+                            steps[..., 128:].max(-1).values], -1)
+        return int((ends[..., 0] - ends[..., 1]).max()) \
+            if int(ends.max()) < 15 else -1
+
+    best = None
+    for b0 in np.linspace(-4.0, 12.0, 33):
+        bias[..., 0] = float(b0)
+        n = gap(plain(params)[0])
+        if best is None or n > best[0]:
+            best = (n, float(b0))
+    bias[..., 0] = best[1]
+    assert best[0] > 0, best
+    seq, lp = run(params)
+    seq_p, lp_p = plain(params)[:2]
+    torch.cuda.synchronize()
+    if kernel == "K3":
+        _, _, gap_p = tdc.decode_sample_plain(params, feats, seeds=seeds,
+                                              top2_gap=True)
+        assert _first_diffs_at_near_ties(seq, seq_p, gap_p) <= 4
+        same = (seq == seq_p).all(-1)
+        assert float((lp - lp_p).abs()[same].max()) < 2e-5
+    else:
+        assert torch.equal(seq, seq_p)
+        assert float((lp - lp_p).abs().max()) < 2e-5
+    steps = _finish_steps(seq)
+    past = _past_eos(seq, steps)
+    assert past[..., 128:, :].any(), steps
+    assert (seq[past] == 0).all() and (lp[past] <= 0).all()
+    assert (lp[past] < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 256, 512, 1024])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("vocab_tile", [0, 128], ids=["K1", "K4"])
 def test_decode_rows_bitwise_per_block_launches(vocab_tile, dt, width):
     """The row-block launch (validation's decode) in one launch, at 128
-    over N = 300 rows (blocks of 128, 128 and 44), at 256 and 512 over
-    5000 (39 blocks of 128 and one of 8; each a cluster of 2 halves x 2 or
-    4 row blocks, the last one's later CTAs all padding): tokens and lp
+    over N = 300 rows (blocks of 128, 128 and 44), past it over 5000 (39
+    blocks of 128 and one of 8; each a cluster of 2 halves x 2, 4 or 8 row
+    blocks, the last one's later CTAs all padding): tokens and lp
     bit for bit those of one decode_fused (decode_tiled) launch per block
     of 128; f32 tokens equal the plain twin, lp within 2e-5."""
     lay, members, _, _ = _edge_inputs(width)
@@ -1501,13 +1603,16 @@ def test_profile_summary_finds_a_cuda_kernel(small_members, tmp_path):
 
 
 @pytest.fixture(params=[(256, 256, 256), (512, 512, 256), (300, 512, 2048),
-                        (256, 192, 960)], ids=["w256", "w512", "P1", "P2"])
+                        (256, 192, 960), (1024, 1024, 256),
+                        (1000, 1000, 2048)],
+                ids=["w256", "w512", "P1", "P2", "w1024", "P3"])
 def wide_members(request):
-    """Two members and a delta at E = R = 256 or 512, or at (E, R, F) =
-    (300, 512, 2048) and (256, 192, 960) laid out padded to W = 512 and
-    256 (P2's features to 1024), vocab 300 (padded to 384), 100 rows: 2
-    (4) clusters of 64 (32) rows per member, the last ragged. Returns (W,
-    layout, members, feats at the model's F, delta)."""
+    """Two members and a delta at E = R = 256, 512 or 1024, or at (E, R,
+    F) = (300, 512, 2048), (256, 192, 960) and (1000, 1000, 2048) laid out
+    padded to W = 512, 256 and 1024 (P2's features to 1024), vocab 300
+    (padded to 384), 100 rows: 2, 4 or 7 row blocks of 64, 32 or 16 rows
+    per member, the last ragged. Returns (W, layout, members, feats at the
+    model's F, delta)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU form")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -332,7 +332,8 @@ def test_gates_resolve_as_jax(coco, case, monkeypatch):
     only when fused and device-scored. On the card a no-norm model of a
     width no library is built for (E = 16 here) takes the kernels under
     "auto" and true, zero-padded to E = R = 128, as JAX runs its kernels at
-    any width; above 512 it is refused; false decodes it eagerly."""
+    any width, and so does one of 513 cells (padded to 1024); above 1024
+    it is refused; false decodes it eagerly."""
     from nes_img_captioning_tpu_torch.tasks.captioning import resolve_fused
 
     mopts, tpu, card, (fused, on_dev, layout) = GATES[case]
@@ -343,8 +344,11 @@ def test_gates_resolve_as_jax(coco, case, monkeypatch):
             assert ttask._resolve_fused(want) is fused
         assert ttask._resolve_fused(False) is False
         wide = dataclasses.replace(ttask.model.options, rnn_size=513)
-        with pytest.raises(ValueError, match="E and R up to 512"):
-            resolve_fused(wide, "auto", torch.device("cuda"))
+        assert resolve_fused(wide, "auto", torch.device("cuda")) is True
+        for cells in (1025, 2048):
+            wide = dataclasses.replace(ttask.model.options, rnn_size=cells)
+            with pytest.raises(ValueError, match="E and R up to 1024"):
+                resolve_fused(wide, "auto", torch.device("cuda"))
         return
     assert ttask._fused is fused
     assert ttask.fitness_on_device is on_dev is jtask.fitness_on_device

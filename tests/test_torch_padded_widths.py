@@ -91,16 +91,19 @@ def _real(name, t, E, R, F):
 
 def test_kernel_shape():
     """The kernels' shape of a captioner: E and R to the smallest built
-    width at least both, F up to a multiple of 128; above 512 a refusal
-    that names 512 and the eager decoder."""
+    width at least both, F up to a multiple of 128 (513-1024 to the 1024
+    library: P3, Up-Down's 1000-wide LSTM); above 1024 a refusal that
+    names 1024 and the eager decoder."""
     ks = tdc.kernel_shape
     assert ks(16, 24, 20) == ks(24, 16, 20) == (128, 128)
     assert ks(300, 512, 2048) == (512, 2048)
     assert ks(256, 192, 960) == (256, 1024)
     assert ks(128, 128, 2048) == (128, 2048)
     assert ks(129, 64, 129) == (256, 256)
-    for E, R in ((513, 16), (16, 1024)):
-        with pytest.raises(ValueError, match="up to 512.*fused_decode: "
+    assert ks(1000, 1000, 2048) == (1024, 2048)
+    assert ks(513, 16, 2048) == ks(16, 1024, 2048) == (1024, 2048)
+    for E, R in ((1025, 16), (16, 2048)):
+        with pytest.raises(ValueError, match="up to 1024.*fused_decode: "
                            "false"):
             ks(E, R, 2048)
 
@@ -222,6 +225,32 @@ def test_k1_and_k4_twins_match_pallas(shape):
         if tile:
             assert torch.equal(
                 seq_t, tdc.decode_fused(tp, torch.from_numpy(feats))[0])
+
+
+def test_p3_padded_twin_matches_pallas():
+    """P3, Up-Down's widths at a toy size: (E, R, F) = (1000, 1000, 128),
+    vocab 60, laid out at kernel_shape's (1024, 128). The padded f32
+    params' block at the true shape is JAX's prepare_decode_params bit for
+    bit and every pad is 0; K1's plain twin on them, T = 6 over 24 rows,
+    against JAX decode_fused (interpret) at the true shape: tokens equal,
+    lp within 2e-5."""
+    shape = (E, R, F) = (1000, 1000, 128)
+    jm, theta, spec, topts = _setup(shape, vocab=60, gain=1.0)
+    assert tdc.kernel_shape(E, R, F) == (1024, 128)
+    tp = _padded(spec, topts, theta)
+    jp = jdp.prepare_decode_params(jm.spec, jnp.asarray(theta), jm.options)
+    assert tp["h2h_w"].shape == (1024, 5 * 1024)
+    for k in jp:
+        real, pads = _real(k, _np(tp[k]), E, R, F)
+        np.testing.assert_array_equal(real, _np(jp[k]), err_msg=k)
+        assert not pads.any(), k
+    feats = _feats(F, rows=24, seed=2)
+    seq_j, lp_j = jdp.decode_fused(jp, jnp.asarray(feats), 6,
+                                   interpret=True)
+    seq_t, lp_t = tdc.decode_fused(tp, torch.from_numpy(feats), 6)
+    np.testing.assert_array_equal(seq_t.numpy(), np.asarray(seq_j))
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=2e-5)
+    assert (seq_t > 0).any()
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)

@@ -1,9 +1,10 @@
 """The decode kernels' plain twins at E = R = 256 and 512 (the widths of the
-JAX package's scripts/exp_model_scale.py) against the JAX package's Pallas
-kernels in interpret mode, and the checks that send a captioner of these
-widths to the kernels on the card: toy vocabularies, 256-d features, a few
-rows. The kernels themselves are held to these twins on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py`` [34])."""
+JAX package's scripts/exp_model_scale.py) and 1024 against the JAX
+package's Pallas kernels in interpret mode, and the checks that send a
+captioner of these widths to the kernels on the card: toy vocabularies,
+256-d features (128 at 1024), a few rows. The kernels themselves are held
+to these twins on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
+[34], [38])."""
 
 import numpy as np
 import pytest
@@ -37,17 +38,17 @@ def _np(x):
     return x.astype(np.float32) if x.dtype == jnp.bfloat16 else x
 
 
-def _setup(width, vocab=50, seed=3):
-    jm = JaxFCModel(JaxOptions(vocab_size=vocab, fc_feat_size=FEAT,
+def _setup(width, vocab=50, seed=3, feat=FEAT):
+    jm = JaxFCModel(JaxOptions(vocab_size=vocab, fc_feat_size=feat,
                                input_encoding_size=width, rnn_size=width))
     theta = np.array(jm.spec.init_theta(jax.random.PRNGKey(seed)))
-    topts = FCModelOptions(vocab_size=vocab, fc_feat_size=FEAT,
+    topts = FCModelOptions(vocab_size=vocab, fc_feat_size=feat,
                            input_encoding_size=width, rnn_size=width)
     return jm, theta, build_spec(topts), topts
 
 
-def _feats(rows=8, seed=1):
-    return np.random.default_rng(seed).normal(size=(rows, FEAT)).astype(
+def _feats(rows=8, seed=1, feat=FEAT):
+    return np.random.default_rng(seed).normal(size=(rows, feat)).astype(
         np.float32)
 
 
@@ -191,18 +192,27 @@ def test_twin_exits_per_cluster_of_rows(width):
     feats[rows:] *= 0.0  # the other blocks: the same rows, zero features
     eos = jm.spec.offset("logit.bias")
 
-    def decode(boost):
+    def params(boost):
         boosted = theta.copy()
         boosted[eos] += boost
-        tp = tdc.prepare_decode_params(spec, torch.from_numpy(boosted),
-                                       topts)
+        return tdc.prepare_decode_params(spec, torch.from_numpy(boosted),
+                                         topts)
+
+    def decode(boost):
+        tp = params(boost)
         return tp, tdc.decode_fused(tp, feats)
 
     # the EOS bias at which the other blocks (their rows end together) end
-    # longest before the first block, whose last row still ends in time
+    # longest before the first block, whose last row still ends in time:
+    # the 13 boosts as 13 members of one decode of the first block and one
+    # row of the others (each member its own batch, its own exit)
+    boosts = np.linspace(0.0, 0.3, 13)
+    scan = [params(float(b)) for b in boosts]
+    seq_s, _ = tdc.decode_fused(
+        {k: torch.stack([p[k] for p in scan]) for k in scan[0]},
+        feats[:rows + 1].expand(len(boosts), -1, -1))
     best = None
-    for boost in np.linspace(0.0, 0.3, 13):
-        steps = _finish_steps(decode(float(boost))[1][0])
+    for boost, steps in zip(boosts, _finish_steps(seq_s)):
         gap = int(steps[:rows].max() - steps[rows:].max())
         if steps.max() < T - 1 and (best is None or gap > best[0]):
             best = (gap, float(boost))
@@ -260,12 +270,66 @@ def test_twin_past_one_cluster_matches_pallas(width, rows):
     assert past_eos > 0
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_w1024_twins_match_pallas(kernel):
+    """E = R = 1024, the widest library (vocab 60, 128-d features, T = 6),
+    f32, over B = 48 rows: three blocks of cluster_rows(1024) = 16, the
+    last one's features zeroed and the EOS bias raised by 0.05, so that
+    block ends at step 0 while the others decode on. K1's and K2's plain
+    twins (K2 on JAX's realized delta) against JAX's decode_fused and
+    decode_pair_perturb in interpret mode, whose batch (each sign's) shares
+    one early exit, as the kernels' cluster does: tokens equal and lp
+    within 2e-5 at every position, also past a row's EOS, where a finished
+    row writes its argmax lp while the batch decodes on (such positions
+    exist here)."""
+    W, F, T6, B = 1024, 128, 6, 48
+    jm, theta, spec, topts = _setup(W, vocab=60, seed=7, feat=F)
+    assert tdc.cluster_rows(W) == 16
+    boosted = theta.copy()
+    boosted[jm.spec.offset("logit.bias")] += 0.05
+    feats = _feats(B, seed=6, feat=F)
+    feats[32:] = 0.0
+    if kernel == "K1":
+        jp = jdp.prepare_decode_params(jm.spec, jnp.asarray(boosted),
+                                       jm.options)
+        seq_j, lp_j = jdp.decode_fused(jp, jnp.asarray(feats), T6,
+                                       interpret=True)
+        tp = tdc.prepare_decode_params(spec, torch.from_numpy(boosted),
+                                       topts)
+        seq_t, lp_t = tdc.decode_fused(tp, torch.from_numpy(feats), T6)
+    else:
+        jl = JaxLayout(jm.spec, jm.options)
+        base_vec = jl.to_dec(jnp.asarray(boosted))
+        sc = jl.to_dec(jnp.full((jm.spec.num_params,), 0.01, jnp.float32),
+                       pad_scale=0.0)
+        delta = sc * jax.random.normal(jax.random.PRNGKey(9), (jl.dim_dec,),
+                                       jnp.float32)
+        seq_j, lp_j = jdp.decode_pair_perturb(
+            jl.prep(base_vec, jnp.float32), jl.prep(delta, jnp.float32),
+            jnp.asarray(feats), T6, dtype=jnp.float32, interpret=True,
+            need_logprobs=True)
+        tl = DecodeLayout(spec, topts)
+        seq_t, lp_t = tdc.decode_pair_perturb(
+            tl.prep(torch.from_numpy(_np(base_vec)), torch.float32),
+            tl.prep(torch.from_numpy(_np(delta)), torch.float32),
+            torch.from_numpy(feats), T6, need_logprobs=True)
+    seq_j, lp_j = np.asarray(seq_j), np.asarray(lp_j)
+    np.testing.assert_array_equal(seq_t.numpy(), seq_j)
+    np.testing.assert_allclose(lp_t.numpy(), lp_j, atol=2e-5)
+    steps = _finish_steps(seq_t)
+    t = torch.arange(T6)
+    past = (t > steps[..., None]) & (t <= steps.max(-1, keepdim=True)
+                                     .values[..., None])
+    assert past.any() and (np.abs(lp_j[past.numpy()]) > 0).any()
+
+
 def test_cluster_rows_and_param_checks():
     """cluster_rows and _check_params take the built widths (E = R in 128,
-    256, 512, any feature width that is a multiple of 128) and refuse
+    256, 512, 1024, any feature width that is a multiple of 128) and refuse
     unpadded shapes with a message that names them and kernel_shape; past
     the width check a CPU tensor is refused for not being on the card."""
-    assert [tdc.cluster_rows(w) for w in tdc.KERNEL_WIDTHS] == [128, 64, 32]
+    assert [tdc.cluster_rows(w) for w in tdc.KERNEL_WIDTHS] == [128, 64, 32,
+                                                                16]
     with pytest.raises(ValueError, match="E = R in"):
         tdc.cluster_rows(192)
 
@@ -285,7 +349,8 @@ def test_cluster_rows_and_param_checks():
         with pytest.raises(ValueError, match="is not a CUDA tensor"):
             tdc._check_params(params(w, w, F=384), 1, 384, torch.float32)
     for E, R, F in ((192, 192, 256), (256, 128, 256), (16, 16, 256)):
-        with pytest.raises(ValueError, match=r"E = R in \(128, 256, 512\); "
+        with pytest.raises(ValueError, match=r"E = R in \(128, 256, 512, "
+                           r"1024\); "
                            r"lay the model out padded to kernel_shape"):
             tdc._check_params(params(E, R, F), 1, F, torch.float32)
     with pytest.raises(ValueError, match="multiple of 128; lay the model "
@@ -296,14 +361,16 @@ def test_cluster_rows_and_param_checks():
 @pytest.mark.parametrize("widths,ok", [
     ((256, 256, 256), True), ((512, 512, 2048), True),
     ((192, 192, 256), True), ((256, 128, 256), True),
-    ((256, 256, 200), True), ((1024, 1024, 2048), False),
-    ((300, 513, 2048), False)],
-    ids=["E256", "E512", "E192", "E_ne_R", "F200", "W1024", "R513"])
+    ((256, 256, 200), True), ((1024, 1024, 2048), True),
+    ((300, 513, 2048), True), ((1025, 1025, 2048), False),
+    ((300, 2048, 2048), False)],
+    ids=["E256", "E512", "E192", "E_ne_R", "F200", "W1024", "R513", "E1025",
+         "R2048"])
 def test_resolve_fused_on_the_card(widths, ok):
-    """On a CUDA device a no-norm captioner of E, R <= 512 and any feature
-    width goes to the kernels (laid out at kernel_shape); a wider one
-    raises under "auto" and true with a message that names 512; false
-    decodes eagerly."""
+    """On a CUDA device a no-norm captioner of E, R <= 1024 and any feature
+    width goes to the kernels (laid out at kernel_shape; 513-1024 at the
+    1024 library); a wider one raises under "auto" and true with a message
+    that names 1024; false decodes eagerly."""
     from nes_img_captioning_tpu_torch.tasks.captioning import resolve_fused
 
     E, R, F = widths
@@ -314,7 +381,7 @@ def test_resolve_fused_on_the_card(widths, ok):
         if ok:
             assert resolve_fused(o, want, card) is True
         else:
-            with pytest.raises(ValueError, match="E and R up to 512.*"
+            with pytest.raises(ValueError, match="E and R up to 1024.*"
                                "fused_decode: false"):
                 resolve_fused(o, want, card)
     assert resolve_fused(o, False, card) is False
