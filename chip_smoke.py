@@ -194,8 +194,8 @@ Phases, each printed as it ends (any failure exits non-zero):
     kernels with the layout on and off; K1 on decode-ordered children
     against its plain twin;
 32. [10]'s NESMaster and [31]'s mscoco_es.json runs as two ranks sharing
-    the card over gloo (child processes, ``--rank-phase``), then NES as one
-    rank over NCCL: the ranks in lockstep bit for bit, the artifacts in
+    the card over gloo (child processes, ``--rank-phase``), beside them NES
+    as one rank over NCCL: the ranks in lockstep bit for bit, the artifacts in
     rank 0's directories only, NES generation 1's fitnesses bit for bit
     one process's and its theta Adam's step on the rank-order sum of the
     ranks' K6 partials (within the sum-order bound of one process's
@@ -235,15 +235,17 @@ Phases, each printed as it ends (any failure exits non-zero):
     kernel's time (K1-K7), plain time, cuBLAS yardstick and bound, and one
     profiled generation per width;
 35. the reference's on-disk format at the Karpathy split's size, run
-    before [33]: [33]'s arrays written by write_synthetic_coco under logs/
-    (123,287 per-image .npy files, cocotalk.json, cocotalk_label.h5 from
-    the port's numpy HDF5 writer) and read back by CocoData bit for bit
-    CocoData.from_arrays (labels, label indices, split indices, gts,
-    features), then reloaded in a fresh process (the consolidated
-    features memory-mapped, bit for bit by SHA-256); the seconds to write,
-    of the label read, of the first load and of the reload, and the train
+    before [33]: in a process of its own started after [1]'s build and run
+    beside the phases, [33]'s arrays written by write_synthetic_coco under
+    logs/ (123,287 per-image .npy files, cocotalk.json, cocotalk_label.h5
+    from the port's numpy HDF5 writer) and read back by CocoData bit for
+    bit CocoData.from_arrays (labels, label indices, split indices, gts,
+    features); then reloaded in this process (the consolidated features
+    memory-mapped, bit for bit by SHA-256); the seconds to write, of the
+    label read, of the first load and of the reload, and the train
     matrix's upload in GB/s; then, as child processes at once on those
-    files, ``python -m nes_img_captioning_tpu_torch.main master`` on
+    files, beside [33]'s set-up,
+    ``python -m nes_img_captioning_tpu_torch.main master`` on
     experiments/mscoco_nes.json for one block of 8 (its z_info, .pth and
     optimizer.tar written) and scripts/torch_parity_run.py with [27]'s
     XENT .pth for 2 generations and the 5000 test images (both warm-start
@@ -573,8 +575,13 @@ def cublas_decode(feats, weights: dict, T: int, lanes: int = 1,
 def profile_call(fn):
     """``fn()`` once under torch.profiler: (wall ms, card-busy ms, kernel
     rows (ms, count, name) by device time). Busy is the union of the
-    kernels' intervals, so streams that overlap count once."""
+    kernels' intervals, so streams that overlap count once. The rows and
+    the busy time come from the profiler's raw device records (what
+    ``key_averages`` sums for a kernel's row), without the event tree that
+    ``key_averages`` and ``events`` build over every host operator (seconds
+    for each generation profiled, minutes over the smoke)."""
     import torch
+    from torch.autograd.profiler_util import _rewrite_name
 
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -586,15 +593,27 @@ def profile_call(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator's row repeats its kernels' device time
     cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
-                   for evt in prof.key_averages() if evt.device_type == cuda),
+    skip = {"[memory]", "[OutOfMemory]"}
+    spans, by_name = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or e.name() in skip or \
+                getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        spans.append((e.start_ns(), e.end_ns()))
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + (e.end_ns() - e.start_ns()) / 1e6, n + 1)
+    named = {}
+    for name, (ms, n) in by_name.items():
+        key = _rewrite_name(name, with_wildcard=True)
+        ms0, n0 = named.get(key, (0.0, 0))
+        named[key] = (ms0 + ms, n0 + n)
+    rows = sorted(((ms, n, key) for key, (ms, n) in named.items()),
                   reverse=True)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in prof.events() if e.device_type == cuda):
-        busy += max(0.0, hi - max(lo, end))
+    busy, end = 0, -1
+    for lo, hi in sorted(spans):
+        busy += max(0, hi - max(lo, end))
         end = max(end, hi)
-    return wall_ms, busy / 1e3, rows
+    return wall_ms, busy / 1e6, rows
 
 
 def profile_generation(eng, theta, sens, seeds, batches):
@@ -3739,7 +3758,7 @@ def m16_es(exps: dict, dev, data) -> dict:
 def rank_main(argv: list) -> int:
     """A process of phase 32 (``chip_smoke.py --rank-phase DIR WORLD RANK
     PORT``): joins a group of WORLD ranks through ``init_multihost`` as
-    ``main.py``'s local ranks do (the store that ``run_ranks`` holds at
+    ``main.py``'s local ranks do (the store that ``start_ranks`` holds at
     127.0.0.1:PORT, the card rank % device_count), builds the in-memory
     fixtures, runs ``m16_nes`` and, in a group of more than one,
     ``m16_es`` on DIR/inputs.json's experiments, and saves the results as
@@ -3770,10 +3789,13 @@ def rank_main(argv: list) -> int:
     mesh = make_mesh()
     tag = f"[32] rank {rank} of {world} ({mesh.backend}, {mesh.device})"
     out = {"backend": mesh.backend, "device": str(mesh.device)}
+    # the group of one runs beside the group of two: a directory of its own
+    nes_exp = inputs["nes"] if world > 1 else dict(
+        inputs["nes"], log_dir=inputs["nes"]["log_dir"] + "_nccl")
     try:
         t0 = time.perf_counter()
         nes_data = bench_task(mesh.device).data
-        out["nes"], _ = m16_nes(inputs["nes"], mesh.device, nes_data)
+        out["nes"], _ = m16_nes(nes_exp, mesh.device, nes_data)
         log(f"{tag}: NES {M16_NES_ITERS} iterations, ms "
             f"{out['nes']['ms']}, K5 and K6 launches "
             f"{out['nes']['launches']} ({time.perf_counter() - t0:.1f} s "
@@ -3794,13 +3816,10 @@ def rank_main(argv: list) -> int:
     return 0
 
 
-def run_ranks(work: str, world: int) -> list:
-    """Start WORLD rank processes of phase 32 at once, wait for all within
-    RANK_TIMEOUT (killing any left), echo their [32] lines, and return
-    their results; a rank that fails fails the phase with its output's
-    tail. This process holds their rendezvous (``hold_rendezvous``)."""
-    import torch
-
+def start_ranks(work: str, world: int) -> tuple:
+    """Start WORLD rank processes of phase 32 at once; this process holds
+    their rendezvous (``hold_rendezvous``). Returns (the store, the
+    processes) for ``wait_ranks``."""
     from nes_img_captioning_tpu_torch.parallel.multihost import (
         hold_rendezvous,
     )
@@ -3810,6 +3829,18 @@ def run_ranks(work: str, world: int) -> list:
         [sys.executable, os.path.abspath(__file__), "--rank-phase", work,
          str(world), str(r), str(store.port)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    for p in procs:
+        BACKGROUND.append((p, None))
+    return store, procs
+
+
+def wait_ranks(work: str, world: int, started: tuple) -> list:
+    """Wait for ``start_ranks``' processes within RANK_TIMEOUT (killing any
+    left), echo their [32] lines, and return their results; a rank that
+    fails fails the phase with its output's tail."""
+    import torch
+
+    _store, procs = started
     outs = []
     try:
         for p in procs:
@@ -3859,7 +3890,8 @@ def m16_phase(card: str, task, es_ref: dict, kernels: list) -> list:
     cut of mscoco_nes.json (kernel noise) for M16_NES_ITERS iterations and
     [31]'s mscoco_es.json with the layout on its three paths, as 2 ranks
     in child processes sharing cuda:0 over gloo (``init_multihost``'s rule)
-    with the fixtures built in each; then NES alone as 1 rank over NCCL.
+    with the fixtures built in each; beside them NES alone as 1 rank over
+    NCCL (its run directory its own).
     Gates: the ranks' stat series and final theta bit for bit each other's;
     the artifacts in rank 0's directory only; NES generation 1 from the
     same theta: fitnesses bit for bit one process's, theta exactly Adam's
@@ -3901,8 +3933,15 @@ def m16_phase(card: str, task, es_ref: dict, kernels: list) -> list:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    two = run_ranks(work, 2)
-    nccl = run_ranks(work, 1)[0]
+    from nes_img_captioning_tpu_torch.main import local_rank_threads
+
+    log(f"[32] main.py's local ranks on this host: {local_rank_threads(2)} "
+        f"intra-op threads each of 2 ({torch.get_num_threads()} in the "
+        f"starting process, {os.cpu_count()} cores)")
+    # the group of one over NCCL runs beside the group of two
+    started = start_ranks(work, 2), start_ranks(work, 1)
+    two = wait_ranks(work, 2, started[0])
+    nccl = wait_ranks(work, 1, started[1])[0]
     if [r["backend"] for r in two] != ["gloo", "gloo"] or \
             nccl["backend"] != "nccl":
         raise AssertionError(f"[32] backends {[r['backend'] for r in two]}"
@@ -4123,7 +4162,8 @@ LABEL_KEYS = ("labels", "label_start_ix", "label_end_ix")
 
 def coco_digest(data) -> dict:
     """The split sizes and SHA-256 of the labels and features of a
-    CocoData: [35]'s reload in a fresh process is held to them."""
+    CocoData: [35]'s reload in this process is held to those of the
+    fixture's process."""
     import hashlib
 
     fc = np.ascontiguousarray(data._fc)
@@ -4132,125 +4172,28 @@ def coco_digest(data) -> dict:
             "feats": hashlib.sha256(fc.view(np.uint8)).hexdigest()}
 
 
-def reload_main(argv: list) -> int:
-    """``chip_smoke.py --reload-phase COPTS_JSON``: [35]'s reload in a fresh
-    process. CocoData of the files the caption options name (the
-    consolidated features memory-mapped); prints its seconds, whether the
-    features are a memory map, and ``coco_digest`` as one JSON line."""
-    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
-
-    with open(argv[0]) as f:
-        copts = json.load(f)
-    t0 = time.perf_counter()
-    data = CocoData(copts)
-    seconds = time.perf_counter() - t0
-    print(json.dumps({"seconds": seconds,
-                      "mmap": isinstance(data._fc, np.memmap),
-                      **coco_digest(data)}))
-    return 0
-
-
-def coco_equal(got, want, what: str):
-    """Raise unless two CocoData hold the same labels, label indices, split
-    indices, gts and features bit for bit."""
-    splits = ("train", "val", "test")
-
-    def same(a, b) -> bool:
-        return a.dtype == b.dtype and a.shape == b.shape and \
-            np.array_equal(a.view(np.uint8), b.view(np.uint8))
-
-    checks = {
-        "labels": same(got.labels, want.labels),
-        "label_start_ix": same(got.label_start_ix, want.label_start_ix),
-        "label_end_ix": same(got.label_end_ix, want.label_end_ix),
-        "split indices": got.split_ix == want.split_ix,
-        "gts": all(len(g) == len(w) and all(same(a, b) for a, b in zip(g, w))
-                   for g, w in ((got.split_gts(s), want.split_gts(s))
-                                for s in splits)),
-        "features": same(np.ascontiguousarray(got._fc),
-                         np.ascontiguousarray(want._fc)),
-    }
-    bad = [k for k, ok in checks.items() if not ok]
-    if bad:
-        raise AssertionError(f"{what}: {', '.join(bad)} differ")
-
-
-def run_children(cmds: dict, work: str) -> dict:
-    """Start each {name: argv} as a child process from the repository's root,
-    its stdout and stderr into ``work/<name>.out`` and ``.err``, all at
-    once; wait for all (CHILD_TIMEOUT each) and stop any still running.
-    Raises unless every child exits 0. Returns {name: (stdout, seconds)}."""
-    import subprocess
-
-    procs, out = {}, {}
-    try:
-        for name, argv in cmds.items():
-            files = [open(os.path.join(work, f"{name}.{k}"), "w")
-                     for k in ("out", "err")]
-            procs[name] = (subprocess.Popen(argv, stdout=files[0],
-                                            stderr=files[1]), files,
-                           time.perf_counter())
-        deadline = time.perf_counter() + CHILD_TIMEOUT
-        for name, (proc, files, t0) in procs.items():
-            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
-            out[name] = (rc, time.perf_counter() - t0)
-    finally:
-        for proc, files, _ in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            for f in files:
-                f.close()
-    for name, (rc, seconds) in out.items():
-        with open(os.path.join(work, f"{name}.out")) as f:
-            stdout = f.read()
-        if rc != 0:
-            with open(os.path.join(work, f"{name}.err")) as f:
-                err = f.read()[-4000:]
-            raise AssertionError(f"[35] child {name} {cmds[name]} exited "
-                                 f"{rc} after {seconds:.1f} s:\n{err}")
-        out[name] = (stdout, seconds)
-    return out
-
-
-def disk_phase(card: str, arrays: dict, pth: str):
-    """Phase 35: the reference's on-disk format at the Karpathy split's
-    size, written and read by the port with numpy alone. REGIME_DATA's
-    ``arrays`` go to a directory under logs/ through write_synthetic_coco
-    (123,287 per-image .npy files, cocotalk.json, cocotalk_label.h5 from
-    data/hdf5.write_datasets); CocoData reads them back (the first load
-    consolidates the features into fc_fc.npy) bit for bit
-    CocoData.from_arrays of the same arrays; a fresh process reloads them
-    (the memory-mapped consolidation), bit for bit. Then the entry points a
-    user starts, as child processes on those files at once:
-    ``main master`` on experiments/mscoco_nes.json for DISK_NES_ITERS
-    generations (its snapshot, .pth and optimizer.tar written), and
-    scripts/torch_parity_run.py with the .pth ``pth`` for DISK_PARITY_GENS
-    generations and the 5000 test images (both warm-start round trips
-    exact, a finite validation series, finite CIDEr-D for both
-    checkpoints). Seconds of each step and the upload's GB/s are logged.
-    Returns (the CocoData read from the files, its first load's seconds);
-    the directory is removed."""
-    import glob
-    import shutil
-
-    import torch
-
+def fixture_main(argv: list) -> int:
+    """``chip_smoke.py --fixture-phase DIR CARD``: the host half of [35] in
+    a process of its own, which ``start_fixture`` starts after [1]'s build
+    so that it runs beside phases [1]-[32] (at niceness WIDE_BUILD_NICE).
+    REGIME_DATA's arrays (``regime_arrays``) go to DIR/coco through
+    write_synthetic_coco (123,287 per-image .npy files, cocotalk.json,
+    cocotalk_label.h5 from data/hdf5.write_datasets); the label file reads
+    back as written; CocoData reads the files (the first load consolidates
+    the features into fc_fc.npy) bit for bit CocoData.from_arrays of the
+    same arrays. Prints its [35] lines and writes the caption options, its
+    seconds and the first load's ``coco_digest`` to DIR/fixture.json."""
     from nes_img_captioning_tpu_torch.data.hdf5 import read_datasets
     from nes_img_captioning_tpu_torch.data.mscoco import CocoData
     from nes_img_captioning_tpu_torch.data.synthetic import (
         write_synthetic_coco,
     )
-    from nes_img_captioning_tpu_torch.utils.config import load_experiment
 
-    dev = torch.device("cuda")
-    t_phase = time.perf_counter()
-    work = os.path.abspath(os.path.join("logs",
-                                        f"chip_smoke_disk_{os.getpid()}"))
-    fixture = os.path.join(work, "coco")
-    os.makedirs(work)
+    work, card = argv[0], argv[1]
+    os.nice(WIDE_BUILD_NICE)
+    arrays, t_arrays = regime_arrays()
     t0 = time.perf_counter()
-    copts = write_synthetic_coco(fixture, arrays)
+    copts = write_synthetic_coco(os.path.join(work, "coco"), arrays)
     t_write = time.perf_counter() - t0
     n_files = len(os.listdir(copts["input_fc_dir"]))
     fc_bytes = sum(e.stat().st_size
@@ -4288,19 +4231,178 @@ def disk_phase(card: str, arrays: dict, pth: str):
         f"load {t_first:.1f} s (consolidating into "
         f"{os.path.basename(fc_cache)}, "
         f"{os.path.getsize(fc_cache) / 1e9:.3f} GB) ({card})")
+    with open(os.path.join(work, "fixture.json"), "w") as f:
+        json.dump({"copts": copts, "arrays_s": t_arrays, "first_s": t_first,
+                   "digest": coco_digest(data)}, f)
+    return 0
 
-    copts_path = os.path.join(work, "caption_options.json")
-    with open(copts_path, "w") as f:
-        json.dump(copts, f)
-    stdout, t_child = run_children({"reload": [
-        sys.executable, os.path.abspath(__file__), "--reload-phase",
-        copts_path]}, work)["reload"]
-    reload = json.loads(stdout.strip().splitlines()[-1])
-    want = coco_digest(data)
-    if not reload["mmap"] or any(reload[k] != want[k] for k in want):
-        raise AssertionError(f"[35] the reload in a fresh process: memory "
-                             f"map {reload['mmap']}, digests "
-                             f"{ {k: reload[k] == want[k] for k in want} }")
+
+# processes and removals that run beside the phases: stopped or awaited
+# before the smoke ends, however it ends
+BACKGROUND, REMOVALS = [], []
+
+
+def start_fixture(card: str) -> dict:
+    """Start [35]'s host half (``fixture_main``) in a process of its own,
+    its output into the work directory under logs/; [35] waits for it."""
+    work = os.path.abspath(os.path.join("logs",
+                                        f"chip_smoke_disk_{os.getpid()}"))
+    os.makedirs(work)
+    files = [open(os.path.join(work, f"fixture.{k}"), "w")
+             for k in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--fixture-phase", work, card],
+                            stdout=files[0], stderr=files[1])
+    BACKGROUND.append((proc, work))
+    return {"proc": proc, "files": files, "work": work}
+
+
+def remove_later(path: str) -> None:
+    """Remove the directory ``path`` in a process beside the phases (tens of
+    thousands of files take seconds); ``end_background`` awaits it."""
+    trash = f"{path.rstrip('/')}.removing"
+    os.rename(path, trash)
+    REMOVALS.append(subprocess.Popen(["nice", "-n", str(WIDE_BUILD_NICE),
+                                      "rm", "-rf", trash]))
+
+
+def end_background() -> None:
+    """Stop the background processes still running (their directories
+    removed) and await every removal."""
+    for proc, work in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+            if work is not None and os.path.isdir(work):
+                remove_later(work)
+    for proc in REMOVALS:
+        proc.wait()
+
+
+def coco_equal(got, want, what: str):
+    """Raise unless two CocoData hold the same labels, label indices, split
+    indices, gts and features bit for bit."""
+    splits = ("train", "val", "test")
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and a.shape == b.shape and \
+            np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+    checks = {
+        "labels": same(got.labels, want.labels),
+        "label_start_ix": same(got.label_start_ix, want.label_start_ix),
+        "label_end_ix": same(got.label_end_ix, want.label_end_ix),
+        "split indices": got.split_ix == want.split_ix,
+        "gts": all(len(g) == len(w) and all(same(a, b) for a, b in zip(g, w))
+                   for g, w in ((got.split_gts(s), want.split_gts(s))
+                                for s in splits)),
+        "features": same(np.ascontiguousarray(got._fc),
+                         np.ascontiguousarray(want._fc)),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{what}: {', '.join(bad)} differ")
+
+
+def start_children(cmds: dict, work: str) -> dict:
+    """Start each {name: argv} as a child process from the repository's
+    root, its stdout and stderr into ``work/<name>.out`` and ``.err``, all
+    at once; ``wait_children`` awaits them."""
+    procs = {}
+    for name, argv in cmds.items():
+        files = [open(os.path.join(work, f"{name}.{k}"), "w")
+                 for k in ("out", "err")]
+        procs[name] = (subprocess.Popen(argv, stdout=files[0],
+                                        stderr=files[1]), files,
+                       time.perf_counter())
+        BACKGROUND.append((procs[name][0], None))
+    return procs
+
+
+def wait_children(cmds: dict, procs: dict, work: str) -> dict:
+    """Wait for ``start_children``'s processes (CHILD_TIMEOUT each from
+    now) and stop any still running. Raises unless every child exits 0.
+    Returns {name: (stdout, seconds from its start)}."""
+    out = {}
+    try:
+        deadline = time.perf_counter() + CHILD_TIMEOUT
+        for name, (proc, files, t0) in procs.items():
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+            out[name] = (rc, time.perf_counter() - t0)
+    finally:
+        for proc, files, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in files:
+                f.close()
+    for name, (rc, seconds) in out.items():
+        with open(os.path.join(work, f"{name}.out")) as f:
+            stdout = f.read()
+        if rc != 0:
+            with open(os.path.join(work, f"{name}.err")) as f:
+                err = f.read()[-4000:]
+            raise AssertionError(f"[35] child {name} {cmds[name]} exited "
+                                 f"{rc} after {seconds:.1f} s:\n{err}")
+        out[name] = (stdout, seconds)
+    return out
+
+
+def disk_phase(card: str, fixture: dict, pth: str):
+    """Phase 35: the reference's on-disk format at the Karpathy split's
+    size, written and read by the port with numpy alone. Its host half
+    (``fixture_main``: REGIME_DATA's arrays written, read back and held to
+    CocoData.from_arrays) ran in a process of its own beside the earlier
+    phases; here this process waits for it and reloads the files (the
+    memory-mapped consolidation) bit for bit by SHA-256. Then the entry
+    points a user starts, as child processes on those files at once:
+    ``main master`` on experiments/mscoco_nes.json for DISK_NES_ITERS
+    generations (its snapshot, .pth and optimizer.tar written), and
+    scripts/torch_parity_run.py with the .pth ``pth`` for DISK_PARITY_GENS
+    generations and the 5000 test images (both warm-start round trips
+    exact, a finite validation series, finite CIDEr-D for both
+    checkpoints). Seconds of each step and the upload's GB/s are logged.
+    The two start here and are held by ``disk_children``, which [33] calls
+    once its set-up is done. Returns (the CocoData read from the files, the
+    arrays' seconds, the first load's seconds, that call); ``main`` removes
+    the directory once [36], the last phase on those files, is done."""
+    import torch
+
+    from nes_img_captioning_tpu_torch.data.mscoco import CocoData
+    from nes_img_captioning_tpu_torch.utils.config import load_experiment
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    work, proc = fixture["work"], fixture["proc"]
+    fixture_path = os.path.join(work, "coco")
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT)
+    finally:
+        for f in fixture["files"]:
+            f.close()
+    t_wait = time.perf_counter() - t_phase
+    with open(os.path.join(work, "fixture.out")) as f:
+        for line in f.read().splitlines():
+            if line.startswith("[35]"):
+                log(line)
+    if rc != 0:
+        with open(os.path.join(work, "fixture.err")) as f:
+            err = f.read()[-4000:]
+        raise AssertionError(f"[35] the fixture's process exited {rc}:\n"
+                             f"{err}")
+    with open(os.path.join(work, "fixture.json")) as f:
+        written = json.load(f)
+    copts = written["copts"]
+    fc_cache = copts["input_fc_dir"].rstrip("/") + "_fc.npy"
+    t0 = time.perf_counter()
+    data = CocoData(copts)
+    t_load = time.perf_counter() - t0
+    got = coco_digest(data)
+    if not isinstance(data._fc, np.memmap) or got != written["digest"]:
+        raise AssertionError(
+            f"[35] the reload in this process: memory map "
+            f"{isinstance(data._fc, np.memmap)}, digests "
+            f"{ {k: got[k] == written['digest'][k] for k in got} }")
     train = data.split_feats("train")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4310,11 +4412,12 @@ def disk_phase(card: str, arrays: dict, pth: str):
     gb = train.nbytes / 1e9
     del up, train
     torch.cuda.empty_cache()
-    log(f"[35] reload in a fresh process: CocoData {reload['seconds']:.3f} s "
-        f"(the features memory-mapped from {os.path.basename(fc_cache)}; "
-        f"the process {t_child:.1f} s), labels and features bit for bit by "
-        f"SHA-256; the train matrix, {gb:.3f} GB f32, to the card in "
-        f"{t_up:.3f} s ({gb / t_up:.2f} GB/s) ({card})")
+    log(f"[35] the lines above from the fixture's process, run beside "
+        f"phases [1]-[32] ({t_wait:.1f} s waited for it here); reload in "
+        f"this process: CocoData {t_load:.3f} s (the features memory-mapped "
+        f"from {os.path.basename(fc_cache)}), labels and features bit for "
+        f"bit the first load's by SHA-256; the train matrix, {gb:.3f} GB "
+        f"f32, to the card in {t_up:.3f} s ({gb / t_up:.2f} GB/s) ({card})")
 
     # the entry points a user starts, on these files
     exp = load_experiment("experiments/mscoco_nes.json")
@@ -4324,16 +4427,35 @@ def disk_phase(card: str, arrays: dict, pth: str):
     with open(exp_path, "w") as f:
         json.dump(exp, f)
     parity_out = os.path.join(work, "parity")
-    children = run_children({
+    cmds = {
         "master": [sys.executable, "-m", "nes_img_captioning_tpu_torch.main",
                    "master", "--exp_file", exp_path, "--max_iterations",
                    str(DISK_NES_ITERS)],
         "parity": [sys.executable, os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "scripts",
-            "torch_parity_run.py"), "--data", fixture, "--pth",
+            "torch_parity_run.py"), "--data", fixture_path, "--pth",
             os.path.abspath(pth), "--generations", str(DISK_PARITY_GENS),
             "--test-num", str(REGIME_DATA["test"]), "--out", parity_out],
-    }, work)
+    }
+    procs = start_children(cmds, work)
+    t_here = time.perf_counter() - t_phase
+    log(f"[35] {t_here:.1f} s here; its two entry points run beside [33]'s "
+        f"set-up from here ({card})")
+    return data, written["arrays_s"], written["first_s"], \
+        lambda: disk_children(card, cmds, procs, work, exp, parity_out)
+
+
+def disk_children(card: str, cmds: dict, procs: dict, work: str, exp: dict,
+                  parity_out: str) -> None:
+    """The end of [35], called inside [33] once its set-up is done: waits
+    for the two entry points ``disk_phase`` started and holds their output
+    (the master's snapshot, .pth and optimizer.tar; the runbook's
+    summary)."""
+    import glob
+
+    t0 = time.perf_counter()
+    children = wait_children(cmds, procs, work)
+    t_wait = time.perf_counter() - t0
     run_dir = exp["log_dir"]
     zinfo = glob.glob(os.path.join(run_dir, "snapshot", "z_info_*.json"))
     files = {"snapshot": zinfo,
@@ -4373,9 +4495,8 @@ def disk_phase(card: str, arrays: dict, pth: str):
         f"({ws['num_params']:,} parameters); validation CIDEr {series}; "
         f"test CIDEr-D "
         f"{ {k: round(v['CIDEr'], 6) for k, v in tests.items()} } ({card})")
-    shutil.rmtree(work)
-    log(f"[35] phase: {time.perf_counter() - t_phase:.1f} s ({card})")
-    return data, t_first
+    log(f"[35] the entry points' end: {t_wait:.1f} s waited for them after "
+        f"[33]'s set-up ({card})")
 
 
 def host_cpu() -> str:
@@ -4402,7 +4523,7 @@ def host_cpu() -> str:
     return f"{name}, {os.cpu_count()} cores"
 
 
-def true_regime_phase(card: str, data, setup: dict) -> list:
+def true_regime_phase(card: str, data, setup: dict, after_setup) -> list:
     """Phase 33: experiments/mscoco_nes.json at its own settings (2000
     pairs, batch 64, pop_chunk 48, bf16 compute, f32 deltas, 5000 val
     images at val_batch_size 256, blocks of 8) on REGIME_DATA's 113,287
@@ -4416,8 +4537,10 @@ def true_regime_phase(card: str, data, setup: dict) -> list:
     generation), K5 against K2 fed K7's dump and K6 over 2016 lanes
     against its plain version and the ordered sum of K7's dumps; one
     generation of each run under torch.profiler; the three kernels' rows at
-    these shapes. Returns them, and the task's DeviceCider over the train
-    references with its build's seconds ([36] scores with it)."""
+    these shapes. ``after_setup()`` runs once the master's set-up is done
+    (the end of [35], whose two entry points run beside that set-up).
+    Returns them, and the task's DeviceCider over the train references
+    with its build's seconds ([36] scores with it)."""
     import shutil
 
     import torch
@@ -4505,7 +4628,8 @@ def true_regime_phase(card: str, data, setup: dict) -> list:
     log(f"[33] NESMaster set-up {t_master:.1f} s: "
         + "; ".join(f"DeviceCider ({v}) over {n:,} images {s:.1f} s"
                     for n, v, s in built)
-        + f" ({refs:,} train references; host CPU {host_cpu()})")
+        + f" ({refs:,} train references; host CPU {host_cpu()}; beside "
+        "[35]'s two entry points)")
     resolved = {"fused_validation": master._val_fused_mode(),
                 "kernel_perturb": eng._kernel_perturb,
                 "kernel_noise": eng._kernel_noise,
@@ -4518,6 +4642,7 @@ def true_regime_phase(card: str, data, setup: dict) -> list:
     log(f"[33] mscoco_nes.json resolves to {resolved}; {F} pairs in "
         f"{n_chunks} chunks of {P}, the last with {real_last} real pairs "
         f"and {n_chunks * P - F} pad lanes")
+    after_setup()
 
     # generation 1's operands, as the master hands them to the engine
     first = {}
@@ -6194,6 +6319,8 @@ def main() -> int:
     # the libraries of E = R = 256 and 512 ([34]) build beside the phases
     # from here
     wide_builds = start_wide_builds()
+    # [35]'s fixture is written and read beside the phases from here
+    fixture = start_fixture(card)
     log(f"[1] kernels built in {time.time() - t0:.1f} s: {lib.name} (the "
         f"libraries of E = R = {', '.join(map(str, WIDE + (W3,)))} build "
         "from here on, beside the phases)")
@@ -6848,18 +6975,19 @@ def main() -> int:
     kernels += m16_phase(card, task, es_ref, kernels)
     t_lap = lap(t_lap, "[31]-[32]")
     # [35] writes and reads the split-size files that [33] and [36] run on
-    arrays, t_arrays = regime_arrays()
-    split_data, t_read = disk_phase(card, arrays, xent["paths"]["xent"])
-    del arrays
-    shutil.rmtree(xent["runs_dir"])
-    t_lap = lap(t_lap, "[35]")
+    split_data, t_arrays, t_read, disk_end = disk_phase(
+        card, fixture, xent["paths"]["xent"])
+    t_lap = lap(t_lap, "[35] but for its entry points' end")
     rows, train_cider = true_regime_phase(
-        card, split_data, {"arrays_s": t_arrays, "data_s": t_read})
+        card, split_data, {"arrays_s": t_arrays, "data_s": t_read},
+        disk_end)
+    remove_later(xent["runs_dir"])
     kernels += rows
-    t_lap = lap(t_lap, "[33]")
+    t_lap = lap(t_lap, "[33] with [35]'s entry points' end")
     kernels += es_split_phase(card, split_data, train_cider)
     del train_cider
     del split_data
+    remove_later(fixture["work"])
     t_lap = lap(t_lap, "[36]")
     kernels += widths_phase(card, task.data, wide_builds)
     t_lap = lap(t_lap, "[34]")
@@ -6867,6 +6995,7 @@ def main() -> int:
     t_lap = lap(t_lap, "[37]")
     kernels += w1024_phase(card, task.data, wide_builds)
     lap(t_lap, "[38]")
+    end_background()
     log(f"[end] phases [1]-[38] in {time.time() - t_smoke:.1f} s with the "
         f"kernels' build ({card})")
     print(json.dumps({"kernels": kernels}))
@@ -6882,6 +7011,9 @@ if __name__ == "__main__":
         sys.exit(profile_main())
     if sys.argv[1:2] == ["--rank-phase"]:
         sys.exit(rank_main(sys.argv[2:]))
-    if sys.argv[1:2] == ["--reload-phase"]:
-        sys.exit(reload_main(sys.argv[2:]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--fixture-phase"]:
+        sys.exit(fixture_main(sys.argv[2:]))
+    try:
+        sys.exit(main())
+    finally:
+        end_background()

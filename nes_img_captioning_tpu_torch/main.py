@@ -11,9 +11,11 @@ with its own ``--process_id``, ``--num_processes n`` and rank 0's
 experiment whose ``tpu.mesh_shape`` holds n > 1 ranks, run without
 ``--num_processes``, starts its n ranks on this host itself (a local
 rendezvous held by this process, ``multihost.hold_rendezvous``), so one
-command runs on n cards; each of those ranks runs on its share of the
-host's CPU cores (``os.cpu_count() // n`` intra-op threads). A rank takes
-the card ``rank % device_count`` unless ``--device`` names one.
+command runs on n cards; each of those ranks runs on its share of this
+process's intra-op threads (``local_rank_threads``: ``torch.get_num_threads()
+// n``, at least 1; torch's default is one per core, ``OMP_NUM_THREADS``
+sets another). A rank takes the card ``rank % device_count`` unless
+``--device`` names one.
 
 Usage:
     python -m nes_img_captioning_tpu_torch.main master \\
@@ -29,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 
 import numpy as np
 
@@ -143,19 +144,27 @@ def _rank_main(rank: int, args, exp: dict, n: int, port: int,
     _run_rank(args, exp, launcher_store=True)
 
 
+def local_rank_threads(n: int) -> int:
+    """The intra-op threads of each of ``n`` local ranks: this process's
+    count split n ways, at least 1 (``n`` ranks each running as many
+    threads as there are cores would contend for every core)."""
+    import torch
+
+    return max(1, torch.get_num_threads() // n)
+
+
 def _start_local_ranks(args, exp: dict, n: int):
     """Run this command as ``n`` ranks on this host, each in a spawned
-    process that joins the rendezvous this process holds and runs on its
-    share of the host's cores (``n`` ranks each running as many threads
-    as there are cores would contend for every core); returns when all
-    have ended (a rank that fails ends the run with its error)."""
+    process that joins the rendezvous this process holds and runs on
+    ``local_rank_threads(n)`` intra-op threads; returns when all have ended
+    (a rank that fails ends the run with its error)."""
     import torch.multiprocessing as mp
 
     from .parallel.multihost import hold_rendezvous
 
-    threads = max(1, (os.cpu_count() or 1) // n)
-    logging.info("tpu.mesh_shape holds %d ranks: starting them on this host",
-                 n)
+    threads = local_rank_threads(n)
+    logging.info("tpu.mesh_shape holds %d ranks: starting them on this "
+                 "host, %d intra-op threads each", n, threads)
     store = hold_rendezvous(n)
     mp.start_processes(_rank_main,
                        args=(args, exp, n, store.port, threads), nprocs=n,

@@ -12,6 +12,8 @@ from nes_img_captioning_tpu.ops.cider_device import DeviceCider as JaxCider
 from nes_img_captioning_tpu_torch.fitness.ciderd import CiderScorer
 from nes_img_captioning_tpu_torch.ops import cider_device as tcd
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 
 def _make_gts(rng, n_img=24, vocab=40, T=16):
     gts = []

@@ -19,6 +19,8 @@ from nes_img_captioning_tpu_torch.fitness.ciderd import (
     load_df_pickle,
 )
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 B = 4
 
 

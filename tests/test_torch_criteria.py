@@ -10,6 +10,8 @@ import jax.numpy as jnp
 from nes_img_captioning_tpu.fitness import criteria as jcrit
 from nes_img_captioning_tpu_torch.fitness import criteria as tcrit
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 KINDS = ("sc_loss", "greedy_logprob", "greedy_expprob", "greedy_avgprob",
          "greedy_linprob")
 

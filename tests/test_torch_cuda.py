@@ -24,6 +24,8 @@ from nes_img_captioning_tpu_torch.ops import decode_cuda as tdc
 from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
 from nes_img_captioning_tpu_torch.ops.noise import philox_normal_plain
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 
 @pytest.fixture
 def small_members():

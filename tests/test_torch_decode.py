@@ -22,6 +22,8 @@ from nes_img_captioning_tpu_torch.models.fc_caption import (
 from nes_img_captioning_tpu_torch.ops import decode_cuda as tdc
 from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -122,7 +124,10 @@ def test_plain_k1_matches_pallas_interpret(vocab, feat, enc, dt, need_lp):
 
 def test_plain_k1_early_stop_and_batch_of_members():
     """EOS-boosted member: rows stop, later steps stay 0, as in JAX. A batch
-    of members in one call equals the members decoded one by one."""
+    of members in one call equals the members decoded one by one, bit for
+    bit at one intra-op thread, because MKL's multi-threaded batched
+    product over M members is not batch-invariant
+    (``test_torch_threads.py`` holds the 4-thread case)."""
     jm, theta, spec, topts = _setup(40, 16, 8, seed=5)
     boosted = theta.copy()
     boosted[jm.spec.offset("logit.bias")] += 8.0
@@ -196,8 +201,11 @@ def test_plain_k2_matches_pallas_interpret(dt, ddt):
 
 
 def test_plain_k2_batch_of_pairs_and_pad_lanes():
-    """A (P, ...) delta batch equals the pairs one by one; huge noise that
-    is zero on pad lanes never selects a pad token."""
+    """A (P, ...) delta batch equals the pairs one by one (bit for bit at
+    one intra-op thread, because MKL's multi-threaded batched product over
+    P pairs is not batch-invariant; ``test_torch_threads.py`` holds the
+    4-thread case); huge noise that is zero on pad lanes never selects a
+    pad token."""
     jm, theta, spec, topts = _setup(50, 16, 8, seed=0)
     tl = DecodeLayout(spec, topts)
     base = tl.prep(tl.to_dec(torch.from_numpy(theta)), torch.float32)

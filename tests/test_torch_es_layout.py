@@ -22,6 +22,8 @@ from test_torch_es import (  # noqa: F401
     torch_master,
 )
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 KINDS = ["", "SM-PROPORTIONAL", "SM-G-SUM", "SM-VECTOR"]
 SIGMA = 0.05
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from test_torch_es import REPO, coco, es_exp, jax_master, torch_master  # noqa: F401
+from torch_pin import one_intra_op_thread  # noqa: F401
 
 
 def _zinfo(log_dir) -> str:

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 
 from nes_img_captioning_tpu.data.synthetic import make_synthetic_coco
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 # l2coeff of the bench. With a large one the Adam step is ill-conditioned
 # where -grad/2F cancels l2*theta (globalg ~1e-8, near Adam's epsilon), and
 # two f32 sums of the same terms in different orders then differ there by

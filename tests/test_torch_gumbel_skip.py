@@ -15,6 +15,8 @@ borrowed from the lanes that hold the row's other columns (bound)."""
 import numpy as np
 import torch
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 LOG2E = np.float32(1.44269504088896341)
 SLACK = np.float32(1.00390625)  # 1 + 2^-8
 SCALE = np.array([0x3F7FFFFD], np.uint32).view(np.float32)[0]  # f32(1 - 2e-7)

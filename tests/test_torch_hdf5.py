@@ -16,6 +16,8 @@ import pytest
 
 from nes_img_captioning_tpu_torch.data import hdf5
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 LIBVERS = ("earliest", "latest")  # superblock versions 0 and 3

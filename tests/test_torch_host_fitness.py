@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 from nes_img_captioning_tpu.data.synthetic import make_synthetic_coco
 from test_torch_es import es_exp, jax_master, jax_randomness, torch_master
+from torch_pin import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F_PAIRS, B, SIGMA, STEP, L2 = 3, 4, 0.05, 0.5, 1e-7

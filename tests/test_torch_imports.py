@@ -4,6 +4,8 @@ import pathlib
 import subprocess
 import sys
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = "nes_img_captioning_tpu_torch"
 

@@ -24,6 +24,8 @@ from nes_img_captioning_tpu_torch.ops.noise import (
     unit_normal_plain,
 )
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 # l2coeff as in tests/test_torch_generation.py: at 1e-3 the Adam step of a
 # toy element is ill-conditioned where -grad/2F cancels l2*theta, and two
 # f32 gradient sums in different orders then differ by more than 1e-6. The

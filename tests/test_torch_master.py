@@ -14,6 +14,8 @@ import torch
 
 from nes_img_captioning_tpu.data.synthetic import make_synthetic_coco
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -8,6 +8,7 @@ import pytest
 
 from test_torch_es import coco, es_exp, jax_master, torch_master  # noqa: F401
 from test_torch_master import _exp, coco_files  # noqa: F401
+from torch_pin import one_intra_op_thread  # noqa: F401
 
 # (config, tpu) cadences: snapshots every 5 with a schedule from 7 every 6;
 # snapshots every 4 with host validation every 3; no events at all

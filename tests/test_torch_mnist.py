@@ -22,6 +22,8 @@ import jax.numpy as jnp
 from nes_img_captioning_tpu_torch.ops import sensitivity as tsens
 from nes_img_captioning_tpu_torch.ops.mutation import MutationKind
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 SIZES, B, ATOL = (256, 128), 16, 1e-5
 SENS_RTOL, SENS_ATOL, UNDERFLOW = 2e-4, 1e-6, 0.2
 VBN = pytest.mark.parametrize("vbn", [False, True], ids=["plain", "vbn"])

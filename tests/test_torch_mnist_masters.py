@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_es import final_state, jax_randomness, record
+from torch_pin import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAIRS, OFFSPRING, B, SGD_STEP, SIGMA, L2 = 4, 8, 16, 10.0, 0.02, 0.001

@@ -16,6 +16,8 @@ from nes_img_captioning_tpu_torch.algorithms import optimizers as topt
 from nes_img_captioning_tpu_torch.ops import mutation as tmut
 from nes_img_captioning_tpu_torch.ops import ranks as tranks
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 
 def test_centered_ranks_with_ties_match_jax():
     """Stable-sort tie rule: tied fitnesses rank in position order."""

@@ -30,6 +30,8 @@ import jax.numpy as jnp
 
 from nes_img_captioning_tpu.data.synthetic import make_synthetic_coco
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F_PAIRS, B, SIGMA, STEP, L2, UNDERFLOW = 4, 4, 0.05, 0.01, 1e-7, 0.01
 # the JAX comparison's SGD: its first step is -SGD_STEP * 0.1 * globalg,

@@ -8,6 +8,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location(
     "torch_noise_sass", ROOT / "scripts" / "torch_noise_sass.py")

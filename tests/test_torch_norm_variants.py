@@ -29,6 +29,8 @@ from nes_img_captioning_tpu_torch.models.fc_caption import (
     build_spec,
 )
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 DIMS = dict(vocab_size=30, input_encoding_size=8, rnn_size=8,
             fc_feat_size=32)
 VARIANTS = {
@@ -90,7 +92,10 @@ def test_spec_state_dict_and_pth_match_jax(variant, tmp_path):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_eager_greedy_matches_jax(variant):
     """``sample`` (one member, greedy) against JAX FCCaptionModel.sample:
-    tokens equal, logprobs within 2e-5 (1e-4 with norms)."""
+    tokens equal, logprobs within 2e-5 (1e-4 with norms). At 8 intra-op
+    threads vbn_affine's row 2 flips at step 8, a near-tie (top-2 gap
+    7.4e-6 on one thread, 1.2e-6 on 8), and its batch statistics carry the flip to other rows
+    (ROADMAP.md §3, vbn numerics); the module runs on one thread."""
     jm, opts = _models(variant)
     theta = _theta(jm)
     feats = np.random.default_rng(2).normal(size=(6, 32)).astype(np.float32)
@@ -142,7 +147,9 @@ def test_eager_sampled_matches_jax_given_its_gumbel(variant):
 def test_sample_members_bitwise_single_member_calls(variant, greedy):
     """M = 4 members decoded together equal 4 calls of one member each,
     bit for bit: each member's products and batch statistics are its
-    own."""
+    own. Bitwise at one intra-op thread only, because MKL's multi-threaded
+    ``baddbmm`` over M members is not batch-invariant
+    (``test_torch_threads.py`` holds the 4-thread case)."""
     jm, opts = _models(variant)
     thetas = torch.from_numpy(np.stack([_theta(jm, s) for s in range(4)]))
     rng = np.random.default_rng(5)

@@ -18,6 +18,8 @@ from nes_img_captioning_tpu.fitness import meteor as jmet
 from nes_img_captioning_tpu_torch.fitness import lang_metrics as tlm
 from nes_img_captioning_tpu_torch.fitness import meteor as tmet
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 # words whose Porter stems collide, so the stem stage has work to do
 WORDS = ["cat", "cats", "dog", "dogs", "running", "runs", "sitting", "sits",
          "the", "a", "on", "mat", "sofa", "couch", "kid", "child", "jumped",

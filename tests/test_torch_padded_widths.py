@@ -32,6 +32,8 @@ from nes_img_captioning_tpu_torch.models.fc_caption import (
 from nes_img_captioning_tpu_torch.ops import decode_cuda as tdc
 from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (E, R, F): E != R both ways and a ragged feature width, all laid out at
 # (W, F_k) = (128, 128)

@@ -33,6 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+from torch_pin import intra_op_threads, pinned_threads
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # seconds: a subprocess, and a rendezvous or collective. The local-rank CLI
 # test takes 10-19 s alone and 53-66 s beside five busy 8-thread processes
@@ -494,13 +497,18 @@ def test_cli_mesh_shape_starts_its_ranks(tmp_path):
     and no --num_processes: one command starts 2 local ranks, which log
     the same RewMean, RewMax and EliteAcc lines over 4 iterations (the last
     2 as one block on both); one z_info, whose parents, candidates and
-    podium files are in the run's directory."""
+    podium files are in the run's directory. Each rank runs half of the
+    starter's intra-op threads, at least 1 (the starter inherits the
+    test's one thread through OMP_NUM_THREADS)."""
     exp = _mnist_exp(tmp_path, "es")
     exp.update(population_size=4, num_elites=1, num_elite_cands=1)
     exp["tpu"] = {"seed": 13, "gens_per_dispatch": 2, "mesh_shape": [2]}
     exp_file = tmp_path / "exp.json"
     exp_file.write_text(json.dumps(exp))
     (err,) = _run([_cli(exp_file, 4)])
+    share = max(1, pinned_threads() // 2)
+    for r in range(2):
+        assert f"local rank {r} of 2: {share} intra-op threads" in err
     for label in ("RewMean", "RewMax", "EliteAcc"):
         by_pid = _stat_lines(err, label)
         assert len(by_pid) == 2, (label, by_pid)
@@ -514,6 +522,17 @@ def test_cli_mesh_shape_starts_its_ranks(tmp_path):
         assert os.path.isfile(path) and path.startswith(run_dir), path
     for path, _ in infos["best_elites"]:
         assert os.path.isfile(path) and path.startswith(run_dir), path
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_local_rank_threads_split_the_starters_threads(n):
+    """main.py's local ranks split the starting process's intra-op threads
+    (torch's own count, which OMP_NUM_THREADS sets), never below 1."""
+    from nes_img_captioning_tpu_torch.main import local_rank_threads
+
+    for threads in (1, 2, 8):
+        with intra_op_threads(threads):
+            assert local_rank_threads(n) == max(1, threads // n)
 
 
 if __name__ == "__main__":

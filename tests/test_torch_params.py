@@ -22,6 +22,8 @@ from nes_img_captioning_tpu_torch.models.params import (
     theta_to_numpy,
 )
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 FULL = dict(vocab_size=9487, input_encoding_size=128, rnn_size=128,
             fc_feat_size=2048)
 TOY = dict(vocab_size=50, input_encoding_size=16, rnn_size=16,

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -20,6 +20,8 @@ from nes_img_captioning_tpu.ops.decode_layout import DecodeLayout as JaxLayout
 from nes_img_captioning_tpu_torch.ops import decode_cuda as tdc
 from nes_img_captioning_tpu_torch.ops.noise import gumbel_plain
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 B, T = 256, 16
 
 

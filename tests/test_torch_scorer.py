@@ -17,6 +17,8 @@ from nes_img_captioning_tpu_torch.fitness import scorer as tscorer
 from nes_img_captioning_tpu_torch.fitness.ciderd import CiderScorer
 from nes_img_captioning_tpu_torch.fitness.scorer import IndexedCiderScorer
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 
 def _corpus(rng, n_images=40, caps=5, T=16, vocab=40):
     gts = []

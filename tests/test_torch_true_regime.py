@@ -39,6 +39,8 @@ import jax
 
 from nes_img_captioning_tpu.data.synthetic import make_synthetic_coco
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 # the Karpathy split's train images (train + restval) and the file's
 # nb_offspring and batch_size
 SPLIT_TRAIN, PAIRS, BATCH = 113287, 2000, 64

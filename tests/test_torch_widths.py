@@ -26,6 +26,8 @@ from nes_img_captioning_tpu_torch.models.fc_caption import (
 from nes_img_captioning_tpu_torch.ops import decode_cuda as tdc
 from nes_img_captioning_tpu_torch.ops.decode_layout import DecodeLayout
 
+from torch_pin import one_intra_op_thread  # noqa: F401
+
 WIDTHS = [256, 512]
 FEAT, T = 256, 16
 
